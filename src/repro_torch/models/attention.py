@@ -1,0 +1,148 @@
+"""GQA self-attention in decode mode: dense (ring-aware) and paged caches.
+
+A port of the decode path of ``repro.models.attention``.  Caches are
+updated **in place**: the dense rows of the request's own slot, or the
+page-pool rows the block table resolves ``pos`` to.  Every paged attention
+call goes through :func:`repro_torch.kernels.ops.paged_attention`, so a CUDA
+tensor reaches the hand-written kernel.
+
+Train and prefill modes (full-sequence attention) belong to the
+flash-attention slice and raise here.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.common import adtype, apply_rope, spec
+
+NEG_INF = -1e30
+
+
+def attn_specs(cfg):
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {
+        "wq": spec((d, H, hd), ("embed", "heads", "head")),
+        "wk": spec((d, KV, hd), ("embed", "kv", "head")),
+        "wv": spec((d, KV, hd), ("embed", "kv", "head")),
+        "wo": spec((H, hd, d), ("heads", "head", "embed")),
+    }
+
+
+def gqa_attention(q, k, v, mask, scale):
+    """q: (B,Sq,H,hd) k/v: (B,Sk,KV,hd) mask: (B or 1, Sq, Sk) boolean."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * scale
+    scores = scores + torch.where(mask, 0.0, NEG_INF)[:, None, None]
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+    return out.reshape(B, Sq, H, hd)
+
+
+def _cache_len(cfg, kind: str, max_seq: int) -> int:
+    if kind == "local" or (cfg.serve_window_override and kind == "full"):
+        w = cfg.window_size if kind == "local" else cfg.serve_window_override
+        return min(w, max_seq)
+    return max_seq
+
+
+def init_self_cache(cfg, kind: str, batch: int, max_seq: int, device):
+    """Zeroed dense cache for one attention layer: (B, S, KV, hd) rows."""
+    shape = (batch, _cache_len(cfg, kind, max_seq), cfg.num_kv_heads,
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=adtype(cfg), device=device),
+            "v": torch.zeros(shape, dtype=adtype(cfg), device=device)}
+
+
+def init_paged_self_cache(cfg, total_pages: int, page_size: int, device):
+    """Paged cache for one attention layer: K/V page pools, no batch dim.
+
+    Positions are stored absolutely for every layer kind: the page of
+    position p is block-table entry ``p // page_size``.
+    """
+    shape = (total_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    return {"kp": torch.zeros(shape, dtype=adtype(cfg), device=device),
+            "vp": torch.zeros(shape, dtype=adtype(cfg), device=device)}
+
+
+def self_attention(cfg, p, x, *, kind: str, mode: str, positions, freqs,
+                   cache=None, window_override: int = 0, pt=None,
+                   pos32=None):
+    """Decode-mode self-attention; writes this token's K/V into ``cache``.
+
+    x: (B,1,d); positions: (B,); ``freqs`` the model's RoPE frequencies.
+    ``pt`` (B, nblk1) selects the paged path when ``cache`` holds page
+    pools ({'kp','vp'}); ``pos32`` is ``positions`` as int32 for the kernel
+    (computed once per decode step).
+    """
+    if mode != "decode":
+        raise NotImplementedError(
+            f"attention mode {mode!r}: train/prefill (full-sequence) "
+            "attention arrives with the flash-attention slice")
+    B = x.shape[0]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    d = cfg.d_model
+    scale = hd ** -0.5
+    window = cfg.window_size if kind == "local" else 0
+    if window_override:
+        window = window_override if window == 0 else min(window,
+                                                         window_override)
+
+    q = (x @ p["wq"].reshape(d, H * hd).to(x.dtype)).reshape(B, 1, H, hd)
+    k = (x @ p["wk"].reshape(d, KV * hd).to(x.dtype)).reshape(B, 1, KV, hd)
+    v = (x @ p["wv"].reshape(d, KV * hd).to(x.dtype)).reshape(B, 1, KV, hd)
+    pos_b = positions[:, None]
+    q = apply_rope(q, pos_b, freqs)
+    k = apply_rope(k, pos_b, freqs)
+    if pt is not None and "kp" in cache:
+        _write_cache_paged(cache, k, v, positions, pt)
+        if pos32 is None:
+            pos32 = positions.to(torch.int32)
+        out = ops.paged_attention(q, cache["kp"], cache["vp"], pt, pos32,
+                                  window=window, scale=scale)
+    else:
+        _write_cache(cache, k, v, positions)
+        mask = _decode_mask(cache["k"].shape[1], positions,
+                            ring=(window > 0))
+        out = gqa_attention(q, cache["k"], cache["v"], mask, scale)
+    y = out.reshape(B, 1, H * hd) @ p["wo"].reshape(H * hd, d).to(x.dtype)
+    return y
+
+
+def _write_cache(cache, k, v, positions):
+    """Write the new (B,1,KV,hd) kv at per-request slots (ring aware)."""
+    size = cache["k"].shape[1]
+    rows = torch.arange(k.shape[0], device=k.device)
+    slots = positions % size
+    cache["k"][rows, slots] = k[:, 0]
+    cache["v"][rows, slots] = v[:, 0]
+
+
+def _write_cache_paged(cache, k, v, positions, pt):
+    """Write the new (B,1,KV,hd) kv through the block table, in place.
+
+    Physical row of position p for request b is
+    ``pt[b, p // ps] * ps + p % ps``.  Rows that are done (or never
+    admitted) resolve to scratch or trash pages the host allocator set up,
+    so the unconditional write never lands in a page another row reads.
+    """
+    kp, vp = cache["kp"], cache["vp"]
+    P, ps = kp.shape[0], kp.shape[1]
+    blk = torch.clamp(positions // ps, max=pt.shape[1] - 1)
+    page = torch.gather(pt, 1, blk[:, None].long())[:, 0].long()
+    rows = page * ps + positions % ps                          # (B,)
+    kp.view(P * ps, *kp.shape[2:])[rows] = k[:, 0].to(kp.dtype)
+    vp.view(P * ps, *vp.shape[2:])[rows] = v[:, 0].to(vp.dtype)
+
+
+def _decode_mask(sk: int, positions, *, ring: bool):
+    """(B,1,Sk) validity mask for decode against a (ring) cache."""
+    slots = torch.arange(sk, device=positions.device)[None]
+    pos = positions[:, None]
+    if not ring:
+        return (slots <= pos)[:, None]
+    filled = (slots <= pos) | (pos >= sk)
+    return filled[:, None]

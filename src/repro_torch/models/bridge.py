@@ -1,0 +1,62 @@
+"""Weight and cache bridge between the reference's pytrees and the port.
+
+``params_from_numpy`` turns a ``repro`` parameter tree held as numpy arrays
+(``jax.tree.map(np.asarray, params)``) into the port's flat parameter dict:
+the scanned ``blocks/p{i}`` leaves are unstacked along their leading layer
+dim, and every weight keeps its reference layout.  ``cache_to_numpy`` goes
+the other way for caches, so a test can compare the port's per-layer caches
+with the reference's stacked cache pytree leaf by leaf.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.model import layer_slots
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":        # ml_dtypes: no direct torch view
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)    # own, writable copy
+
+
+def params_from_numpy(cfg, tree, device="cpu") -> dict:
+    """A reference parameter tree (numpy leaves) -> the port's params."""
+    out = {f"embed.{k}": _tensor(v, device)
+           for k, v in tree["embed"].items()}
+    out["final_ln"] = _tensor(tree["final_ln"], device)
+    for i, (_, group, key, index) in enumerate(layer_slots(cfg)):
+        blk = tree[group][key]
+        for part in ("ln1", "ln2"):
+            out[f"layers.{i}.{part}"] = _tensor(
+                blk[part] if index is None else blk[part][index], device)
+        for sub in ("attn", "ffn"):
+            for name, leaf in blk[sub].items():
+                out[f"layers.{i}.{sub}.{name}"] = _tensor(
+                    leaf if index is None else leaf[index], device)
+    if cfg.reward_head:
+        out["reward_head.w"] = _tensor(tree["reward_head"]["w"], device)
+        out["reward_head.b"] = _tensor(tree["reward_head"]["b"], device)
+    return out
+
+
+def cache_to_numpy(cfg, cache) -> dict:
+    """The port's per-layer cache list -> the reference's cache pytree
+    layout (``{"blocks": {"p{i}": stacked leaves}, "rem": {...}}``) as
+    float32 numpy arrays."""
+    groups: dict = {"blocks": {}, "rem": {}}
+    for (_, group, key, index), layer in zip(layer_slots(cfg), cache):
+        arrays = {k: v.detach().float().cpu().numpy() for k, v in layer.items()}
+        if index is None:
+            groups["rem"][key] = arrays
+        else:
+            groups["blocks"].setdefault(key, []).append(arrays)
+    out = {"blocks": None, "rem": groups["rem"] or None}
+    if groups["blocks"]:
+        out["blocks"] = {
+            key: {k: np.stack([a[k] for a in reps]) for k in reps[0]}
+            for key, reps in groups["blocks"].items()}
+    return out

@@ -1,0 +1,175 @@
+"""The decoder model as an ``nn.Module``: decode steps over dense or paged KV.
+
+A port of ``repro.models.model.Model`` for the serving path:
+
+* ``decode_step(cache, tokens, positions, pt=None)`` — one token per row;
+  the cache (a list with one dict per layer) is updated in place;
+* ``init_cache(batch, max_seq, pages=0, page_size=0)`` — dense rows or
+  page pools;
+* ``reward_from_hidden(h)`` — the PRM head.
+
+Parameters keep the reference's per-weight layouts (``wq (d,H,hd)``,
+``wo (H,hd,d)``, ...) under flat names such as ``layers.3.attn.wq``; layer
+``L`` is the ``L``-th layer the reference applies (see :func:`layer_slots`).
+``forward``, ``hidden``, ``prefill``, ``score`` and ``reward`` arrive with
+the flash-attention and logprob-gather slices.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import blocks
+from repro_torch.models.common import (embed_specs, embed_tokens,
+                                       init_params, norm_spec, rms_norm,
+                                       rope_freqs, spec, unembed)
+
+
+def layer_slots(cfg: ModelConfig) -> list:
+    """``(kind, group, key, index)`` of every layer in execution order.
+
+    The reference groups layers into scanned pattern blocks
+    (``blocks/p{i}``, stacked ``index`` along a leading dim) followed by the
+    unscanned remainder (``rem/r{i}``, ``index`` None); the bridge and the
+    cache converters map port layer ``L`` to entry ``L`` of this list.
+    """
+    if cfg.family == "ssm":
+        raise NotImplementedError("rwkv (ssm) stacks are not ported yet")
+    pattern = tuple(cfg.layer_pattern)
+    n = len(pattern)
+    repeats = cfg.num_layers // n if cfg.scan_layers else 0
+    if cfg.scan_layers:
+        remainder = pattern[:cfg.num_layers - repeats * n]
+    else:
+        remainder = tuple(pattern * (-(-cfg.num_layers // n)))[
+            :cfg.num_layers]
+    slots = [(kind, "blocks", f"p{i}", r)
+             for r in range(repeats) for i, kind in enumerate(pattern)]
+    slots += [(kind, "rem", f"r{i}", None) for i, kind in enumerate(remainder)]
+    return slots
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Flat ``{name: ParamSpec}`` of the whole model."""
+    out = {f"embed.{k}": s for k, s in embed_specs(cfg).items()}
+    out["final_ln"] = norm_spec(cfg.d_model)
+    for i, (kind, *_) in enumerate(layer_slots(cfg)):
+        for k, s in blocks.block_specs(cfg, kind).items():
+            out[f"layers.{i}.{k}"] = s
+    if cfg.reward_head:
+        out["reward_head.w"] = spec((cfg.d_model, 1), ("embed", None))
+        out["reward_head.b"] = spec((1,), (None,), "zeros")
+    return out
+
+
+def random_params(cfg: ModelConfig, seed: int, device) -> dict:
+    """Seeded random weights at the config's shapes, made on ``device``."""
+    return init_params(param_specs(cfg), seed, getattr(torch, cfg.param_dtype),
+                       device)
+
+
+def _frozen(t) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Block(nn.Module):
+    """One layer's weights; ``block["attn"]`` etc. for ``blocks.block_apply``."""
+
+    def __init__(self, kind: str, tensors: dict):
+        super().__init__()
+        self.kind = kind
+        self.ln1 = _frozen(tensors["ln1"])
+        self.ln2 = _frozen(tensors["ln2"])
+        self.attn = nn.ParameterDict(
+            {k[5:]: _frozen(v) for k, v in tensors.items()
+             if k.startswith("attn.")})
+        self.ffn = nn.ParameterDict(
+            {k[4:]: _frozen(v) for k, v in tensors.items()
+             if k.startswith("ffn.")})
+
+    def __getitem__(self, name):
+        return getattr(self, name)
+
+
+class Model(nn.Module):
+    """A decoder stack holding ``params`` (``{name: tensor}``, see
+    :func:`param_specs`); tensors already on ``device`` are not copied."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, *, device=None):
+        super().__init__()
+        specs = param_specs(cfg)
+        if set(params) != set(specs):
+            raise KeyError(
+                f"{cfg.name}: parameter names differ from the config's; "
+                f"missing {sorted(set(specs) - set(params))[:4]}, "
+                f"unexpected {sorted(set(params) - set(specs))[:4]}")
+        tensors = {}
+        for name, s in specs.items():
+            t = params[name] if device is None else params[name].to(device)
+            if tuple(t.shape) != s.shape:
+                raise ValueError(f"{cfg.name}: {name} has shape "
+                                 f"{tuple(t.shape)}, config wants {s.shape}")
+            tensors[name] = t
+        self.cfg = cfg
+        self.kinds = [kind for kind, *_ in layer_slots(cfg)]
+        self.embed = nn.ParameterDict(
+            {k[6:]: _frozen(v) for k, v in tensors.items()
+             if k.startswith("embed.")})
+        self.final_ln = _frozen(tensors["final_ln"])
+        self.layers = nn.ModuleList()
+        for i, kind in enumerate(self.kinds):
+            pre = f"layers.{i}."
+            self.layers.append(Block(kind, {
+                k[len(pre):]: v for k, v in tensors.items()
+                if k.startswith(pre)}))
+        if cfg.reward_head:
+            self.reward_head = nn.ParameterDict(
+                {"w": _frozen(tensors["reward_head.w"]),
+                 "b": _frozen(tensors["reward_head.b"])})
+        self.register_buffer("rope_freqs", torch.as_tensor(
+            rope_freqs(cfg.head_dim, cfg.rope_theta),
+            device=self.final_ln.device), persistent=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.final_ln.device
+
+    @torch.no_grad()
+    def decode_step(self, cache, tokens, positions, *,
+                    return_hidden: bool = False, pt=None):
+        """One serving step: tokens (B,1), positions (B,) -> logits (B,V).
+
+        Writes each layer's K/V for ``positions`` into ``cache`` in place.
+        ``pt`` (B, nblk1) int32 routes every attention layer through the
+        paged kernel.  ``return_hidden`` also returns the final hidden state
+        (B,d), which the PRM reward head reads.
+        """
+        cfg = self.cfg
+        x = embed_tokens(cfg, self.embed, tokens)
+        pos32 = None if pt is None else positions.to(torch.int32)
+        for layer, c in zip(self.layers, cache):
+            x = blocks.block_apply(cfg, layer.kind, layer, x,
+                                   positions=positions, cache=c,
+                                   freqs=self.rope_freqs, pt=pt, pos32=pos32)
+        x = rms_norm(x, self.final_ln, cfg.norm_eps)
+        logits = unembed(cfg, self.embed, x)[:, 0]
+        if return_hidden:
+            return logits, x[:, 0]
+        return logits
+
+    @torch.no_grad()
+    def reward_from_hidden(self, h):
+        """PRM head on a hidden state (..., d) -> reward in [0,1]."""
+        rh = self.reward_head
+        logit = (h.float() @ rh["w"].float())[..., 0] + rh["b"].float()
+        return torch.sigmoid(logit)
+
+    def init_cache(self, batch: int, max_seq: int, *, pages: int = 0,
+                   page_size: int = 0) -> list:
+        """Zeroed per-layer caches on the model's device; ``pages > 0``
+        selects the paged layout (page pools shared by all rows)."""
+        return [blocks.init_block_cache(self.cfg, kind, batch, max_seq,
+                                        device=self.device, pages=pages,
+                                        page_size=page_size)
+                for kind in self.kinds]

@@ -1,0 +1,721 @@
+"""The GSI three-model serving engine (Algorithm 1, end to end).
+
+A port of ``repro.serving.gsi_engine`` for one device.  Draft pi_S, target
+pi_B and the PRM run the step-level loop:
+
+  draft phase   — n branches of the committed draft cache; sample n
+                  candidate steps; score them under pi_B and the PRM
+                  (``score_and_append`` on branch caches); tilted soft
+                  best-of-n select + threshold (``core.gsi``).
+  target phase  — on rejection: n candidate steps sampled from pi_B, PRM
+                  rewards, raw-reward soft best-of-n (lines 9-12).
+  commit        — append the chosen step to all three committed caches.
+
+The same engine, re-parameterized, runs every baseline of the paper:
+``gsi | gsi_norej | rsd | sbon_s | sbon_b``, on dense or paged caches.
+
+**Fallback: a host-checked branch.**  The reference folds the target phase
+into its jitted step under ``lax.cond(jnp.all(accept), ...)``.  Here the
+host reads ``accept`` and runs ``_target_phase`` iff ``not accept.all()``
+— the same predicate, over every row (done rows included) — then selects
+per row with ``torch.where``.  When every row accepts, the target phase is
+skipped, exactly as the reference's ``cond`` skips it.
+
+**In-place caches.**  Caches and page pools are updated in place, never
+copied per token: the reference's functional ``.at[].set`` would copy
+every pool on every layer and token in eager PyTorch, which at full width
+is gigabytes per step.  In place is safe for the same reasons the
+reference's scatter is race-free (``repro/serving/engine.py`` module notes,
+``repro/models/attention.py`` ``_write_cache_paged*``):
+
+* branch writes land only in per-branch scratch pages (``branch_pages``
+  points the write range there; ``branch_cache`` copies the partial page
+  into the branch's first scratch page), or in the trash page;
+* commits land only in slot-owned tail pages at ``pos`` and beyond, which
+  admission guarantees lie past every spliced (shared) prefix page;
+* rows that are done or never admitted resolve to the trash page, whose
+  content is garbage by design and masked on every read;
+* dense branches are copies (``repeat_cache``), so a branch never writes
+  the committed rows.
+
+A paged engine backs one live state at a time (its page allocator is host
+state); the generation stamp ``state["gen"]`` is a plain int.
+"""
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass, field
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.config import GSIConfig, ModelConfig
+from repro_torch.core import gsi_select, rsd_select, soft_bon_select
+from repro_torch.device import resolve_device
+from repro_torch.models import Model
+from repro_torch.models.attention import _cache_len
+from repro_torch.models.common import adtype
+from repro_torch.sampling import sample_steps, score_and_append
+from repro_torch.serving.engine import (branch_cache, branch_pages,
+                                        expand_requests, fold_candidates,
+                                        repeat_cache, reset_cache_rows,
+                                        take_candidates, take_per_request)
+from repro_torch.serving.pages import (PagePool, RadixIndex, pages_for,
+                                       validate_kv_dtype)
+from repro_torch.serving.slots import pack_tails
+
+PAD = 0
+MODES = ("gsi", "gsi_norej", "rsd", "sbon_s", "sbon_b")
+
+
+class StepResult(NamedTuple):
+    """Host-side outcome of one engine decode step (all numpy, (B,...))."""
+
+    chosen: np.ndarray       # (B, L) committed step tokens (PAD-padded)
+    done_prev: np.ndarray    # (B,) slot was already done before this step
+    eos: np.ndarray          # (B,) step emitted EOS
+    failed: np.ndarray       # (B,) B.2 early-stop: all draft rewards low
+    accept: np.ndarray       # (B,) draft step accepted (True in sbon_b)
+    done: np.ndarray         # (B,) done *after* this step
+    pos: np.ndarray          # (B,) cache position after commit
+    draft_tokens: int = 0    # non-PAD draft candidate tokens this step
+    target_tokens: int = 0   # non-PAD target candidate tokens this step
+    rewards: Optional[np.ndarray] = None      # (B, n) PRM rewards
+    tilted: Optional[np.ndarray] = None       # (B, n) tilted rewards
+    logp_ratio: Optional[np.ndarray] = None   # (B, n) log pi_B - log pi_S
+
+
+@dataclass
+class EngineStats:
+    """Serving counters + bounded trace arrays for one engine/scheduler.
+
+    ``record_trace`` keeps at most ``trace_limit`` arrays per trace while
+    folding every array into exact running moments (Chan/Welford).
+    Compound updates serialize on an internal lock.
+    """
+
+    steps: int = 0
+    accepted: int = 0
+    decisions: int = 0
+    draft_tokens: int = 0
+    target_tokens: int = 0
+    requests_finished: int = 0
+    prefix_queries: int = 0       # admissions that consulted the radix index
+    prefix_hits: int = 0          # admissions with matched_len > 0
+    prefix_hit_tokens: int = 0    # prompt tokens whose prefill was skipped
+    prefix_pages_reused: int = 0  # cached/shared pages spliced into tables
+    prefill_tokens: int = 0       # prompt tokens actually prefill-committed
+    pages_evicted: int = 0        # cached pages evicted to admit (LRU)
+    decode_pages_published: int = 0
+    prefill_commit_max: int = 0   # most prompt tokens in one admit commit
+    trace_limit: int = 512
+    tilted_rewards: list = field(default_factory=list)
+    raw_rewards: list = field(default_factory=list)
+    logp_ratio: list = field(default_factory=list)   # log pi_B - log pi_S
+    moments: dict = field(default_factory=dict)      # name -> [n, mean, M2]
+    _lock: threading.Lock = field(default_factory=threading.Lock,
+                                  repr=False, compare=False)
+
+    @property
+    def accept_rate(self) -> float:
+        """Fraction of live-slot decisions that accepted the draft step."""
+        return self.accepted / max(1, self.decisions)
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Fraction of admissions whose prompt matched cached pages."""
+        return self.prefix_hits / max(1, self.prefix_queries)
+
+    def bump(self, **deltas: int) -> None:
+        """Atomically add ``deltas`` to the named scalar counters."""
+        with self._lock:
+            for name, d in deltas.items():
+                setattr(self, name, getattr(self, name) + d)
+
+    def record_trace(self, name: str, arr) -> None:
+        """Append ``arr`` to the named trace (bounded) and fold it into
+        the running moments."""
+        arr = np.asarray(arr)
+        x = arr.astype(np.float64).ravel()
+        with self._lock:
+            lst = getattr(self, name)
+            if len(lst) < self.trace_limit:
+                lst.append(arr)
+            if x.size == 0:
+                return
+            n_a, mean_a, m2_a = self.moments.setdefault(name, [0, 0.0, 0.0])
+            n_b = x.size
+            mean_b = float(x.mean())
+            m2_b = float(((x - mean_b) ** 2).sum())
+            n = n_a + n_b
+            delta = mean_b - mean_a
+            self.moments[name] = [
+                n, mean_a + delta * n_b / n,
+                m2_a + m2_b + delta * delta * n_a * n_b / n]
+
+
+class GSIServingEngine:
+    """mode: gsi | gsi_norej | rsd | sbon_s | sbon_b.
+
+    ``params_s/b/p`` are the port's parameter dicts (``models.param_specs``
+    names: from ``models.bridge.params_from_numpy`` or
+    ``models.random_params``); they are moved to ``device`` (no copy when
+    already there).  ``device`` defaults to ``"cuda"`` and raises where
+    CUDA is absent; tests pass ``device="cpu"``.
+    """
+
+    def __init__(self, draft_cfg: ModelConfig, target_cfg: ModelConfig,
+                 prm_cfg: ModelConfig, params_s, params_b, params_p,
+                 gcfg: GSIConfig, *, mode: str = "gsi",
+                 rsd_threshold: float = 0.7, max_seq: int = 512,
+                 shared_scoring: bool = False, paged: bool = False,
+                 page_size: int = 16, num_pages: int = 0,
+                 prefix_cache: bool = True, decode_publish: bool = True,
+                 kv_dtype: Optional[str] = None,
+                 quantize_draft: bool = False, mesh=None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        if not prm_cfg.reward_head:
+            raise ValueError("the PRM config needs reward_head=True")
+        if mode not in MODES:
+            raise ValueError(f"mode {mode!r} not in {MODES}")
+        for name, asked in (("mesh", mesh is not None),
+                            ("shared_scoring", shared_scoring),
+                            ("quantize_draft", quantize_draft)):
+            if asked:
+                raise NotImplementedError(f"{name} is not ported yet")
+        validate_kv_dtype(kv_dtype)
+        self.kv_dtype = kv_dtype
+        self.mode = mode
+        self.gcfg = gcfg
+        self.rsd_threshold = rsd_threshold
+        self.max_seq = max_seq
+        self.paged = paged
+        self.page_size = page_size
+        self.nblk = -(-max_seq // page_size)
+        self.nmax = max(gcfg.n, gcfg.n_target or gcfg.n)
+        # pages one candidate branch can write in one reasoning step:
+        # positions pos .. pos+max_step_tokens, worst-case page phase
+        self.span = (page_size - 1 + gcfg.max_step_tokens) // page_size + 1
+        self._num_pages = num_pages
+        self.num_pages = 0            # set when a paged state is created
+        self.pager: Optional[PagePool] = None
+        self._trash = 0               # trash page id (last pool row)
+        self._released: set = set()   # slots whose pt rows await trash-reset
+        self._gen = 0                 # live-state generation
+        self.draft = Model(draft_cfg, params_s, device=self.device)
+        self.target = Model(target_cfg, params_b, device=self.device)
+        self.prm = Model(prm_cfg, params_p, device=self.device)
+        # the stacks are attention-only (other kinds raise in Model), so
+        # cross-request prefix sharing is exact
+        self.prefix_cache = bool(prefix_cache and paged)
+        self.decode_publish = bool(decode_publish and self.prefix_cache)
+        # host mirrors of per-slot pos/done, refreshed at admit and after
+        # every step: page assignment reads these, not the device state
+        self._known_pos = np.zeros((0,), np.int64)
+        self._known_done = np.zeros((0,), bool)
+
+    # ------------------------------------------------------------------
+    # State
+    # ------------------------------------------------------------------
+    def _fresh_caches(self, batch: int, *, pages: int = 0):
+        kw = dict(pages=pages, page_size=self.page_size)
+        return {"S": self.draft.init_cache(batch, self.max_seq, **kw),
+                "B": self.target.init_cache(batch, self.max_seq, **kw),
+                "P": self.prm.init_cache(batch, self.max_seq, **kw)}
+
+    def fresh_state(self, batch: int):
+        """An all-free slot-pool state: every row is done/inert until a
+        prompt is admitted into it (scheduler API)."""
+        dev = self.device
+        state = {
+            "pending": torch.full((batch,), PAD, dtype=torch.long,
+                                  device=dev),
+            "pos": torch.zeros((batch,), dtype=torch.long, device=dev),
+            "done": torch.ones((batch,), dtype=torch.bool, device=dev),
+        }
+        self._known_pos = np.zeros((batch,), np.int64)
+        self._known_done = np.ones((batch,), bool)
+        if not self.paged:
+            state["caches"] = self._fresh_caches(batch)
+            return state
+        # `num_pages` allocatable pages + a static scratch region for
+        # copy-on-write branching + one trash page
+        self.num_pages = self._num_pages or batch * self.nblk
+        n_scratch = batch * self.nmax * self.span
+        total = self.num_pages + n_scratch + 1
+        index = RadixIndex(self.page_size) if self.prefix_cache else None
+        self.pager = PagePool(self.num_pages, self.page_size, index=index)
+        self._trash = total - 1
+        self._released = set()
+        scratch = (self.num_pages + np.arange(n_scratch, dtype=np.int32)
+                   ).reshape(batch, self.nmax, self.span)
+        state["caches"] = self._fresh_caches(batch, pages=total)
+        # one extra (trash) column absorbs clamped writes at pos == max_seq;
+        # unassigned entries also point at the trash page
+        state["pt"] = torch.full((batch, self.nblk + 1), total - 1,
+                                 dtype=torch.int32, device=dev)
+        state["scratch"] = torch.as_tensor(scratch, device=dev)
+        self._gen += 1
+        state["gen"] = self._gen
+        return state
+
+    def _check_gen(self, state):
+        if state["gen"] != self._gen:
+            raise RuntimeError(
+                "stale paged state: fresh_state() was called on this engine "
+                "after the state was created, resetting the page allocator.")
+
+    # ------------------------------------------------------------------
+    # Page accounting (host side; no-ops for the dense engine)
+    # ------------------------------------------------------------------
+    def positions_needed(self, prompt_len: int, budget: int) -> int:
+        """Worst-case cache positions a request can touch: committed
+        prompt + ``budget`` full reasoning steps."""
+        return prompt_len - 1 + budget * self.gcfg.max_step_tokens
+
+    def blocks_needed(self, prompt_len: int, budget: int) -> int:
+        """Worst-case pages a request can touch (admission reservation)."""
+        # +1 position: the trailing garbage-at-pos write of the last commit
+        need = self.positions_needed(prompt_len, budget) + 1
+        return min(self.nblk, pages_for(need, self.page_size))
+
+    def match_prefix(self, prompt) -> Tuple[List[int], int]:
+        """Radix lookup: the longest cached page-aligned prefix of
+        ``prompt`` (at most ``len(prompt) - 1`` tokens: the last prompt
+        token stays pending)."""
+        if not self.paged or self.pager is None or not self.prefix_cache:
+            return [], 0
+        prompt = np.asarray(prompt).reshape(-1)
+        lim = (prompt.size - 1) // self.page_size * self.page_size
+        return self.pager.match(prompt[:max(lim, 0)])
+
+    def admit_ok(self, prompt_len: int, budget: int,
+                 shared: Sequence[int] = ()) -> bool:
+        """Can a request be admitted now (enough free + evictable pages)?"""
+        if not self.paged or self.pager is None:
+            return True
+        tail = self.blocks_needed(prompt_len, budget) - len(shared)
+        return self.pager.can_claim(tail, shared)
+
+    def claim_slot(self, slot: int, prompt_len: int, budget: int,
+                   shared: Sequence[int] = ()) -> None:
+        """Reserve the request's worst-case tail pages, splicing the
+        matched ``shared`` pages in as blocks 0..len(shared)-1."""
+        if self.paged:
+            tail = self.blocks_needed(prompt_len, budget) - len(shared)
+            self.pager.claim(slot, tail, shared=shared)
+
+    def release_slot(self, slot: int) -> int:
+        """Return a finished request's pages to the pool (no zeroing); its
+        table row is re-pointed at the trash page before the next phase."""
+        if self.paged and slot in self.pager.assigned:
+            self._released.add(slot)
+            return self.pager.release(slot)
+        return 0
+
+    def _flush_released(self, state):
+        """Point released slots' table rows at the trash page (in place)."""
+        if self._released:
+            rows = torch.as_tensor(sorted(self._released), device=self.device)
+            self._released = set()
+            state["pt"][rows] = self._trash
+        return state
+
+    def cache_memory_report(self, batch: int) -> dict:
+        """Bytes of the dense per-slot caches vs the paged pool, per-step
+        candidate-branch scratch, and pool capacity."""
+        g = self.gcfg
+        models = (self.draft, self.target, self.prm)
+
+        def row_bytes(model):
+            cfg = model.cfg
+            item = torch.empty((), dtype=adtype(cfg)).element_size()
+            return len(model.kinds) * 2 * cfg.num_kv_heads * cfg.head_dim \
+                * item
+
+        def dense_bytes(model):
+            cfg = model.cfg
+            item = torch.empty((), dtype=adtype(cfg)).element_size()
+            return batch * sum(2 * cfg.num_kv_heads * cfg.head_dim * item
+                               * _cache_len(cfg, k, self.max_seq)
+                               for k in model.kinds)
+
+        branched = [self.draft, self.prm]
+        if self.mode in ("gsi", "gsi_norej"):
+            branched.append(self.target)
+        page_b = sum(row_bytes(m) for m in models) * self.page_size
+        num_pages = self.num_pages or batch * self.nblk
+        n_scratch = batch * self.nmax * self.span
+        total_pages = num_pages + n_scratch + 1
+        rep = {
+            "kv_dtype": "fp",
+            "page_size": self.page_size,
+            "num_pages": num_pages,
+            "scratch_pages": n_scratch,
+            "total_pages": total_pages,
+            "bytes_per_page": page_b,
+            "capacity_tokens": num_pages * self.page_size,
+            "capacity_bytes": num_pages * page_b,
+            "dense_committed_bytes": sum(dense_bytes(m) for m in models),
+            "dense_branch_bytes": g.n * sum(dense_bytes(m)
+                                            for m in branched),
+            "paged_pool_bytes": total_pages * page_b,
+            "paged_branch_bytes": n_scratch * page_b,
+        }
+        rep["branch_reduction"] = (rep["dense_branch_bytes"]
+                                   / max(1, rep["paged_branch_bytes"]))
+        if self.pager is not None:
+            rep["pages_assigned"] = self.pager.num_referenced
+            rep["pages_peak"] = self.pager.peak_assigned
+            rep["pages_cached"] = self.pager.num_cached
+            rep["pages_evicted"] = self.pager.evicted
+        return rep
+
+    def _ensure_blocks(self, state, wants: dict, splice=None):
+        """Assign pages so each slot covers ``wants[slot]`` table blocks and
+        write the new (block -> page) entries (plus ``splice``, the
+        prefix-cache splice of shared pages) into the device table."""
+        rows, cols, vals = splice if splice is not None else ([], [], [])
+        for slot, nb in wants.items():
+            for blk, page in self.pager.ensure(slot, nb):
+                rows.append(slot)
+                cols.append(blk)
+                vals.append(page)
+        if rows:
+            dev = self.device
+            state["pt"][torch.as_tensor(rows, device=dev),
+                        torch.as_tensor(cols, device=dev)] = torch.as_tensor(
+                np.asarray(vals, np.int32), device=dev)
+        return state
+
+    def _assign_pages(self, state, ahead):
+        """Lazily assign pages so every live slot's table covers the blocks
+        the next step may write (up to ``pos + ahead``), from the host-side
+        ``pos``/``done`` mirrors; capped at the slot's reservation."""
+        state = self._flush_released(state)
+        pos, done = self._known_pos, self._known_done
+        wants = {}
+        for slot in list(self.pager.assigned):
+            if done[slot] and self.pager.blocks_assigned(slot):
+                continue          # pos is frozen; blocks already cover it
+            wants[slot] = min(self.nblk, self.pager.max_blocks(slot),
+                              pages_for(int(pos[slot]) + int(ahead) + 1,
+                                        self.page_size))
+        return self._ensure_blocks(state, wants)
+
+    def force_done(self, state, mask) -> dict:
+        """Mark ``mask`` slots done on the device and in the host mirror
+        (scheduler budget exhaustion).  No-op when the mask is empty."""
+        mask = np.asarray(mask, bool)
+        if not mask.any():
+            return state
+        state = dict(state)
+        state["done"] = state["done"] | torch.as_tensor(mask,
+                                                        device=self.device)
+        self._known_done = self._known_done | mask
+        return state
+
+    # ------------------------------------------------------------------
+    # Phases
+    # ------------------------------------------------------------------
+    def _commit(self, state, step_tokens, row_live=None):
+        """Append step_tokens (B,L) to the three committed caches."""
+        caches = state["caches"]
+        pt = state.get("pt")
+        kw = dict(row_live=row_live, pt=pt)
+        _, pos = score_and_append(self.draft, caches["S"], state["pending"],
+                                  state["pos"], step_tokens, **kw)
+        score_and_append(self.target, caches["B"], state["pending"],
+                         state["pos"], step_tokens, **kw)
+        score_and_append(self.prm, caches["P"], state["pending"],
+                         state["pos"], step_tokens, **kw)
+        pending = state["pending"]
+        if step_tokens.shape[1]:
+            length = (step_tokens != PAD).sum(dim=1)
+            if row_live is not None:
+                length = torch.where(row_live, length, 0)
+            last = torch.gather(step_tokens, 1,
+                                (length - 1).clamp(min=0)[:, None])[:, 0]
+            pending = torch.where(length > 0, last, pending)
+        out = dict(state)
+        out.update(caches=caches, pending=pending, pos=pos)
+        return out
+
+    def _admit(self, state, admit_mask, tails, starts, live):
+        """Prefill prompt *tails* (B,Lt) into the slots where ``admit_mask``
+        is True; every other slot passes through untouched.  Admitted rows
+        reset to the engine invariant (cache holds prompt[:-1], pending =
+        prompt[-1], the matched prefix living in spliced pages below
+        ``starts``) and the tail is teacher-forced through all three
+        models with ``row_live`` masking."""
+        for cache in state["caches"].values():
+            reset_cache_rows(cache, admit_mask)
+        new = dict(state)
+        new.update(
+            pending=torch.where(admit_mask, tails[:, 0], state["pending"]),
+            pos=torch.where(admit_mask, starts, state["pos"]),
+            done=torch.where(admit_mask, ~live, state["done"]))
+        return self._commit(new, tails[:, 1:], row_live=admit_mask)
+
+    def _branch(self, cache, n, state):
+        """n branches of a committed cache: dense n-way copy, or paged
+        copy-on-write aliasing.  Returns (cache, branch_pt)."""
+        if not self.paged:
+            return repeat_cache(cache, n), None
+        scr = state["scratch"][:, :n]
+        bpt = branch_pages(state["pt"], state["pos"], scr, self.page_size)
+        return branch_cache(cache, n, state["pt"], state["pos"], scr,
+                            self.page_size), bpt
+
+    def _draft_phase(self, state, gen):
+        """Sample n draft candidates; score with target + PRM; select."""
+        g = self.gcfg
+        n = g.n
+        pend = expand_requests(state["pending"], n)
+        pos = expand_requests(state["pos"], n)
+        done = expand_requests(state["done"], n)
+        scratch_s, bpt = self._branch(state["caches"]["S"], n, state)
+        steps = sample_steps(
+            self.draft, scratch_s, pend, pos, gen,
+            max_tokens=g.max_step_tokens, sep_token=g.sep_token_id,
+            eos_token=g.eos_token_id, temperature=g.temperature,
+            top_p=g.top_p, already_done=done, pt=bpt)
+        cands = fold_candidates(steps.tokens, n)             # (B,n,L)
+        scratch_p, _ = self._branch(state["caches"]["P"], n, state)
+        _, _, rewards_flat = score_and_append(
+            self.prm, scratch_p, pend, pos, steps.tokens,
+            return_rewards=True, pt=bpt)
+        rewards = fold_candidates(rewards_flat, n)
+        out = {"cands": cands, "logp_S": fold_candidates(steps.logprob, n),
+               "rewards": rewards}
+        if self.mode in ("gsi", "gsi_norej"):
+            scratch_b, _ = self._branch(state["caches"]["B"], n, state)
+            logp_B, _ = score_and_append(self.target, scratch_b, pend, pos,
+                                         steps.tokens, pt=bpt)
+            out["logp_B"] = fold_candidates(logp_B, n)
+            dec = gsi_select(gen, rewards, out["logp_B"], out["logp_S"],
+                             beta=g.beta, threshold_u=g.threshold_u)
+            accept = dec.accept if (self.mode == "gsi" and g.use_rejection) \
+                else torch.ones_like(dec.accept)
+            out.update(index=dec.index, accept=accept,
+                       selected=dec.selected_tilted, tilted=dec.tilted)
+        elif self.mode == "rsd":
+            dec = rsd_select(gen, rewards, beta=g.beta,
+                             threshold=self.rsd_threshold)
+            out.update(index=dec.index, accept=dec.accept,
+                       selected=dec.selected_reward, tilted=rewards)
+        else:  # sbon_s: always accept the soft-BoN choice
+            idx = soft_bon_select(gen, rewards, g.beta)
+            out.update(index=idx,
+                       accept=torch.ones(idx.shape[0], dtype=torch.bool,
+                                         device=idx.device),
+                       selected=take_per_request(rewards, idx),
+                       tilted=rewards)
+        out["chosen"] = take_candidates(cands, out["index"])
+        out["max_reward"] = rewards.max(dim=-1).values
+        return out
+
+    def _target_phase(self, state, gen):
+        """Soft best-of-n with the target model (rejection fallback and
+        sbon_b)."""
+        g = self.gcfg
+        n = g.n_target or g.n
+        pend = expand_requests(state["pending"], n)
+        pos = expand_requests(state["pos"], n)
+        done = expand_requests(state["done"], n)
+        scratch_b, bpt = self._branch(state["caches"]["B"], n, state)
+        steps = sample_steps(
+            self.target, scratch_b, pend, pos, gen,
+            max_tokens=g.max_step_tokens, sep_token=g.sep_token_id,
+            eos_token=g.eos_token_id, temperature=g.temperature,
+            top_p=g.top_p, already_done=done, pt=bpt)
+        scratch_p, _ = self._branch(state["caches"]["P"], n, state)
+        _, _, rewards = score_and_append(self.prm, scratch_p, pend, pos,
+                                         steps.tokens, return_rewards=True,
+                                         pt=bpt)
+        cands = fold_candidates(steps.tokens, n)
+        r = fold_candidates(rewards, n)
+        idx = soft_bon_select(gen, r, g.beta)
+        return {"chosen": take_candidates(cands, idx), "cands": cands,
+                "rewards": r, "selected": take_per_request(r, idx)}
+
+    def _decode_core(self, state, gen, gen_target):
+        """One engine step: draft phase, the host-checked fallback target
+        phase (iff not every row accepted), commit, and the EOS / B.2 done
+        fold.  Returns ``(new_state, outcome)`` with device tensors."""
+        g = self.gcfg
+        zero = torch.zeros((), dtype=torch.long, device=self.device)
+        rewards = tilted = ratio = None
+        if self.mode == "sbon_b":
+            tp = self._target_phase(state, gen)
+            chosen = tp["chosen"]
+            accept = torch.ones_like(state["done"])
+            max_r = tp["rewards"].max(dim=-1).values
+            draft_count = zero
+            target_count = (tp["cands"] != PAD).sum()
+        else:
+            dp = self._draft_phase(state, gen)
+            accept = dp["accept"]
+            max_r = dp["max_reward"]
+            draft_count = (dp["cands"] != PAD).sum()
+            rewards = dp["rewards"]
+            if "logp_B" in dp:
+                tilted = dp["tilted"]
+                ratio = dp["logp_B"] - dp["logp_S"]
+            if bool(accept.all()):
+                chosen, target_count = dp["chosen"], zero
+            else:
+                tp = self._target_phase(state, gen_target)
+                chosen = torch.where(accept[:, None], dp["chosen"],
+                                     tp["chosen"])
+                target_count = (tp["cands"] != PAD).sum()
+        done_prev = state["done"]
+        failed = max_r < g.min_step_reward      # paper B.2 early stop
+        new_state = self._commit(state, chosen)
+        eos = (chosen == g.eos_token_id).any(dim=1)
+        new_done = done_prev | eos | (failed & ~done_prev)
+        new_state["done"] = new_done
+        outcome = dict(chosen=chosen, done_prev=done_prev, eos=eos,
+                       failed=failed, accept=accept, done=new_done,
+                       pos=new_state["pos"], draft_tokens=draft_count,
+                       target_tokens=target_count, rewards=rewards,
+                       tilted=tilted, logp_ratio=ratio)
+        return new_state, outcome
+
+    def fold_step_stats(self, res: StepResult, stats: EngineStats,
+                        collect_stats: bool = False) -> None:
+        """Fold one step's outcome into ``stats``."""
+        if self.mode == "sbon_b":
+            stats.bump(steps=1, target_tokens=res.target_tokens)
+            return
+        live = ~res.done_prev
+        stats.bump(steps=1, draft_tokens=res.draft_tokens,
+                   target_tokens=res.target_tokens,
+                   decisions=int(live.sum()),
+                   accepted=int((res.accept & live).sum()))
+        if collect_stats:
+            stats.record_trace("raw_rewards", res.rewards)
+            if res.logp_ratio is not None:
+                stats.record_trace("logp_ratio", res.logp_ratio)
+                stats.record_trace("tilted_rewards", res.tilted)
+
+    def step_decode(self, state, gen, gen_target=None, *,
+                    stats: Optional[EngineStats] = None,
+                    collect_stats: bool = False):
+        """One engine step over the whole (fixed-size) batch.
+
+        ``gen`` (a ``torch.Generator`` on the engine's device) draws the
+        draft phase's noise; ``gen_target`` (default ``gen``) the fallback
+        target phase's.  Returns ``(state, StepResult)``.
+        """
+        if gen_target is None:
+            gen_target = gen
+        if self.paged:
+            self._check_gen(state)
+            state = self._assign_pages(state, self.gcfg.max_step_tokens)
+        new_state, out = self._decode_core(state, gen, gen_target)
+        host = {k: (None if v is None else v.cpu().numpy())
+                for k, v in out.items()}
+        host["draft_tokens"] = int(host["draft_tokens"])
+        host["target_tokens"] = int(host["target_tokens"])
+        res = StepResult(**host)
+        self._known_pos = res.pos.astype(np.int64)
+        self._known_done = res.done.copy()
+        if stats is not None:
+            self.fold_step_stats(res, stats, collect_stats)
+        return new_state, res
+
+    def admit(self, state, admit_mask: np.ndarray, prompts: np.ndarray,
+              starts=None, live=None):
+        """Scheduler API: prefill ``prompts`` (B,Lp) into masked slots.
+
+        ``starts`` (B,) gives each admitted slot's prefix-cache match length
+        (a multiple of ``page_size``; 0 = no match).  Matched blocks are
+        spliced into the slot's table, only the tail ``prompt[start:]`` is
+        prefilled, and the prompt's full committed pages are published to
+        the radix index after the prefill commit is issued.
+        """
+        admit_mask = np.asarray(admit_mask, bool)
+        prompts = np.asarray(prompts, np.int32)
+        B = prompts.shape[0]
+        live_np = np.ones((B,), bool) if live is None \
+            else np.asarray(live, bool)
+        starts_np = np.zeros((B,), np.int32) if starts is None \
+            else np.asarray(starts, np.int32).copy()
+        lengths = (prompts != PAD).sum(axis=1)
+        publish = []
+        if self.paged:
+            self._check_gen(state)
+            state = self._flush_released(state)
+            wants = {}
+            rows, cols, vals = [], [], []
+            for slot in np.nonzero(admit_mask)[0]:
+                slot = int(slot)
+                if slot not in self.pager.assigned:
+                    # direct engine use (no scheduler claim): worst case
+                    starts_np[slot] = 0
+                    self.claim_slot(slot, int(lengths[slot]),
+                                    self.gcfg.max_steps)
+                nshared = int(starts_np[slot]) // self.page_size
+                for blk, page in enumerate(
+                        self.pager.assigned[slot][:nshared]):
+                    rows.append(slot)
+                    cols.append(blk)
+                    vals.append(page)
+                # tail prefill writes positions start .. Lp-1
+                wants[slot] = min(self.nblk,
+                                  pages_for(max(int(lengths[slot]), 1),
+                                            self.page_size))
+                full = max(int(lengths[slot]) - 1, 0) // self.page_size
+                if self.prefix_cache and full:
+                    publish.append(
+                        (prompts[slot, :full * self.page_size], slot, full))
+            state = self._ensure_blocks(state, wants,
+                                        splice=(rows, cols, vals))
+        elif starts_np.any():
+            raise ValueError("prefix-cache starts require a paged engine")
+        tails = pack_tails(prompts, starts_np)
+        dev = self.device
+        out = self._admit(
+            state, torch.as_tensor(admit_mask, device=dev),
+            torch.as_tensor(tails, dtype=torch.long, device=dev),
+            torch.as_tensor(starts_np, dtype=torch.long, device=dev),
+            torch.as_tensor(live_np, device=dev))
+        for tokens, slot, full in publish:
+            self.pager.publish(tokens, self.pager.assigned[slot][:full])
+        admitted = np.nonzero(admit_mask)[0]
+        self._known_pos[admitted] = np.maximum(lengths[admitted] - 1, 0)
+        self._known_done[admitted] = ~live_np[admitted]
+        return out
+
+    def extend(self, state, mask, chunks, live):
+        """Chunked-prefill continuation: not ported yet."""
+        raise NotImplementedError("extend (chunked prefill) is not ported "
+                                  "to repro_torch yet")
+
+    def save_cache(self, state, path=None, *, roots=None):
+        """Radix-cache snapshot: not ported yet."""
+        raise NotImplementedError("save_cache is not ported to repro_torch "
+                                  "yet")
+
+    def load_cache(self, state, snapshot):
+        """Radix-cache restore: not ported yet."""
+        raise NotImplementedError("load_cache is not ported to repro_torch "
+                                  "yet")
+
+    def publish_prefix(self, slot: int, tokens) -> int:
+        """Publish ``slot``'s full committed pages of ``tokens`` (its
+        context; the last token is pending) to the radix index; returns the
+        pages newly retained."""
+        if not self.prefix_cache or self.pager is None \
+                or slot not in self.pager.assigned:
+            return 0
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        full = min(max(tokens.size - 1, 0) // self.page_size,
+                   len(self.pager.assigned[slot]))
+        if not full:
+            return 0
+        return self.pager.publish(tokens[:full * self.page_size],
+                                  self.pager.assigned[slot][:full])
