@@ -7,12 +7,12 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device  — the card's name and power limit (``nvidia-smi``), the torch and
    CUDA versions; TF32 switched off for matmuls and cuDNN.
-2. build   — compile every CUDA source of ``src/repro_torch/csrc`` with nvcc
-   (one process per source, started together).
+2. build   — compile every CUDA source of ``src/repro_torch/csrc`` with nvcc.
 3. kernels — each kernel against its plain PyTorch version on the card at
    the main path's shapes, with the stated tolerances; the kernel's time
    beside its bound, the plain version's time and one PyTorch library call
    computing the same function (a yardstick the port never calls).
+   Launches made here are not counted.
 4. main path — the full-width Qwen2.5-Math draft/target/PRM triple with
    seeded random weights in bf16, served by the paged GSI engine through
    the continuous-batching scheduler: 6 requests on 4 slots, then a short
@@ -22,7 +22,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    toy fp32 triple checks paged (kernel) against dense (plain attention)
    serving token for token at temperature 0.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}``: every ported kernel
+with its largest error in phase 3 and its launch count from phase 4's
+main-path run.  The last line is
 ``{"ok": true, "device": {...}}``.  ``--layers`` cuts the depth of all
 three models equally (never a width) and says so on a ``reduced:`` line.
 """
@@ -116,19 +118,22 @@ def live_rows(pt, pos, ps, window):
     return rows, n_live
 
 
-def bound(q, kp, pt, pos, window):
-    """Least time the card could take: the larger of the bytes the function
+def bound(arg_sets, window):
+    """Least mean time per call the card could take over ``arg_sets`` (the
+    sets :func:`time_ms` cycles through): the larger of the bytes each call
     must move (live K/V rows once, q, out, table, positions) over the HBM
     rate, and its operations over the peak rate for the dtype."""
-    B, _, H, hd = q.shape
-    ps, KV = kp.shape[1], kp.shape[2]
-    esize = q.element_size()
-    rows, n_live = live_rows(pt.cpu(), pos.cpu(), ps, window)
-    nbytes = len(rows) * KV * hd * esize * 2 + 2 * q.numel() * esize \
-        + pt.numel() * 4 + pos.numel() * 4
-    ops = 4 * (H // KV) * KV * hd * n_live      # QK and PV, 2 flops each
-    t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = ops / PEAK_OPS[str(q.dtype)]
+    nbytes = ops = 0
+    for q, kp, _, pt, pos in arg_sets:
+        H, hd = q.shape[2:]
+        ps, KV = kp.shape[1], kp.shape[2]
+        esize = q.element_size()
+        rows, n_live = live_rows(pt.cpu(), pos.cpu(), ps, window)
+        nbytes += len(rows) * KV * hd * esize * 2 + 2 * q.numel() * esize \
+            + pt.numel() * 4 + pos.numel() * 4
+        ops += 4 * (H // KV) * KV * hd * n_live     # QK and PV, 2 flops each
+    t_bytes = nbytes / len(arg_sets) / H100_BYTES_PER_S
+    t_ops = ops / len(arg_sets) / PEAK_OPS[str(q.dtype)]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -265,19 +270,16 @@ def phase_kernels(torch):
     library_ms, library_host = time_ms(
         torch, lambda q, k, v, m: F.scaled_dot_product_attention(
             q, k, v, attn_mask=m, **kw), lib_sets, iters=5)
-    q, kp, vp, pt, pos = sets[0]
-    bound_ms, bound_by = bound(q, kp, pt, pos, 0)
+    bound_ms, bound_by = bound(sets, 0)
     print(f"paged_attention timing (target shape, bf16, {len(sets)} input "
           f"sets cycled past L2), device-only ms per call: kernel {ms:.4f}, "
-          f"bound {bound_ms:.4f} ({bound_by}), plain {plain_ms:.4f}, "
-          f"library (scaled_dot_product_attention over pre-gathered K/V) "
-          f"{library_ms:.4f}", flush=True)
+          f"bound {bound_ms:.6f} ({bound_by}, mean over the sets), plain "
+          f"{plain_ms:.4f}, library (scaled_dot_product_attention over "
+          f"pre-gathered K/V) {library_ms:.4f}", flush=True)
     print(f"paged_attention timing, back-to-back launches from the host "
           f"(host cost included), ms per call: kernel {ms_host:.4f}, plain "
           f"{plain_host:.4f}, library {library_host:.4f}", flush=True)
-    compare_launches = paged_attention_cuda.launches
-    print("kernels: " + json.dumps({"paged_attention": {
-        "max_abs_err": max_err, "launches": compare_launches}}), flush=True)
+    # launches are read from the main path's run (phase 4), not from here
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:172",

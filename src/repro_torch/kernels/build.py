@@ -14,7 +14,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -24,7 +23,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict = {}
-_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -48,44 +46,34 @@ def library_path(name: str) -> Path:
 def build(names=SOURCES) -> dict:
     """Compile every library in ``names`` that is not built yet.
 
-    One ``nvcc`` per source, all started together.  Returns name -> the
-    compiler's output (``-Xptxas -v``: registers, shared memory, spills),
-    or ``""`` for a library that was already built.  Raises with the
-    compiler's output if any build fails.
+    Returns name -> the compiler's output (``-Xptxas -v``: registers,
+    shared memory, spills), or ``""`` for a library that was already built.
+    Raises with the compiler's output if a build fails.  The library is
+    written under a per-process name and renamed into place, so concurrent
+    builders never load a half-written file.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs, logs = {}, {}
-    try:
-        for name in names:
-            out = library_path(name)
-            if out.exists():
-                logs[name] = ""
-                continue
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            jobs[name] = (out, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
-        for name, (out, tmp, proc) in jobs.items():
-            text, _ = proc.communicate()
-            if proc.returncode:
-                raise RuntimeError(f"nvcc failed for {name}.cu:\n{text}")
-            os.replace(tmp, out)
-            logs[name] = text
-    finally:
-        for _, _, proc in jobs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    logs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            logs[name] = ""
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+        os.replace(tmp, out)
+        logs[name] = proc.stdout
     return logs
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    with _lock:
-        lib = _loaded.get(name)
-        if lib is None:
-            build((name,))
-            lib = ctypes.CDLL(str(library_path(name)))
-            _loaded[name] = lib
-        return lib
+    lib = _loaded.get(name)
+    if lib is None:
+        build((name,))
+        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return lib

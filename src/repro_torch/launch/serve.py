@@ -8,8 +8,9 @@ continuous-batching scheduler.
 The real checkpoints are not in the repository, so weights are random
 (seeded): the run exercises the serving path at the published widths, and
 its tokens carry no meaning.  ``--layers`` cuts the depth of all three
-models equally; widths are never cut.  Only the lock-step scheduler is
-ported: ``--replicas > 1``, ``--tp`` and ``--kv-dtype`` raise.
+models equally; widths are never cut.  Serving is always lock-step (the
+reference's ``--sync``; its pipelined default is not ported, so there is no
+mode flag).  ``--replicas > 1``, ``--tp`` and ``--kv-dtype`` raise.
 """
 from __future__ import annotations
 
@@ -132,8 +133,6 @@ def main(argv=None) -> None:
     ap.add_argument("--paged", action="store_true")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--gang", action="store_true")
-    ap.add_argument("--sync", action="store_true",
-                    help="lock-step serving (the only mode ported so far)")
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--tp", type=int, default=0)
     ap.add_argument("--kv-dtype", default="fp")

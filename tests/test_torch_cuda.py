@@ -7,6 +7,9 @@ on a machine that has only the port (``--noconftest``: the shared
 ``pyproject.toml``):
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+Paged serving through the kernel against dense serving on the card is
+checked by ``chip_smoke.py`` (its toy agreement phase), not repeated here.
 """
 import numpy as np
 import pytest
@@ -58,27 +61,3 @@ def test_paged_kernel_matches_plain(cuda_device, dtype, tol, window, H, KV):
     assert paged_attention_cuda.launches == before + 1
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol, err
-
-
-@pytest.mark.cuda
-def test_paged_engine_on_card_matches_dense(cuda_device):
-    """Toy fp32 triple at temperature 0: paged serving (the kernel) and
-    dense serving (plain attention) commit the same tokens."""
-    from repro_torch.config import GSIConfig
-    from repro_torch.launch import serve
-    from repro_torch.models import random_params
-    from repro_torch.serving import GSIServingEngine
-    cfgs = serve.toy_triple(vocab=64)
-    params = [random_params(c, i, cuda_device) for i, c in enumerate(cfgs)]
-    g = GSIConfig(n=2, max_step_tokens=5, max_steps=3, beta=4.0,
-                  temperature=0.0, threshold_u=0.3, min_step_reward=-1.0)
-    prompts = serve.random_prompts(4, seed=1, vocab=64, lo=3, hi=20)
-    outs = []
-    for paged in (True, False):
-        eng = GSIServingEngine(*cfgs, *params, g, max_seq=96, paged=paged,
-                               page_size=8, device=cuda_device)
-        before = paged_attention_cuda.launches
-        res = serve.serve(eng, prompts, capacity=2, seed=0)
-        assert (paged_attention_cuda.launches > before) == paged
-        outs.append([res["responses"][r].tokens.tolist() for r in res["ids"]])
-    assert outs[0] == outs[1]
