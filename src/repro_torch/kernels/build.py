@@ -18,7 +18,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("paged_attention",)
+SOURCES = ("paged_attention", "paged_attention_quant", "logprob_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,29 +44,35 @@ def library_path(name: str) -> Path:
 
 
 def build(names=SOURCES) -> dict:
-    """Compile every library in ``names`` that is not built yet.
+    """Compile every library in ``names`` that is not built yet, one nvcc
+    process per source, all started together.
 
     Returns name -> the compiler's output (``-Xptxas -v``: registers,
     shared memory, spills), or ``""`` for a library that was already built.
-    Raises with the compiler's output if a build fails.  The library is
+    Raises with the compiler's output if a build fails.  Each library is
     written under a per-process name and renamed into place, so concurrent
     builders never load a half-written file.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    logs = {}
+    logs, procs = {}, {}
     for name in names:
         out = library_path(name)
         if out.exists():
             logs[name] = ""
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
+        procs[name] = (out, tmp, subprocess.Popen(
             [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (out, tmp, proc) in procs.items():
+        logs[name] = proc.communicate()[0]
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
-        os.replace(tmp, out)
-        logs[name] = proc.stdout
+            failed.append(f"nvcc failed for {name}.cu:\n{logs[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return logs
 
 

@@ -6,8 +6,12 @@ switch that sends a CUDA tensor to the plain version.
 """
 from __future__ import annotations
 
+from repro_torch.kernels.logprob_gather import (logprob_gather_cuda,
+                                                logprob_gather_plain)
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
-                                                 paged_attention_plain)
+                                                 paged_attention_plain,
+                                                 paged_attention_quant_cuda,
+                                                 paged_attention_quant_plain)
 
 
 def paged_attention(q, kp, vp, pt, pos, *, window: int = 0, scale=None):
@@ -17,3 +21,24 @@ def paged_attention(q, kp, vp, pt, pos, *, window: int = 0, scale=None):
                                     scale=scale)
     return paged_attention_plain(q, kp, vp, pt, pos, window=window,
                                  scale=scale)
+
+
+def paged_attention_quant(q, kp, vp, ks, vs, pt, pos, *, window: int = 0,
+                          scale=None):
+    """Quantized pools: kp/vp (P,ps,KV,hd) int8/fp8 codes, ks/vs (P,KV)
+    float32 per-page per-kv-head scales; otherwise as paged_attention."""
+    if q.is_cuda:
+        return paged_attention_quant_cuda(q, kp, vp, ks, vs, pt, pos,
+                                          window=window, scale=scale)
+    return paged_attention_quant_plain(q, kp, vp, ks, vs, pt, pos,
+                                       window=window, scale=scale)
+
+
+def logprob_gather(h, w, labels, vocab_size: int):
+    """log_softmax(h @ w)[labels] over the first ``vocab_size`` columns.
+
+    h: (B,S,d); w: (d,V); labels: (B,S) -> (B,S) float32 log-probs.
+    """
+    if h.is_cuda:
+        return logprob_gather_cuda(h, w, labels, vocab_size)
+    return logprob_gather_plain(h, w, labels, vocab_size)

@@ -13,6 +13,10 @@ layers); stale rows of recycled pages are masked, never zeroed.
 * :func:`paged_attention_cuda` launches ``csrc/paged_attention.cu`` (the
   Hopper kernel that replaces ``paged_attention_pallas``) and counts its
   launches in ``paged_attention_cuda.launches``.
+* :func:`paged_attention_quant_plain` and :func:`paged_attention_quant_cuda`
+  are the same pair over int8 or fp8-e4m3 code pools with per-page
+  per-kv-head scales (``csrc/paged_attention_quant.cu`` replaces
+  ``paged_attention_quant_pallas``).
 """
 from __future__ import annotations
 
@@ -52,8 +56,80 @@ def paged_attention_plain(q, kp, vp, pt, pos, *, window: int = 0,
     s = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * scale
     s = s + torch.where(mask, 0.0, NEG)[:, None, None, None, :]
     p = torch.softmax(s, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgqs,bskh->bqkgh", p, v)
+    # bf16 pools under fp32 queries: v promotes to fp32, as jnp does
+    out = torch.einsum("bkgqs,bskh->bqkgh", p, v.to(p.dtype))
     return out.reshape(B, 1, H, hd)
+
+
+def paged_attention_quant_plain(q, kp, vp, ks, vs, pt, pos, *,
+                                window: int = 0, scale=None):
+    """Quantized pools: kp/vp (P,ps,KV,hd) int8 or fp8 codes, ks/vs (P,KV)
+    fp32 per-page per-kv-head scales.  Mirrors ``repro.kernels.ref.
+    paged_attention_quant_ref``: codes dequantized while gathering (every
+    row of logical block j carries block j's page scale), fp32 math, one
+    softmax, the output cast to q's dtype."""
+    B, _, H, hd = q.shape
+    P, ps, KV, _ = kp.shape
+    nblk = pt.shape[1]
+    S = nblk * ps
+    if scale is None:
+        scale = hd ** -0.5
+    ptc = pt.long()
+    lanes = torch.arange(ps, device=q.device)
+    rows = (ptc[:, :, None] * ps + lanes).reshape(B, S)
+    sk = ks.float()[ptc].repeat_interleave(ps, dim=1)       # (B,S,KV)
+    sv = vs.float()[ptc].repeat_interleave(ps, dim=1)
+    k = kp.reshape(P * ps, KV, hd)[rows].float() * sk[..., None]
+    v = vp.reshape(P * ps, KV, hd)[rows].float() * sv[..., None]
+    slots = torch.arange(S, device=q.device)[None, :]
+    pos = pos.long()[:, None]
+    mask = slots <= pos
+    if window:
+        mask &= slots > pos - window
+    G = H // KV
+    qg = q.reshape(B, 1, KV, G, hd).float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k) * scale
+    s = s + torch.where(mask, 0.0, NEG)[:, None, None, None, :]
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", p, v)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def _check(who, q, kp, vp, pt, pos, *, hd_multiple, scales=()):
+    """The checks both kernels' wrappers make before a launch: devices,
+    index dtypes, shapes, the kernels' limits, contiguity and the current
+    device.  Raises on anything the kernels do not take."""
+    B, one, H, hd = q.shape
+    P, ps, KV, hd_k = kp.shape
+    named = [("q", q), ("kp", kp), ("vp", vp), ("pt", pt), ("pos", pos)]
+    named += list(zip(("ks", "vs"), scales))
+    for name, t in named:
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{who}: {name} must be on {q.device} (CUDA), "
+                             f"got {t.device}")
+    if pt.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise TypeError(f"{who}: pt and pos must be int32")
+    if one != 1 or hd_k != hd or vp.shape != kp.shape or H % KV \
+            or pt.dim() != 2 or pt.shape[0] != B or pos.shape != (B,) \
+            or any(t.shape != (P, KV) for t in scales):
+        raise ValueError(f"{who}: bad shapes " + " ".join(
+            f"{name} {tuple(t.shape)}" for name, t in named))
+    if H // KV > MAX_GROUP or hd > MAX_HEAD_DIM or hd % hd_multiple \
+            or ps > MAX_PAGE:
+        raise ValueError(f"{who}: needs H/KV <= {MAX_GROUP}, head_dim <= "
+                         f"{MAX_HEAD_DIM} and a multiple of {hd_multiple}, "
+                         f"page size <= {MAX_PAGE}")
+    if not all(t.is_contiguous() for _, t in named[1:]):
+        raise ValueError(f"{who}: pools, scales, pt and pos must be "
+                         f"contiguous")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(f"{who}: tensors on {q.device} but the current "
+                         f"device is cuda:{torch.cuda.current_device()}")
+
+
+def _aligned(who, *tensors):
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{who}: tensors must be 16-byte aligned")
 
 
 def _library():
@@ -72,54 +148,24 @@ def paged_attention_cuda(q, kp, vp, pt, pos, *, window: int = 0,
     :func:`paged_attention_plain`.  ``pt``/``pos`` must be int32, the
     pools contiguous; ``q`` is made contiguous.  Raises on anything the
     kernel does not take, and on a failed launch."""
-    B, one, H, hd = q.shape
-    P, ps, KV, hd_k = kp.shape
-    tensors = {"q": q, "kp": kp, "vp": vp, "pt": pt, "pos": pos}
-    for name, t in tensors.items():
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"paged_attention_cuda: {name} must be on "
-                             f"{q.device} (CUDA), got {t.device}")
+    who = "paged_attention_cuda"
+    _check(who, q, kp, vp, pt, pos, hd_multiple=16 // q.element_size())
     if q.dtype not in _DTYPE_CODE or kp.dtype != q.dtype \
             or vp.dtype != q.dtype:
-        raise TypeError(f"paged_attention_cuda takes float32 or bfloat16 "
-                        f"q/kp/vp of one dtype, got {q.dtype}, {kp.dtype}, "
-                        f"{vp.dtype}")
-    if pt.dtype != torch.int32 or pos.dtype != torch.int32:
-        raise TypeError("paged_attention_cuda: pt and pos must be int32")
-    if one != 1 or hd_k != hd or vp.shape != kp.shape or H % KV \
-            or pt.dim() != 2 or pt.shape[0] != B or pos.shape != (B,):
-        raise ValueError(f"paged_attention_cuda: bad shapes q {tuple(q.shape)}"
-                         f" kp {tuple(kp.shape)} vp {tuple(vp.shape)} pt "
-                         f"{tuple(pt.shape)} pos {tuple(pos.shape)}")
-    vec = 16 // q.element_size()
-    if H // KV > MAX_GROUP or hd > MAX_HEAD_DIM or hd % vec \
-            or ps > MAX_PAGE:
-        raise ValueError(f"paged_attention_cuda: needs H/KV <= {MAX_GROUP}, "
-                         f"head_dim <= {MAX_HEAD_DIM} and a multiple of "
-                         f"{vec}, page size <= {MAX_PAGE}")
-    if not (kp.is_contiguous() and vp.is_contiguous()
-            and pt.is_contiguous() and pos.is_contiguous()):
-        raise ValueError("paged_attention_cuda: pools, pt and pos must be "
-                         "contiguous")
+        raise TypeError(f"{who} takes float32 or bfloat16 q/kp/vp of one "
+                        f"dtype, got {q.dtype}, {kp.dtype}, {vp.dtype}")
+    B, _, H, hd = q.shape
+    ps, KV = kp.shape[1], kp.shape[2]
     q = q.contiguous()
     out = torch.empty_like(q)
     if B == 0:
         return out
-    for t in (q, kp, vp, out):
-        if t.data_ptr() % 16:
-            raise ValueError("paged_attention_cuda: tensors must be "
-                             "16-byte aligned")
-    if scale is None:
-        scale = hd ** -0.5
-    if q.device.index != torch.cuda.current_device():
-        raise ValueError(f"paged_attention_cuda: tensors on {q.device} but "
-                         f"the current device is cuda:"
-                         f"{torch.cuda.current_device()}")
-    fn = _library()
-    err = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), pt.data_ptr(),
-             pos.data_ptr(), out.data_ptr(), B, H, KV, hd, ps, pt.shape[1],
-             int(window), float(scale), _DTYPE_CODE[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+    _aligned(who, q, kp, vp, out)
+    err = _library()(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), pt.data_ptr(),
+        pos.data_ptr(), out.data_ptr(), B, H, KV, hd, ps, pt.shape[1],
+        int(window), float(hd ** -0.5 if scale is None else scale),
+        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -128,3 +174,56 @@ def paged_attention_cuda(q, kp, vp, pt, pos, *, window: int = 0,
 
 
 paged_attention_cuda.launches = 0
+
+
+_CODE_KIND = {torch.int8: 0, torch.float8_e4m3fn: 1}
+
+
+def _quant_library():
+    lib = build.load("paged_attention_quant")
+    fn = lib.paged_attention_quant_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def paged_attention_quant_cuda(q, kp, vp, ks, vs, pt, pos, *,
+                               window: int = 0, scale=None):
+    """Launch the quantized CUDA kernel on the current stream; same
+    contract as :func:`paged_attention_quant_plain`.  ``q`` is float32 or
+    bfloat16 (made contiguous), the pools int8 or float8_e4m3fn of one
+    dtype, ``ks``/``vs`` float32 ``(P, KV)``, ``pt``/``pos`` int32; pools,
+    scales, table and positions contiguous.  Raises on anything the kernel
+    does not take, and on a failed launch."""
+    who = "paged_attention_quant_cuda"
+    _check(who, q, kp, vp, pt, pos, hd_multiple=4, scales=(ks, vs))
+    if q.dtype not in _DTYPE_CODE or kp.dtype not in _CODE_KIND \
+            or vp.dtype != kp.dtype:
+        raise TypeError(f"{who} takes float32 or bfloat16 q over int8 or "
+                        f"float8_e4m3fn pools of one dtype, got {q.dtype}, "
+                        f"{kp.dtype}, {vp.dtype}")
+    if ks.dtype != torch.float32 or vs.dtype != torch.float32:
+        raise TypeError(f"{who}: ks and vs must be float32")
+    B, _, H, hd = q.shape
+    ps, KV = kp.shape[1], kp.shape[2]
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    _aligned(who, q, kp, vp, out)
+    err = _quant_library()(
+        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
+        vs.data_ptr(), pt.data_ptr(), pos.data_ptr(), out.data_ptr(), B, H,
+        KV, hd, ps, pt.shape[1], int(window),
+        float(hd ** -0.5 if scale is None else scale), _DTYPE_CODE[q.dtype],
+        _CODE_KIND[kp.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"paged_attention_quant kernel launch failed: "
+                           f"CUDA error {err}")
+    paged_attention_quant_cuda.launches += 1
+    return out
+
+
+paged_attention_quant_cuda.launches = 0

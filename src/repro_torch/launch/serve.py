@@ -3,14 +3,17 @@ seeded random weights on the card and serve queued requests through the
 continuous-batching scheduler.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --config qwen2.5-math \
-        --requests 6 --capacity 4 --n 4 --paged [--layers 28] [--device cuda]
+        --requests 6 --capacity 4 --n 4 --paged [--layers 28] [--device cuda] \
+        [--kv-dtype {fp,bf16,int8,fp8}] [--quantize-draft]
 
 The real checkpoints are not in the repository, so weights are random
 (seeded): the run exercises the serving path at the published widths, and
 its tokens carry no meaning.  ``--layers`` cuts the depth of all three
 models equally; widths are never cut.  Serving is always lock-step (the
 reference's ``--sync``; its pipelined default is not ported, so there is no
-mode flag).  ``--replicas > 1``, ``--tp`` and ``--kv-dtype`` raise.
+mode flag).  ``--kv-dtype`` (with ``--paged``) picks the page storage
+format and ``--quantize-draft`` rounds the draft's weights through int8, as
+in the reference's CLI.  ``--replicas > 1`` and ``--tp`` raise.
 """
 from __future__ import annotations
 
@@ -135,7 +138,15 @@ def main(argv=None) -> None:
     ap.add_argument("--gang", action="store_true")
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--tp", type=int, default=0)
-    ap.add_argument("--kv-dtype", default="fp")
+    ap.add_argument("--kv-dtype", default="fp",
+                    choices=["fp", "bf16", "int8", "fp8"],
+                    help="paged KV-page storage format (requires --paged): "
+                         "fp keeps the activation dtype; int8/fp8 store "
+                         "codes with per-page scales, dequantized inside "
+                         "the paged-attention kernel")
+    ap.add_argument("--quantize-draft", action="store_true",
+                    help="round the draft model's matmul weights through "
+                         "int8 (per-channel scales) at engine load")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -143,8 +154,6 @@ def main(argv=None) -> None:
         raise NotImplementedError("--replicas > 1 is not ported yet")
     if args.tp > 1:
         raise NotImplementedError("--tp is not ported yet")
-    if args.kv_dtype != "fp":
-        raise NotImplementedError("--kv-dtype is not ported yet")
 
     cfgs = build_triple(args.config, layers=args.layers)
     gcfg = GSIConfig(n=args.n, beta=args.beta, threshold_u=args.u,
@@ -153,14 +162,18 @@ def main(argv=None) -> None:
                      max_steps=args.max_steps, min_step_reward=0.0)
     engine = build_engine(cfgs, gcfg, seed=args.seed, device=args.device,
                           mode=args.method, max_seq=args.max_seq,
-                          paged=args.paged, page_size=args.page_size)
+                          paged=args.paged, page_size=args.page_size,
+                          kv_dtype=None if args.kv_dtype == "fp"
+                          else args.kv_dtype,
+                          quantize_draft=args.quantize_draft)
     prompts = random_prompts(args.requests, seed=args.seed,
                              vocab=cfgs[0].vocab_size, lo=24, hi=72)
     res = serve(engine, prompts, capacity=args.capacity, seed=args.seed,
                 continuous=not args.gang)
     print(f"{args.config} ({cfgs[1].num_layers} layers) method={args.method}"
           f" n={args.n} capacity={args.capacity} device={engine.device} "
-          f"{'paged' if args.paged else 'dense'}: "
+          f"{'paged' if args.paged else 'dense'} kv={args.kv_dtype}"
+          f"{' draft=int8' if args.quantize_draft else ''}: "
           f"finished={res['finished']}/{args.requests} steps={res['steps']} "
           f"tokens={res['tokens']} wall={res['wall_s']:.2f}s "
           f"tokens/s={res['tokens_per_s']:.1f} "

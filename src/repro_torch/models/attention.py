@@ -3,8 +3,9 @@
 A port of the decode path of ``repro.models.attention``.  Caches are
 updated **in place**: the dense rows of the request's own slot, or the
 page-pool rows the block table resolves ``pos`` to.  Every paged attention
-call goes through :func:`repro_torch.kernels.ops.paged_attention`, so a CUDA
-tensor reaches the hand-written kernel.
+call goes through :func:`repro_torch.kernels.ops.paged_attention` (or
+``paged_attention_quant`` for int8/fp8 pools), so a CUDA tensor reaches the
+hand-written kernel.
 
 Train and prefill modes (full-sequence attention) belong to the
 flash-attention slice and raise here.
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, quant
 from repro_torch.models.common import adtype, apply_rope, spec
 
 NEG_INF = -1e30
@@ -57,15 +58,25 @@ def init_self_cache(cfg, kind: str, batch: int, max_seq: int, device):
             "v": torch.zeros(shape, dtype=adtype(cfg), device=device)}
 
 
-def init_paged_self_cache(cfg, total_pages: int, page_size: int, device):
+def init_paged_self_cache(cfg, total_pages: int, page_size: int, device,
+                          kv_dtype=None):
     """Paged cache for one attention layer: K/V page pools, no batch dim.
 
     Positions are stored absolutely for every layer kind: the page of
-    position p is block-table entry ``p // page_size``.
+    position p is block-table entry ``p // page_size``.  ``kv_dtype`` picks
+    the pool format (:mod:`repro_torch.kernels.quant`): ``None`` keeps the
+    activation dtype, ``"bf16"`` casts, and ``"int8"`` / ``"fp8"`` store
+    codes plus ``ks``/``vs`` float32 scales shaped ``(P, KV)``.
     """
     shape = (total_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
-    return {"kp": torch.zeros(shape, dtype=adtype(cfg), device=device),
-            "vp": torch.zeros(shape, dtype=adtype(cfg), device=device)}
+    dt = quant.pool_dtype(kv_dtype, adtype(cfg))
+    out = {"kp": torch.zeros(shape, dtype=dt, device=device),
+           "vp": torch.zeros(shape, dtype=dt, device=device)}
+    if quant.is_quantized(kv_dtype):
+        for key in ("ks", "vs"):
+            out[key] = torch.zeros((total_pages, cfg.num_kv_heads),
+                                   dtype=torch.float32, device=device)
+    return out
 
 
 def self_attention(cfg, p, x, *, kind: str, mode: str, positions, freqs,
@@ -98,11 +109,17 @@ def self_attention(cfg, p, x, *, kind: str, mode: str, positions, freqs,
     q = apply_rope(q, pos_b, freqs)
     k = apply_rope(k, pos_b, freqs)
     if pt is not None and "kp" in cache:
-        _write_cache_paged(cache, k, v, positions, pt)
         if pos32 is None:
             pos32 = positions.to(torch.int32)
-        out = ops.paged_attention(q, cache["kp"], cache["vp"], pt, pos32,
-                                  window=window, scale=scale)
+        if "ks" in cache:
+            _write_cache_paged_quant(cache, k, v, positions, pt)
+            out = ops.paged_attention_quant(
+                q, cache["kp"], cache["vp"], cache["ks"], cache["vs"], pt,
+                pos32, window=window, scale=scale)
+        else:
+            _write_cache_paged(cache, k, v, positions, pt)
+            out = ops.paged_attention(q, cache["kp"], cache["vp"], pt,
+                                      pos32, window=window, scale=scale)
     else:
         _write_cache(cache, k, v, positions)
         mask = _decode_mask(cache["k"].shape[1], positions,
@@ -136,6 +153,38 @@ def _write_cache_paged(cache, k, v, positions, pt):
     rows = page * ps + positions % ps                          # (B,)
     kp.view(P * ps, *kp.shape[2:])[rows] = k[:, 0].to(kp.dtype)
     vp.view(P * ps, *vp.shape[2:])[rows] = v[:, 0].to(vp.dtype)
+
+
+def _write_cache_paged_quant(cache, k, v, positions, pt):
+    """Quantized paged write, in place: re-quantize each touched page whole.
+
+    Request b's new (KV,hd) key/value lands in page ``pt[b, pos // ps]`` at
+    row ``pos % ps``.  The page is read back and dequantized with its
+    current scale, the new row inserted, the rows beyond it zeroed (stale
+    content of an earlier occupant must not inflate the amax), and the page
+    re-quantized against a fresh per-kv-head scale ``amax / QMAX``: the
+    reference's plain-jnp write, op for op, so codes and scales come out bit
+    for bit the same.  Duplicate page indices occur only for the shared
+    trash page, whose content is garbage by design.
+    """
+    ps = cache["kp"].shape[1]
+    dt = cache["kp"].dtype
+    qmax = quant.QMAX["int8"] if dt == torch.int8 else quant.QMAX["fp8"]
+    blk = torch.clamp(positions // ps, max=pt.shape[1] - 1)
+    page = torch.gather(pt, 1, blk[:, None].long())[:, 0].long()   # (B,)
+    row = positions % ps
+    lane = torch.arange(ps, device=positions.device)[None, :]
+    at_row = (lane == row[:, None])[:, :, None, None]
+    valid = (lane <= row[:, None])[:, :, None, None]
+    for pool_key, sc_key, new in (("kp", "ks", k), ("vp", "vs", v)):
+        pool, sc = cache[pool_key], cache[sc_key]
+        fp = pool[page].float() * sc[page][:, None, :, None]
+        fp = torch.where(at_row, new[:, 0].float()[:, None], fp)
+        fp = torch.where(valid, fp, 0.0)
+        amax = fp.abs().amax(dim=(1, 3))                       # (B, KV)
+        nsc = torch.clamp(amax, min=quant.EPS) / qmax
+        pool[page] = quant.quantize_codes(fp / nsc[:, None, :, None], dt)
+        sc[page] = nsc
 
 
 def _decode_mask(sk: int, positions, *, ring: bool):

@@ -29,11 +29,14 @@ def block_specs(cfg, kind: str) -> dict:
 
 
 def init_block_cache(cfg, kind: str, batch: int, max_seq: int, *, device,
-                     pages: int = 0, page_size: int = 0) -> dict:
-    """Zeroed decode cache of one block; ``pages > 0`` selects page pools."""
+                     pages: int = 0, page_size: int = 0,
+                     kv_dtype=None) -> dict:
+    """Zeroed decode cache of one block; ``pages > 0`` selects page pools
+    stored as ``kv_dtype``."""
     check_kind(kind)
     if pages:
-        return attn.init_paged_self_cache(cfg, pages, page_size, device)
+        return attn.init_paged_self_cache(cfg, pages, page_size, device,
+                                          kv_dtype)
     return attn.init_self_cache(cfg, kind, batch, max_seq, device)
 
 

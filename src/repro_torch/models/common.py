@@ -96,10 +96,18 @@ def ffn_specs(d, ff):
     }
 
 
+def matmul(a, b):
+    """``a @ b`` in the promoted dtype of the two, as ``jnp`` computes a
+    product of mixed dtypes (torch's ``@`` raises on them)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
 def ffn_apply(p, x):
-    """SwiGLU FFN: silu(x Wg) * (x Wu) Wo."""
-    gate = torch.nn.functional.silu(x @ p["wi_gate"])
-    return (gate * (x @ p["wi_up"])) @ p["wo"]
+    """SwiGLU FFN: silu(x Wg) * (x Wu) Wo (fp32 activations over bf16
+    weights compute in fp32, as the reference's scoring pass does)."""
+    gate = torch.nn.functional.silu(matmul(x, p["wi_gate"]))
+    return matmul(gate * matmul(x, p["wi_up"]), p["wo"])
 
 
 def round_up(x: int, m: int) -> int:

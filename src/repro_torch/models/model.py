@@ -166,10 +166,12 @@ class Model(nn.Module):
         return torch.sigmoid(logit)
 
     def init_cache(self, batch: int, max_seq: int, *, pages: int = 0,
-                   page_size: int = 0) -> list:
+                   page_size: int = 0, kv_dtype=None) -> list:
         """Zeroed per-layer caches on the model's device; ``pages > 0``
-        selects the paged layout (page pools shared by all rows)."""
+        selects the paged layout (page pools shared by all rows, stored as
+        ``kv_dtype``, see :mod:`repro_torch.kernels.quant`)."""
         return [blocks.init_block_cache(self.cfg, kind, batch, max_seq,
                                         device=self.device, pages=pages,
-                                        page_size=page_size)
+                                        page_size=page_size,
+                                        kv_dtype=kv_dtype)
                 for kind in self.kinds]

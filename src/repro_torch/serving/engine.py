@@ -2,7 +2,9 @@
 
 A port of ``repro.serving.engine``.  A cache is a list with one dict per
 layer: dense rows ``{"k","v"}`` shaped ``(B, S, KV, hd)`` or page pools
-``{"kp","vp"}`` shaped ``(P, ps, KV, hd)`` addressed through a block table.
+``{"kp","vp"}`` shaped ``(P, ps, KV, hd)`` addressed through a block table
+(plus ``{"ks","vs"}`` ``(P, KV)`` per-page scales for int8/fp8 pools, which
+travel with their pages).
 
 * Dense branching (``repeat_cache``) copies each slot's rows n times, row
   ``b*n+j`` being candidate j of request b.
@@ -12,12 +14,14 @@ layer: dense rows ``{"k","v"}`` shaped ``(B, S, KV, hd)`` or page pools
   each branch extends, into its first scratch page, **in place** in the
   shared pool.  Committed pages are never written by a branch, so the
   in-place copy cannot disturb any other reader.
+* ``paged_view`` gathers a paged cache into the dense per-slot layout
+  (dequantized) for the shared-prefix scoring pass.
 """
 from __future__ import annotations
 
 import torch
 
-_PAGED_KEYS = ("kp", "vp")
+_PAGED_KEYS = ("kp", "vp", "ks", "vs")
 
 
 def repeat_cache(cache, n: int):
@@ -84,6 +88,30 @@ def branch_cache(cache, n: int, pt, pos, scratch_ids, page_size: int):
                 new[k] = leaf.repeat_interleave(n, dim=0)
         out.append(new)
     return out
+
+
+def paged_view(cache, pt):
+    """The dense per-slot view of a paged cache: each layer's pools gathered
+    through the block table ``pt (B, nblk1)`` into ``{"k","v"}`` shaped
+    ``(B, nblk1 * ps, KV, hd)`` (absolute positions).  Quantized pools are
+    dequantized on the way out, every row of logical block j carrying block
+    j's page scale, so they come out float32; other pools keep their dtype.
+    Read by the shared-prefix scoring pass; decode never builds it."""
+    B, nblk = pt.shape
+    ptc = pt.long()
+
+    def gather(pool, sc=None):                          # (P, ps, KV, hd)
+        P, ps = pool.shape[:2]
+        rows = (ptc[:, :, None] * ps
+                + torch.arange(ps, device=pt.device)).reshape(B, nblk * ps)
+        out = pool.reshape((P * ps,) + tuple(pool.shape[2:]))[rows]
+        if sc is not None:                              # (P, KV) scales
+            per_row = sc[ptc].repeat_interleave(ps, dim=1)
+            out = out.float() * per_row[..., None]
+        return out
+
+    return [{"k": gather(layer["kp"], layer.get("ks")),
+             "v": gather(layer["vp"], layer.get("vs"))} for layer in cache]
 
 
 def expand_requests(x, n: int):

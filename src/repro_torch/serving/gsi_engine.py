@@ -13,6 +13,11 @@ pi_B and the PRM run the step-level loop:
 
 The same engine, re-parameterized, runs every baseline of the paper:
 ``gsi | gsi_norej | rsd | sbon_s | sbon_b``, on dense or paged caches.
+Paged pools may be stored as bf16, int8 or fp8 (``kv_dtype``; quantized
+pools carry per-page scales), the draft's weights may be rounded through
+int8 at load (``quantize_draft``), and ``shared_scoring`` scores the n
+draft candidates under pi_B and the PRM in one pass against the shared
+committed cache (``models/scoring.py``) instead of n branch caches.
 
 **Fallback: a host-checked branch.**  The reference folds the target phase
 into its jitted step under ``lax.cond(jnp.all(accept), ...)``.  Here the
@@ -53,16 +58,19 @@ import torch
 from repro_torch.config import GSIConfig, ModelConfig
 from repro_torch.core import gsi_select, rsd_select, soft_bon_select
 from repro_torch.device import resolve_device
+from repro_torch.kernels import quant
 from repro_torch.models import Model
 from repro_torch.models.attention import _cache_len
 from repro_torch.models.common import adtype
+from repro_torch.models.scoring import score_candidates
 from repro_torch.sampling import sample_steps, score_and_append
 from repro_torch.serving.engine import (branch_cache, branch_pages,
                                         expand_requests, fold_candidates,
-                                        repeat_cache, reset_cache_rows,
-                                        take_candidates, take_per_request)
-from repro_torch.serving.pages import (PagePool, RadixIndex, pages_for,
-                                       validate_kv_dtype)
+                                        paged_view, repeat_cache,
+                                        reset_cache_rows, take_candidates,
+                                        take_per_request)
+from repro_torch.serving.pages import PagePool, RadixIndex, pages_for
+from repro_torch.serving.quant import quantize_draft_params
 from repro_torch.serving.slots import pack_tails
 
 PAD = 0
@@ -163,6 +171,11 @@ class GSIServingEngine:
     ``models.random_params``); they are moved to ``device`` (no copy when
     already there).  ``device`` defaults to ``"cuda"`` and raises where
     CUDA is absent; tests pass ``device="cpu"``.
+
+    ``kv_dtype`` (paged only) stores the page pools as ``None`` (the
+    activation dtype), ``"bf16"``, ``"int8"`` or ``"fp8"``;
+    ``quantize_draft`` rounds the draft's matmul weights through int8 at
+    load; ``shared_scoring`` scores candidates against the shared cache.
     """
 
     def __init__(self, draft_cfg: ModelConfig, target_cfg: ModelConfig,
@@ -180,13 +193,16 @@ class GSIServingEngine:
             raise ValueError("the PRM config needs reward_head=True")
         if mode not in MODES:
             raise ValueError(f"mode {mode!r} not in {MODES}")
-        for name, asked in (("mesh", mesh is not None),
-                            ("shared_scoring", shared_scoring),
-                            ("quantize_draft", quantize_draft)):
-            if asked:
-                raise NotImplementedError(f"{name} is not ported yet")
-        validate_kv_dtype(kv_dtype)
+        if mesh is not None:
+            raise NotImplementedError("mesh is not ported yet")
+        quant.validate_kv_dtype(kv_dtype)
+        if kv_dtype is not None and not paged:
+            raise ValueError("kv_dtype requires the paged KV layout "
+                             "(pass paged=True)")
         self.kv_dtype = kv_dtype
+        # score candidates against ONE shared cache instead of n branch
+        # caches (models/scoring.py): the same math, far less cache traffic
+        self.shared_scoring = bool(shared_scoring)
         self.mode = mode
         self.gcfg = gcfg
         self.rsd_threshold = rsd_threshold
@@ -204,6 +220,11 @@ class GSIServingEngine:
         self._trash = 0               # trash page id (last pool row)
         self._released: set = set()   # slots whose pt rows await trash-reset
         self._gen = 0                 # live-state generation
+        if quantize_draft:
+            # fake-quant at load: every draft matmul sees int8-rounded
+            # weights; target and PRM weights stay untouched
+            params_s = quantize_draft_params(
+                draft_cfg, {k: t.to(self.device) for k, t in params_s.items()})
         self.draft = Model(draft_cfg, params_s, device=self.device)
         self.target = Model(target_cfg, params_b, device=self.device)
         self.prm = Model(prm_cfg, params_p, device=self.device)
@@ -220,7 +241,8 @@ class GSIServingEngine:
     # State
     # ------------------------------------------------------------------
     def _fresh_caches(self, batch: int, *, pages: int = 0):
-        kw = dict(pages=pages, page_size=self.page_size)
+        kw = dict(pages=pages, page_size=self.page_size,
+                  kv_dtype=self.kv_dtype)
         return {"S": self.draft.init_cache(batch, self.max_seq, **kw),
                 "B": self.target.init_cache(batch, self.max_seq, **kw),
                 "P": self.prm.init_cache(batch, self.max_seq, **kw)}
@@ -246,7 +268,13 @@ class GSIServingEngine:
         n_scratch = batch * self.nmax * self.span
         total = self.num_pages + n_scratch + 1
         index = RadixIndex(self.page_size) if self.prefix_cache else None
-        self.pager = PagePool(self.num_pages, self.page_size, index=index)
+        # bytes-weighted LRU: one page of this kv_dtype costs its payload
+        # plus its scales, so a cached int8 page outlives a bf16 one
+        mem = self.cache_memory_report(batch)
+        self.pager = PagePool(self.num_pages, self.page_size, index=index,
+                              kv_dtype=self.kv_dtype,
+                              page_bytes=mem["bytes_per_page"]
+                              + mem["scale_bytes_per_page"])
         self._trash = total - 1
         self._released = set()
         scratch = (self.num_pages + np.arange(n_scratch, dtype=np.int32)
@@ -324,16 +352,26 @@ class GSIServingEngine:
         return state
 
     def cache_memory_report(self, batch: int) -> dict:
-        """Bytes of the dense per-slot caches vs the paged pool, per-step
-        candidate-branch scratch, and pool capacity."""
+        """Device-memory accounting: dense per-slot caches vs the paged
+        pool, per-step candidate-branch scratch (dense branching copies n
+        whole caches; paged branching ``n * span`` pages per slot), and the
+        pool's capacity at the engine's ``kv_dtype`` (page payload at the
+        pool's storage dtype, per-page scales counted apart), keyed as the
+        reference's report on one device."""
         g = self.gcfg
         models = (self.draft, self.target, self.prm)
 
-        def row_bytes(model):
+        def row_bytes(model, dtype=None):
             cfg = model.cfg
-            item = torch.empty((), dtype=adtype(cfg)).element_size()
+            dt = dtype or quant.pool_dtype(self.kv_dtype, adtype(cfg))
+            item = torch.empty((), dtype=dt).element_size()
             return len(model.kinds) * 2 * cfg.num_kv_heads * cfg.head_dim \
                 * item
+
+        def scale_bytes(model):
+            if not quant.is_quantized(self.kv_dtype):
+                return 0
+            return len(model.kinds) * 2 * model.cfg.num_kv_heads * 4
 
         def dense_bytes(model):
             cfg = model.cfg
@@ -343,34 +381,48 @@ class GSIServingEngine:
                                for k in model.kinds)
 
         branched = [self.draft, self.prm]
-        if self.mode in ("gsi", "gsi_norej"):
+        if self.mode in ("gsi", "gsi_norej") and not self.shared_scoring:
             branched.append(self.target)
         page_b = sum(row_bytes(m) for m in models) * self.page_size
+        scale_b = sum(scale_bytes(m) for m in models)
+        fp_page_b = sum(row_bytes(m, adtype(m.cfg))
+                        for m in models) * self.page_size
         num_pages = self.num_pages or batch * self.nblk
         n_scratch = batch * self.nmax * self.span
         total_pages = num_pages + n_scratch + 1
         rep = {
-            "kv_dtype": "fp",
+            "kv_dtype": self.kv_dtype or "fp",
             "page_size": self.page_size,
             "num_pages": num_pages,
             "scratch_pages": n_scratch,
-            "total_pages": total_pages,
             "bytes_per_page": page_b,
+            "scale_bytes_per_page": scale_b,
+            "fp_bytes_per_page": fp_page_b,
+            "capacity_pages": num_pages,
             "capacity_tokens": num_pages * self.page_size,
-            "capacity_bytes": num_pages * page_b,
+            "capacity_bytes": num_pages * (page_b + scale_b),
             "dense_committed_bytes": sum(dense_bytes(m) for m in models),
             "dense_branch_bytes": g.n * sum(dense_bytes(m)
                                             for m in branched),
-            "paged_pool_bytes": total_pages * page_b,
-            "paged_branch_bytes": n_scratch * page_b,
+            "paged_pool_bytes": total_pages * (page_b + scale_b),
+            "paged_branch_bytes": n_scratch * (page_b + scale_b),
         }
         rep["branch_reduction"] = (rep["dense_branch_bytes"]
                                    / max(1, rep["paged_branch_bytes"]))
+        rep["devices"] = 1
+        rep["bytes_per_device"] = rep["capacity_bytes"]
+        rep["capacity_tokens_per_device"] = rep["capacity_tokens"]
         if self.pager is not None:
+            # distinct pages are what the device holds: a page spliced
+            # into several slots' tables occupies one page
             rep["pages_assigned"] = self.pager.num_referenced
+            rep["pages_slot_view"] = self.pager.num_assigned
             rep["pages_peak"] = self.pager.peak_assigned
+            rep["paged_assigned_bytes"] = self.pager.num_referenced * page_b
+            rep["paged_peak_bytes"] = self.pager.peak_assigned * page_b
             rep["pages_cached"] = self.pager.num_cached
             rep["pages_evicted"] = self.pager.evicted
+            rep["prefix_cached_bytes"] = self.pager.num_cached * page_b
         return rep
 
     def _ensure_blocks(self, state, wants: dict, splice=None):
@@ -469,6 +521,12 @@ class GSIServingEngine:
         return branch_cache(cache, n, state["pt"], state["pos"], scr,
                             self.page_size), bpt
 
+    def _score_cache(self, key, state):
+        """The committed cache of model ``key`` as shared scoring reads it:
+        the dense rows, or the paged pools gathered (and dequantized)."""
+        cache = state["caches"][key]
+        return paged_view(cache, state["pt"]) if self.paged else cache
+
     def _draft_phase(self, state, gen):
         """Sample n draft candidates; score with target + PRM; select."""
         g = self.gcfg
@@ -483,18 +541,29 @@ class GSIServingEngine:
             eos_token=g.eos_token_id, temperature=g.temperature,
             top_p=g.top_p, already_done=done, pt=bpt)
         cands = fold_candidates(steps.tokens, n)             # (B,n,L)
-        scratch_p, _ = self._branch(state["caches"]["P"], n, state)
-        _, _, rewards_flat = score_and_append(
-            self.prm, scratch_p, pend, pos, steps.tokens,
-            return_rewards=True, pt=bpt)
-        rewards = fold_candidates(rewards_flat, n)
+        if self.shared_scoring:
+            # the PRM's logp is computed and discarded, as the reference's
+            _, rewards = score_candidates(
+                self.prm, self._score_cache("P", state), state["pending"],
+                state["pos"], cands, return_rewards=True)
+        else:
+            scratch_p, _ = self._branch(state["caches"]["P"], n, state)
+            _, _, rewards_flat = score_and_append(
+                self.prm, scratch_p, pend, pos, steps.tokens,
+                return_rewards=True, pt=bpt)
+            rewards = fold_candidates(rewards_flat, n)
         out = {"cands": cands, "logp_S": fold_candidates(steps.logprob, n),
                "rewards": rewards}
         if self.mode in ("gsi", "gsi_norej"):
-            scratch_b, _ = self._branch(state["caches"]["B"], n, state)
-            logp_B, _ = score_and_append(self.target, scratch_b, pend, pos,
-                                         steps.tokens, pt=bpt)
-            out["logp_B"] = fold_candidates(logp_B, n)
+            if self.shared_scoring:
+                out["logp_B"] = score_candidates(
+                    self.target, self._score_cache("B", state),
+                    state["pending"], state["pos"], cands)
+            else:
+                scratch_b, _ = self._branch(state["caches"]["B"], n, state)
+                logp_B, _ = score_and_append(self.target, scratch_b, pend,
+                                             pos, steps.tokens, pt=bpt)
+                out["logp_B"] = fold_candidates(logp_B, n)
             dec = gsi_select(gen, rewards, out["logp_B"], out["logp_S"],
                              beta=g.beta, threshold_u=g.threshold_u)
             accept = dec.accept if (self.mode == "gsi" and g.use_rejection) \

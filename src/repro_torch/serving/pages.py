@@ -26,29 +26,20 @@ and ``free + referenced + cached == num_pages`` always holds.  Beyond the
 allocatable ids the pools carry ``batch * n * span`` scratch pages for
 copy-on-write candidate branching and one trash page (the last row).
 
-This slice stores pages in the activation dtype only: ``kv_dtype`` must be
-None (the int8/fp8/bf16 page formats arrive with the quantized-KV slice).
+A quantized pool (``kv_dtype`` int8 or fp8) also tracks ``scale_slots``,
+the pages whose per-page scales are live on the device: claimed with the
+page's first reference, released when the page returns to the free list,
+so ``scale_slots == referenced | cached`` always holds.  Eviction is
+bytes-weighted (``page_cost``): among cached pages the one minimizing
+``clock / cost`` goes first, which is plain LRU when costs are uniform.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
+from repro_torch.kernels import quant
 from repro_torch.serving.radix import RadixIndex
-
-#: ``kv_dtype`` values this slice accepts (the reference also has
-#: "bf16", "int8" and "fp8").
-KV_DTYPES = (None,)
-
-
-def validate_kv_dtype(kv_dtype):
-    """Return ``kv_dtype`` if this slice supports it, else raise."""
-    if kv_dtype not in KV_DTYPES:
-        raise NotImplementedError(
-            f"kv_dtype {kv_dtype!r} is not ported yet: pages are stored in "
-            f"the activation dtype (kv_dtype=None) until the quantized-KV "
-            f"slice")
-    return kv_dtype
 
 
 def pages_for(positions: int, page_size: int) -> int:
@@ -62,23 +53,31 @@ class PagePool:
     num_pages: int
     page_size: int
     index: Optional[RadixIndex] = None    # attached = prefix caching on
-    kv_dtype: Optional[str] = None
+    kv_dtype: Optional[str] = None        # page storage format (see quant)
+    page_bytes: int = 0                   # bytes per page (0 = uniform LRU)
+    page_cost_override: Dict[int, int] = field(default_factory=dict)
     free: List[int] = field(default=None)
     claimed: Dict[int, int] = field(default_factory=dict)   # slot -> unassigned claim
     assigned: Dict[int, List[int]] = field(default_factory=dict)  # slot -> pages by block
     refcount: Dict[int, int] = field(default_factory=dict)  # page -> live slot refs (>0)
     retained: Set[int] = field(default_factory=set)         # pages held by the index
     cached: Set[int] = field(default_factory=set)           # retained, refcount == 0
+    scale_slots: Set[int] = field(default_factory=set)      # pages w/ live scales
     evicted: int = 0              # lifetime cached pages evicted (stats)
     peak_assigned: int = 0        # peak distinct referenced pages
     peak_in_use: int = 0          # referenced + outstanding claims
 
     def __post_init__(self):
         """Seed the free list with every allocatable page id."""
-        validate_kv_dtype(self.kv_dtype)
+        quant.validate_kv_dtype(self.kv_dtype)
         if self.free is None:
             # pop() takes from the end: keep ids ascending for readability
             self.free = list(range(self.num_pages - 1, -1, -1))
+
+    @property
+    def quantized(self) -> bool:
+        """True when pages carry per-page scale tensors (int8 / fp8)."""
+        return quant.is_quantized(self.kv_dtype)
 
     # -- queries -------------------------------------------------------
     @property
@@ -128,6 +127,8 @@ class PagePool:
         rc = self.refcount.get(page, 0)
         if rc == 0:
             self.cached.discard(page)     # referenced pages leave the LRU
+            if self.quantized:
+                self.scale_slots.add(page)    # claimed with the page
         self.refcount[page] = rc + 1
 
     def _unref(self, page: int) -> None:
@@ -139,7 +140,12 @@ class PagePool:
         if page in self.retained:
             self.cached.add(page)         # survives: radix cache entry
         else:
-            self.free.append(page)
+            self._free(page)
+
+    def _free(self, page: int) -> None:
+        """Return a page to the free list; its scale slot goes with it."""
+        self.free.append(page)
+        self.scale_slots.discard(page)
 
     # -- prefix cache --------------------------------------------------
     def match(self, tokens) -> Tuple[List[int], int]:
@@ -162,19 +168,25 @@ class PagePool:
         self.retained.update(new)
         return len(new)
 
-    def evict(self, need: int) -> int:
-        """Evict cached pages (whole radix subtrees, least recently used
-        first) until ``need`` are freed; returns how many were freed.
+    def page_cost(self, page: int) -> int:
+        """Eviction cost of a cached page, in bytes: the pool-wide
+        ``page_bytes`` (the engine wires in one page's payload plus scales,
+        so a cached int8 page costs half a bf16 one) unless
+        ``page_cost_override`` names the page; 0 everywhere is plain LRU."""
+        return self.page_cost_override.get(page, self.page_bytes) or 1
 
-        Every page has one format in this slice, so the reference's
-        bytes-weighted LRU reduces to plain LRU."""
+    def evict(self, need: int) -> int:
+        """Evict cached pages (whole radix subtrees, lowest ``clock / cost``
+        first) until ``need`` are freed; returns how many were freed.
+        Still-referenced pages of a dropped subtree only lose their
+        retention and are freed by their last ``release``."""
         freed = 0
         while freed < need and self.cached:
-            page = self.index.lru_page(self.cached)
+            page = self.index.lru_page(self.cached, cost=self.page_cost)
             if page is None:              # cached page vanished from trie
                 stray = self.cached.pop()
                 self.retained.discard(stray)
-                self.free.append(stray)
+                self._free(stray)
                 freed += 1
                 self.evicted += 1
                 continue
@@ -182,7 +194,7 @@ class PagePool:
                 self.retained.discard(p)
                 if p in self.cached:
                     self.cached.remove(p)
-                    self.free.append(p)
+                    self._free(p)
                     freed += 1
                     self.evicted += 1
         return freed

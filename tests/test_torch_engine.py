@@ -197,5 +197,9 @@ def test_page_pool_conservation_under_sharing():
     assert total() == 8 and pool.num_cached == 3
     pool.claim(2, 7)                                   # forces eviction
     assert pool.evicted >= 2 and total() == 8
-    with pytest.raises(NotImplementedError):
-        PagePool(4, page_size=2, kv_dtype="int8")
+    quantized = PagePool(4, page_size=2, kv_dtype="int8")
+    quantized.claim(0, 2)
+    quantized.ensure(0, 2)
+    assert quantized.scale_slots == set(quantized.refcount)
+    quantized.release(0)
+    assert not quantized.scale_slots and quantized.num_free == 4

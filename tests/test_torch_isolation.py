@@ -99,11 +99,8 @@ def test_unported_options_raise():
                  for c in serve.toy_triple())
     params = [random_params(c, i, "cpu") for i, c in enumerate(cfgs)]
     args = (*cfgs, *params, GSIConfig())
-    for kw in ({"kv_dtype": "int8", "paged": True},
-               {"shared_scoring": True}, {"quantize_draft": True},
-               {"mesh": object()}):
-        with pytest.raises(NotImplementedError):
-            GSIServingEngine(*args, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        GSIServingEngine(*args, device="cpu", mesh=object())
     eng = GSIServingEngine(*args, device="cpu", paged=True)
     for call in (lambda: eng.extend(None, None, None, None),
                  lambda: eng.save_cache(None),
@@ -117,6 +114,6 @@ def test_unported_options_raise():
     for kw in ({"priority": 1}, {"deadline_s": 1.0}, {"stream": print}):
         with pytest.raises(NotImplementedError):
             sched.submit([5, 6, 4], **kw)
-    for argv in (["--replicas", "2"], ["--tp", "2"], ["--kv-dtype", "int8"]):
+    for argv in (["--replicas", "2"], ["--tp", "2"]):
         with pytest.raises(NotImplementedError):
             serve.main(["--config", "toy", "--device", "cpu"] + argv)
