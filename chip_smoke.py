@@ -11,9 +11,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    one process per source, all started together.
 3. kernels — each kernel against its plain PyTorch version on the card at
    the main paths' shapes, with the stated tolerances: paged attention,
-   quantized paged attention (int8 and fp8 codes) and the fused log-softmax
+   quantized paged attention (int8 and fp8 codes), the fused log-softmax
    gather (the target's row-major unembedding and the draft's tied,
-   transposed embedding).  Each kernel's time beside its bound, the plain
+   transposed embedding) and flash attention (target and draft heads,
+   bf16 and fp32, causal with no window and with one shorter than the
+   query tile, S = 1000).  Each kernel's time beside its bound, the plain
    version's time and one PyTorch library call computing the same function
    (a yardstick the port never calls).  Launches made here are not counted.
 4. main paths — the full-width Qwen2.5-Math draft/target/PRM triple with
@@ -21,21 +23,31 @@ Phases, each printing its own lines; any failure exits non-zero:
    the continuous-batching scheduler: (a) 6 requests on 4 slots over bf16
    pages, (b) a short run whose threshold no tilted reward can reach, so the
    target fallback must run, and (c) 5 requests over int8 pages with shared
-   scoring and the draft's weights rounded through int8.  Every kernel
-   launch counter is zeroed just before each run and read just after: in
-   (a) and (b) every paged attention call launched the bf16 kernel; in (c)
-   every one launched the quantized kernel and the vocab gather ran twice
-   per draft phase (target and PRM scoring).
+   scoring and the draft's weights rounded through int8.  Then run
+   score-prm, at full depth: the sequences (a) finished go through
+   target.prefill, target.score, draft.score and PRM.reward_at_end, and
+   each result is held against the decode path (teacher-forced paged
+   decode_step) on the same tokens.  Every kernel launch counter is zeroed
+   just before each run and read just after: in (a) and (b) every paged
+   attention call launched the bf16 kernel; in (c) every one launched the
+   quantized kernel and the vocab gather ran twice per draft phase; in
+   score-prm the flash kernel ran once per layer of every full-sequence
+   call and the gather once per score call, with no paged launch.
 4b. agreement — a toy fp32 triple at temperature 0: paged (kernel) against
    dense (plain attention) serving on the card, and int8 / fp8 pages with
-   shared scoring on the card against the same engine on the CPU.
-5. profile — one engine step of (a) and of (c) under ``torch.profiler``.
+   shared scoring on the card against the same engine on the CPU; then the
+   toy models' forward, score, prefill and rewards on the card (head_dim 16
+   and 40, a full/local stack with a window shorter than S) against the
+   CPU.
+5. profile — one engine step of (a) and of (c), and one score-prm batch,
+   under ``torch.profiler``.
 
 The line before the last is ``{"kernels": [...]}``: every ported kernel
 with its largest error in phase 3, its timings and its launch count from the
 phase-4 run(s) of its path.  The last line is
 ``{"ok": true, "device": {...}}``.  ``--layers`` cuts the depth of runs (a)
-and (b) (never a width, never run (c)) and says so on a ``reduced:`` line.
+and (b) (never a width, never run (c) or score-prm) and says so on a
+``reduced:`` line.
 """
 from __future__ import annotations
 
@@ -62,6 +74,18 @@ TOL = {"torch.float32": 2e-5,
 # an error that grows with the logits: 1e-3 absolute plus 1e-5 of the
 # log-prob (the draft's tied std-1 embedding gives log-probs near -300)
 LOGPROB_ATOL, LOGPROB_RTOL = 1e-3, 1e-5
+# run score-prm against the decode path: two kernels (flash, with bf16
+# probabilities, and paged decode, with fp32 ones) and GEMMs of other row
+# counts round the bf16 activations of 28 layers at different points, each
+# rounding a relative 2^-9, and the decode path's logits are themselves
+# bf16 (half an ulp is 0.016 at |logit| 4-8).  The target's logits have a
+# std near 1 (post-norm states over a 1/sqrt(d) unembedding).  Held to 0.1
+# in log-probs (nats) and in logits, and to 0.01 in rewards (a sigmoid,
+# slope at most 1/4, of a logit of the same scale)
+LP_TOL, LOGIT_TOL, REWARD_TOL = 0.1, 0.1, 0.01
+# phase 4b, card against CPU in fp32: summation orders differ (cuBLAS and
+# the kernels against the CPU's), 1e-4 of each output's scale
+TOY_RTOL = 1e-4
 
 
 class SmokeFailure(Exception):
@@ -528,6 +552,87 @@ def phase_kernels_logprob(torch):
     return row
 
 
+def flash_case(torch, *, B, S, H, KV, dtype, seed, hd=128):
+    """q (B,S,H,hd), k/v (B,S,KV,hd): N(0, 1), as rope'd projections of
+    normed hidden states are about."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+
+
+def bound_flash(q, k, window):
+    """Least time for one causal call: 4 * hd flops per live (query head,
+    key) pair at the tensor-core (bf16) or CUDA-core (fp32) rate, against
+    q, k, v and the output moved once at the HBM rate."""
+    B, S, H, hd = q.shape
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    ops = 4 * B * H * hd * pairs
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = ops / PEAK_OPS[str(q.dtype)]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_kernels_flash(torch):
+    print("== phase 3: flash_attention vs its plain version", flush=True)
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    max_err = 0.0
+    shapes = {"target": (28, 4), "draft": (12, 2)}
+    # window 8 is shorter than the kernel's query tile (64 // G = 9 or 10
+    # positions) and its 64-key tile: late rows' first tile is wholly
+    # masked.  S = 1000 is not a multiple of either tile.
+    for tag, (H, KV) in shapes.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            for window in (0, 8):
+                q, k, v = flash_case(torch, B=4, S=1000, H=H, KV=KV,
+                                     dtype=dtype, seed=H + window)
+                got = flash_attention_cuda(q, k, v, window=window)
+                want = flash_attention_plain(q, k, v, window=window)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(got).all()),
+                      f"flash {tag}: non-finite kernel output")
+                err = (got.float() - want.float()).abs().max().item()
+                tol = TOL[str(dtype)]
+                print(f"flash_attention {tag} B=4 S=1000 H={H} KV={KV} "
+                      f"hd=128 {str(dtype)[6:]} causal window={window}: "
+                      f"max_abs_err={err:.3e} (tol {tol:.0e})", flush=True)
+                check(err <= tol, f"flash_attention {tag} {dtype} window "
+                      f"{window}: error {err} > {tol}")
+                max_err = max(max_err, err)
+                del q, k, v, got, want
+
+    # timing at a scoring shape: B = 4, S = 1024, the target's heads, bf16
+    H, KV = shapes["target"]
+    sets = [flash_case(torch, B=4, S=1024, H=H, KV=KV, dtype=torch.bfloat16,
+                       seed=300 + i) for i in range(2)]   # 67 MB each
+    ms, ms_host = time_ms(torch, lambda *a: flash_attention_cuda(*a), sets,
+                          iters=20)
+    plain_ms, plain_host = time_ms(
+        torch, lambda *a: flash_attention_plain(*a), sets, iters=1)
+    lib_sets = [[t.transpose(1, 2).contiguous() for t in s] for s in sets]
+    library_ms, library_host = time_ms(
+        torch, lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), lib_sets, iters=20)
+    bound_ms, bound_by = bound_flash(sets[0][0], sets[0][1], 0)
+    print(f"flash_attention timing (B=4 S=1024 H={H} KV={KV} hd=128 bf16 "
+          f"causal), device-only ms per call: kernel {ms:.4f}, bound "
+          f"{bound_ms:.4f} ({bound_by}), plain {plain_ms:.4f}, library "
+          f"(scaled_dot_product_attention is_causal enable_gqa, (B,H,S,hd)) "
+          f"{library_ms:.4f}; back to back from the host: kernel "
+          f"{ms_host:.4f}, plain {plain_host:.4f}, library "
+          f"{library_host:.4f}", flush=True)
+    del sets, lib_sets
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:72",
+            "launches": 0, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
 def instrument(torch, model, tag, acc):
     """Count ``model``'s paged decode steps and time each one (host clock
     around the call, and CUDA events on the stream)."""
@@ -554,12 +659,14 @@ def instrument(torch, model, tag, acc):
 
 def counters(torch):
     """The launch-counting wrapper of every kernel, by kernel name."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.logprob_gather import logprob_gather_cuda
     from repro_torch.kernels.paged_attention import (
         paged_attention_cuda, paged_attention_quant_cuda)
     return {"paged_attention": paged_attention_cuda,
             "paged_attention_quant": paged_attention_quant_cuda,
-            "logprob_gather": logprob_gather_cuda}
+            "logprob_gather": logprob_gather_cuda,
+            "flash_attention": flash_attention_cuda}
 
 
 def serve_run(torch, name, cfgs, params, g, count, seed, acc, **kw):
@@ -603,6 +710,7 @@ def serve_run(torch, name, cfgs, params, g, count, seed, acc, **kw):
     launches = {k: fn.launches for k, fn in wrappers.items()}
     torch.cuda.synchronize()
     res.update(launches=launches, draft_phases=phases["draft"],
+               prompts=prompts,
                gather_inputs=sorted(set(seen)), count=count,
                mem=engine.cache_memory_report(4))
     del engine
@@ -702,7 +810,8 @@ def phase_main(torch, layers):
         got, want = results[name]["launches"], paged_layer_calls(name)
         check(got["paged_attention"] == want > 0
               and got["paged_attention_quant"] == 0
-              and got["logprob_gather"] == 0,
+              and got["logprob_gather"] == 0
+              and got["flash_attention"] == 0,
               f"{name}: launches {got}; want paged_attention = layers x "
               f"paged decode_step calls = {want} and no other kernel")
     q = results["gsi-int8-shared"]
@@ -713,7 +822,7 @@ def phase_main(torch, layers):
           f"draft phases {2 * q['draft_phases']}; vocab-gather inputs (h, w,"
           f" h shape) {q['gather_inputs']}", flush=True)
     check(got["paged_attention_quant"] == want > 0
-          and got["paged_attention"] == 0,
+          and got["paged_attention"] == 0 and got["flash_attention"] == 0,
           f"gsi-int8-shared: launches {got}; want paged_attention_quant = "
           f"layers x paged decode_step calls = {want}, no bf16 kernel")
     check(got["logprob_gather"] == 2 * q["draft_phases"] > 0,
@@ -733,6 +842,7 @@ def phase_main(torch, layers):
           + f"; bytes per page ratio "
           f"{(fp['bytes_per_page'] + fp['scale_bytes_per_page']) / (i8['bytes_per_page'] + i8['scale_bytes_per_page']):.4f}",
           flush=True)
+    scored = phase_score_prm(torch, full, params, results["gsi"])
     print(f"max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
           flush=True)
@@ -740,13 +850,198 @@ def phase_main(torch, layers):
         "paged_attention": sum(results[n]["launches"]["paged_attention"]
                                for n in ("gsi", "gsi-forced-fallback")),
         "paged_attention_quant": got["paged_attention_quant"],
-        "logprob_gather": got["logprob_gather"]}
+        "logprob_gather": got["logprob_gather"]
+        + scored["logprob_gather"],
+        "flash_attention": scored["flash_attention"]}
+    print(f"logprob_gather launches over its runs: gsi-int8-shared "
+          f"{got['logprob_gather']} + score-prm {scored['logprob_gather']}",
+          flush=True)
     phase_profile(torch, [("gsi", cfgs, cut, {}),
                           ("gsi-int8-shared", full, params, runs[2][6])],
                   gcfg)
+    phase_profile_scoring(torch, full, params, results["gsi"])
     del params, cut
     torch.cuda.empty_cache()
     return launches
+
+
+def finished_sequences(torch, res):
+    """Prompt plus committed tokens of every request of a run, PAD-padded
+    into one (B, S) batch on the card, with their lengths and the shortest
+    prompt's length."""
+    import numpy as np
+    seqs = [np.concatenate([p, res["responses"][rid].tokens]).astype(
+        np.int64) for p, rid in zip(res["prompts"], res["ids"])]
+    width = max(s.size for s in seqs)
+    toks = np.zeros((len(seqs), width), np.int64)
+    for i, s in enumerate(seqs):
+        toks[i, :s.size] = s
+    lengths = np.array([s.size for s in seqs])
+    prompt = min(p.size for p in res["prompts"])
+    return (torch.from_numpy(toks).cuda(), torch.from_numpy(lengths).cuda(),
+            prompt)
+
+
+def scoring_models(full, params):
+    """The full-width triple over the weights already on the card (no
+    copy): draft and target models and the PRM."""
+    from repro_torch.models import Model
+    from repro_torch.rewards import PRM
+    return (Model(full[0], params[0]), Model(full[1], params[1]),
+            PRM(full[2], params[2], device="cuda"))
+
+
+def scoring_batch(draft, target, prm, toks, lengths, prompt):
+    """The run score-prm's four full-sequence calls."""
+    prefill = target.prefill(toks[:, :prompt], max_seq=prompt + 8)
+    return (prefill, target.score(toks), draft.score(toks),
+            prm.reward_at_end(toks, lengths))
+
+
+def teacher_forced(torch, model, toks, *, keep=(), hidden_at=None):
+    """Feed ``toks`` one position at a time through paged ``decode_step``
+    (the decode path: the paged kernel in every layer, from an empty
+    cache, identity block table).  Returns the log-prob of each next token
+    (B, S-1), the logits at the positions in ``keep``, and the final hidden
+    state of row b at position ``hidden_at[b]``."""
+    B, S = toks.shape
+    ps = 16
+    nblk = -(-S // ps)
+    cache = model.init_cache(B, S, pages=B * nblk, page_size=ps)
+    pt = torch.arange(B * nblk, dtype=torch.int32,
+                      device="cuda").reshape(B, nblk)
+    vocab = model.cfg.vocab_size
+    lp = torch.zeros((B, S - 1), device="cuda")
+    kept, hid = {}, None
+    rows = torch.arange(B, device="cuda")
+    for t in range(S):
+        pos = torch.full((B,), t, device="cuda")
+        logits, h = model.decode_step(cache, toks[:, t:t + 1], pos,
+                                      return_hidden=True, pt=pt)
+        if t in keep:
+            kept[t] = logits.float()
+        if t + 1 < S:
+            lsm = torch.log_softmax(logits[:, :vocab].float(), dim=-1)
+            lp[:, t] = lsm[rows, toks[:, t + 1]]
+        if hidden_at is not None:
+            hid = h if hid is None else hid
+            hid = torch.where((hidden_at == t)[:, None], h, hid)
+    return lp, kept, hid
+
+
+def phase_score_prm(torch, full, params, gsi_res):
+    """Run score-prm: the sequences run gsi finished, through the full-width
+    full-depth target's prefill and score, the draft's score and the PRM's
+    reward_at_end, with every launch counter zeroed just before and read
+    just after; then each result against the decode path on the card."""
+    print("== phase 4: run score-prm (full-sequence passes at full width "
+          "and depth)", flush=True)
+    draft, target, prm = scoring_models(full, params)
+    toks, lengths, prompt = finished_sequences(torch, gsi_res)
+    B, S = toks.shape
+    print(f"run score-prm: {B} sequences of run gsi, lengths "
+          f"{lengths.tolist()}, padded to {S}; prefill of the first "
+          f"{prompt} tokens (the shortest prompt)", flush=True)
+    wrappers = counters(torch)
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    (pf_logits, pf_cache), lp_t, lp_d, r_end = scoring_batch(
+        draft, target, prm, toks, lengths, prompt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    calls = {"target.prefill": len(target.layers),
+             "target.score": len(target.layers),
+             "draft.score": len(draft.layers),
+             "prm.reward_at_end": len(prm.model.layers)}
+    want_flash = sum(calls.values())
+    print(f"run score-prm: wall {wall:.3f} s for the four calls; kernel "
+          f"launches {launches}; flash_attention wanted = layers summed "
+          f"over the full-sequence calls {calls} = {want_flash}; "
+          f"logprob_gather wanted = 2 score calls", flush=True)
+    check(launches["flash_attention"] == want_flash
+          and launches["logprob_gather"] == 2
+          and launches["paged_attention"] == 0
+          and launches["paged_attention_quant"] == 0,
+          f"score-prm: launches {launches}; want flash_attention = "
+          f"{want_flash}, logprob_gather = 2, no paged kernel")
+    for name, t in (("target.score", lp_t), ("draft.score", lp_d),
+                    ("prm.reward_at_end", r_end),
+                    ("target.prefill logits", pf_logits)):
+        check(bool(torch.isfinite(t).all()), f"score-prm: {name} not finite")
+    check(lp_t.shape == (B, S - 1) and lp_d.shape == (B, S - 1)
+          and r_end.shape == (B,) and float(r_end.min()) >= 0
+          and float(r_end.max()) <= 1, "score-prm: bad output shapes or "
+          "rewards outside [0, 1]")
+
+    # the same functions through the decode path (the paged kernel)
+    live = torch.arange(S - 1, device="cuda")[None] < (lengths - 1)[:, None]
+    lp_dec, kept, _ = teacher_forced(torch, target, toks,
+                                     keep=(prompt - 1, prompt))
+    _, _, h_end = teacher_forced(torch, prm.model, toks,
+                                 hidden_at=lengths - 1)
+    r_dec = prm.model.reward_from_hidden(h_end)
+    step = target.decode_step(pf_cache, toks[:, prompt:prompt + 1],
+                              torch.full((B,), prompt, device="cuda"))
+    V = full[1].vocab_size
+    err_lp = (lp_t - lp_dec)[live].abs().max().item()
+    err_r = (r_end - r_dec).abs().max().item()
+    err_pf = (pf_logits[:, :V] - kept[prompt - 1][:, :V]).abs().max().item()
+    err_step = (step[:, :V].float() - kept[prompt][:, :V]).abs().max().item()
+    print(f"score-prm vs the decode path on the same tokens: (a) "
+          f"target.score log-probs max_abs_err={err_lp:.4f} (tol "
+          f"{LP_TOL}) over {int(live.sum())} tokens, log-probs in "
+          f"[{lp_t[live].min().item():.2f}, {lp_t[live].max().item():.2f}]; "
+          f"(b) prm.reward_at_end max_abs_err={err_r:.5f} (tol {REWARD_TOL})"
+          f", rewards {[round(x, 4) for x in r_end.tolist()]}; (c) prefill "
+          f"last-token logits max_abs_err={err_pf:.4f}, one decode_step "
+          f"from the prefill cache {err_step:.4f} (tol {LOGIT_TOL}), logits "
+          f"in [{kept[prompt - 1][:, :V].min().item():.2f}, "
+          f"{kept[prompt - 1][:, :V].max().item():.2f}]", flush=True)
+    check(err_lp <= LP_TOL, f"score-prm (a): log-prob error {err_lp}")
+    check(err_r <= REWARD_TOL, f"score-prm (b): reward error {err_r}")
+    check(err_pf <= LOGIT_TOL and err_step <= LOGIT_TOL,
+          f"score-prm (c): prefill logits error {err_pf}, decode from the "
+          f"prefill cache {err_step}")
+    del pf_cache, draft, target, prm
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_profile_scoring(torch, full, params, gsi_res):
+    """One score-prm batch under torch.profiler: wall and device busy
+    time, the top device operations and the flash kernel's share."""
+    from torch.profiler import ProfilerActivity, profile
+    print("== phase 5: where one score-prm batch's time goes", flush=True)
+    draft, target, prm = scoring_models(full, params)
+    toks, lengths, prompt = finished_sequences(torch, gsi_res)
+    scoring_batch(draft, target, prm, toks, lengths, prompt)   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        scoring_batch(draft, target, prm, toks, lengths, prompt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    if not rows:
+        print("score-prm batch: device time not measured (the profiler saw "
+              "no device activity)", flush=True)
+        return
+    busy = sum(r[0] for r in rows) / 1e6
+    flash = sum(r[0] for r in rows if "flash_" in r[2]) / 1e6
+    print(f"score-prm batch: wall {wall:.3f} s, device busy {busy:.3f} s, "
+          f"device idle share {1 - busy / wall:.3f}, flash kernel "
+          f"{flash * 1e3:.2f} ms = {100 * flash / busy:.1f}% of busy",
+          flush=True)
+    for dev_us, count, key in sorted(rows, reverse=True)[:12]:
+        print(f"  {dev_us / 1e3:10.2f} ms  {count:7d} calls  "
+              f"{100 * dev_us / 1e6 / busy:5.1f}%  {key[:90]}", flush=True)
 
 
 def phase_profile(torch, configs, gcfg):
@@ -860,6 +1155,58 @@ def phase_agreement(torch):
                   f"the bounds", flush=True)
 
 
+def phase_agreement_full(torch):
+    """Toy fp32 models: forward, score, prefill (logits and caches) and the
+    PRM's rewards on the card (the flash kernel in every layer, head_dim 16
+    and 40, and a full/local stack whose window 8 is shorter than S) match
+    the same calls on the CPU (plain versions)."""
+    print("== phase 4b: toy full-sequence passes, card vs CPU", flush=True)
+    import numpy as np
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch import serve
+    from repro_torch.models import Model, random_params
+    from repro_torch.rewards import PRM
+    draft, target, prm_cfg = serve.toy_triple(vocab=64)
+    stack = dataclasses.replace(draft, name="sx-full-local", num_layers=3,
+                                layer_pattern=("full", "local"),
+                                window_size=8)
+    toks = np.random.default_rng(4).integers(3, 64, (3, 77))
+    lengths = np.array([77, 40, 9])
+
+    def close(tag, got, want):
+        want = want.float()
+        err = (got.float().cpu() - want).abs().max().item()
+        scale = max(want.abs().max().item(), 1.0)
+        print(f"toy {tag}: max_abs_err={err:.3e} (tol {TOY_RTOL:.0e} x "
+              f"{scale:.2f})", flush=True)
+        check(err <= TOY_RTOL * scale, f"toy {tag}: card and CPU differ")
+
+    for i, cfg in enumerate((draft, target, stack, prm_cfg)):
+        params = random_params(cfg, 20 + i, "cpu")
+        cpu, card = Model(cfg, params), Model(cfg, params, device="cuda")
+        tc, tg = torch.from_numpy(toks), torch.from_numpy(toks).cuda()
+        before = flash_attention_cuda.launches
+        tag = f"{cfg.name} (hd {cfg.head_dim}, {cfg.layer_pattern})"
+        V = cfg.vocab_size                # padded columns hold -1e30
+        close(f"{tag} forward", card.forward(tg)[0][..., :V],
+              cpu.forward(tc)[0][..., :V])
+        close(f"{tag} score", card.score(tg), cpu.score(tc))
+        lg, cache = card.prefill(tg[:, :50], max_seq=64)
+        lc, cache_c = cpu.prefill(tc[:, :50], max_seq=64)
+        close(f"{tag} prefill logits", lg[:, :V], lc[:, :V])
+        close(f"{tag} prefill caches",
+              torch.cat([c[k].flatten() for c in cache for k in "kv"]),
+              torch.cat([c[k].flatten() for c in cache_c for k in "kv"]))
+        if cfg.reward_head:
+            got = PRM(cfg, params, device="cuda").reward_at_end(tg, lengths)
+            want = PRM(cfg, params, device="cpu").reward_at_end(tc, lengths)
+            close(f"{tag} reward_at_end", got, want)
+        torch.cuda.synchronize()
+        check(flash_attention_cuda.launches - before
+              >= 3 * cfg.num_layers, f"toy {tag}: the flash kernel did not "
+              f"run in every layer")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=0,
@@ -882,11 +1229,12 @@ def main() -> int:
         phase_device(torch)
         phase_build()
         rows = [phase_kernels(torch), phase_kernels_quant(torch),
-                phase_kernels_logprob(torch)]
+                phase_kernels_logprob(torch), phase_kernels_flash(torch)]
         launches = phase_main(torch, args.layers)
         for row in rows:
             row["launches"] = launches[row["name"]]
         phase_agreement(torch)
+        phase_agreement_full(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

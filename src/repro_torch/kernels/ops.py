@@ -6,12 +6,23 @@ switch that sends a CUDA tensor to the plain version.
 """
 from __future__ import annotations
 
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
 from repro_torch.kernels.logprob_gather import (logprob_gather_cuda,
                                                 logprob_gather_plain)
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain,
                                                  paged_attention_quant_cuda,
                                                  paged_attention_quant_plain)
+
+
+def flash_attention(q, k, v, *, causal=True, window: int = 0, scale=None):
+    """q: (B,Sq,H,hd); k/v: (B,Sk,KV,hd) -> (B,Sq,H,hd)."""
+    if q.is_cuda:
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    scale=scale)
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 scale=scale)
 
 
 def paged_attention(q, kp, vp, pt, pos, *, window: int = 0, scale=None):

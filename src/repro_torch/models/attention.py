@@ -1,14 +1,17 @@
-"""GQA self-attention in decode mode: dense (ring-aware) and paged caches.
+"""GQA self-attention: full-sequence (train/prefill) and decode modes.
 
-A port of the decode path of ``repro.models.attention``.  Caches are
-updated **in place**: the dense rows of the request's own slot, or the
-page-pool rows the block table resolves ``pos`` to.  Every paged attention
-call goes through :func:`repro_torch.kernels.ops.paged_attention` (or
-``paged_attention_quant`` for int8/fp8 pools), so a CUDA tensor reaches the
-hand-written kernel.
+A port of ``repro.models.attention`` for the self-attention kinds.
 
-Train and prefill modes (full-sequence attention) belong to the
-flash-attention slice and raise here.
+* ``train`` / ``prefill``: full-sequence causal (or sliding-window)
+  attention through :func:`repro_torch.kernels.ops.flash_attention`, so a
+  CUDA tensor reaches the hand-written flash kernel; ``prefill`` also
+  returns the layer's dense cache, padded to capacity or, for a local
+  layer whose window is shorter than the prefill, as a ring buffer.
+* ``decode``: one token against the cache, updated **in place**: the dense
+  rows of the request's own slot, or the page-pool rows the block table
+  resolves ``pos`` to.  Every paged call goes through
+  :func:`repro_torch.kernels.ops.paged_attention` (or
+  ``paged_attention_quant`` for int8/fp8 pools).
 """
 from __future__ import annotations
 
@@ -80,20 +83,19 @@ def init_paged_self_cache(cfg, total_pages: int, page_size: int, device,
 
 
 def self_attention(cfg, p, x, *, kind: str, mode: str, positions, freqs,
-                   cache=None, window_override: int = 0, pt=None,
-                   pos32=None):
-    """Decode-mode self-attention; writes this token's K/V into ``cache``.
+                   cache=None, window_override: int = 0, max_seq: int = 0,
+                   pt=None, pos32=None):
+    """Returns ``(out, cache)``.
 
-    x: (B,1,d); positions: (B,); ``freqs`` the model's RoPE frequencies.
-    ``pt`` (B, nblk1) selects the paged path when ``cache`` holds page
-    pools ({'kp','vp'}); ``pos32`` is ``positions`` as int32 for the kernel
+    positions: (S,) for train/prefill (shared across the batch), (B,) for
+    decode; ``freqs`` the model's RoPE frequencies.  ``train`` returns no
+    cache, ``prefill`` a new dense ``{'k','v'}`` cache of capacity
+    ``max_seq`` (default S), ``decode`` the given cache, written in place:
+    ``pt`` (B, nblk1) selects the paged path when it holds page pools
+    ({'kp','vp'}); ``pos32`` is ``positions`` as int32 for the kernel
     (computed once per decode step).
     """
-    if mode != "decode":
-        raise NotImplementedError(
-            f"attention mode {mode!r}: train/prefill (full-sequence) "
-            "attention arrives with the flash-attention slice")
-    B = x.shape[0]
+    B, S = x.shape[:2]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     d = cfg.d_model
     scale = hd ** -0.5
@@ -102,31 +104,67 @@ def self_attention(cfg, p, x, *, kind: str, mode: str, positions, freqs,
         window = window_override if window == 0 else min(window,
                                                          window_override)
 
-    q = (x @ p["wq"].reshape(d, H * hd).to(x.dtype)).reshape(B, 1, H, hd)
-    k = (x @ p["wk"].reshape(d, KV * hd).to(x.dtype)).reshape(B, 1, KV, hd)
-    v = (x @ p["wv"].reshape(d, KV * hd).to(x.dtype)).reshape(B, 1, KV, hd)
-    pos_b = positions[:, None]
-    q = apply_rope(q, pos_b, freqs)
-    k = apply_rope(k, pos_b, freqs)
-    if pt is not None and "kp" in cache:
-        if pos32 is None:
-            pos32 = positions.to(torch.int32)
-        if "ks" in cache:
-            _write_cache_paged_quant(cache, k, v, positions, pt)
-            out = ops.paged_attention_quant(
-                q, cache["kp"], cache["vp"], cache["ks"], cache["vs"], pt,
-                pos32, window=window, scale=scale)
+    q = (x @ p["wq"].reshape(d, H * hd).to(x.dtype)).reshape(B, S, H, hd)
+    k = (x @ p["wk"].reshape(d, KV * hd).to(x.dtype)).reshape(B, S, KV, hd)
+    v = (x @ p["wv"].reshape(d, KV * hd).to(x.dtype)).reshape(B, S, KV, hd)
+    if mode in ("train", "prefill"):
+        pos = positions[None, :]                         # (1, S)
+        q = apply_rope(q, pos, freqs)
+        k = apply_rope(k, pos, freqs)
+        # the flash kernel on a CUDA tensor (no switch sends it elsewhere),
+        # its plain version, the reference's causal-mask einsum, on the CPU
+        out = ops.flash_attention(q, k, v, causal=True, window=window,
+                                  scale=scale)
+        if mode == "prefill":
+            cache = _fill_cache(cfg, kind, k, v, max_seq or S)
         else:
-            _write_cache_paged(cache, k, v, positions, pt)
-            out = ops.paged_attention(q, cache["kp"], cache["vp"], pt,
-                                      pos32, window=window, scale=scale)
+            cache = None
+    elif mode == "decode":
+        pos_b = positions[:, None]
+        q = apply_rope(q, pos_b, freqs)
+        k = apply_rope(k, pos_b, freqs)
+        if pt is not None and "kp" in cache:
+            if pos32 is None:
+                pos32 = positions.to(torch.int32)
+            if "ks" in cache:
+                _write_cache_paged_quant(cache, k, v, positions, pt)
+                out = ops.paged_attention_quant(
+                    q, cache["kp"], cache["vp"], cache["ks"], cache["vs"],
+                    pt, pos32, window=window, scale=scale)
+            else:
+                _write_cache_paged(cache, k, v, positions, pt)
+                out = ops.paged_attention(q, cache["kp"], cache["vp"], pt,
+                                          pos32, window=window, scale=scale)
+        else:
+            _write_cache(cache, k, v, positions)
+            mask = _decode_mask(cache["k"].shape[1], positions,
+                                ring=(window > 0))
+            out = gqa_attention(q, cache["k"], cache["v"], mask, scale)
     else:
-        _write_cache(cache, k, v, positions)
-        mask = _decode_mask(cache["k"].shape[1], positions,
-                            ring=(window > 0))
-        out = gqa_attention(q, cache["k"], cache["v"], mask, scale)
-    y = out.reshape(B, 1, H * hd) @ p["wo"].reshape(H * hd, d).to(x.dtype)
-    return y
+        raise ValueError(f"attention mode {mode!r}: train, prefill or "
+                         f"decode")
+    y = out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, d).to(x.dtype)
+    return y, cache
+
+
+def _fill_cache(cfg, kind, k, v, max_seq):
+    """The capacity-sized dense cache from prefill keys (rope'd) and
+    values: zero-padded past S, or a ring buffer when the layer keeps fewer
+    rows than S (slot j holds the latest position p with p % size == j)."""
+    B, S, KV, hd = k.shape
+    size = _cache_len(cfg, kind, max_seq)
+    if size > S:             # decode continues writing at pos >= S
+        out = {}
+        for name, t in (("k", k), ("v", v)):
+            full = t.new_zeros((B, size, KV, hd))
+            full[:, :S] = t
+            out[name] = full
+        return out
+    if size == S:
+        return {"k": k, "v": v}
+    start = S - size
+    idx = start + (torch.arange(size, device=k.device) - start) % size
+    return {"k": k[:, idx], "v": v[:, idx]}
 
 
 def _write_cache(cache, k, v, positions):

@@ -1,7 +1,8 @@
 """Pre-norm decoder block: self-attention + SwiGLU FFN (``full``/``local``).
 
-A port of ``repro.models.blocks`` for the attention kinds.  Recurrent, RWKV,
-cross and encoder blocks belong to later slices and raise.
+A port of ``repro.models.blocks`` for the attention kinds, in the train,
+prefill and decode modes.  Recurrent, RWKV, cross and encoder blocks belong
+to later slices and raise.
 """
 from __future__ import annotations
 
@@ -40,16 +41,20 @@ def init_block_cache(cfg, kind: str, batch: int, max_seq: int, *, device,
     return attn.init_self_cache(cfg, kind, batch, max_seq, device)
 
 
-def block_apply(cfg, kind: str, p, x, *, positions, cache, freqs, pt=None,
-                pos32=None):
-    """One decode step of one block; the block's cache is written in place.
+def block_apply(cfg, kind: str, p, x, *, mode: str, positions, freqs,
+                cache=None, window_override: int = 0, max_seq: int = 0,
+                pt=None, pos32=None):
+    """One block in ``mode``; returns ``(x, cache)`` as
+    :func:`repro_torch.models.attention.self_attention` does (a decode
+    step writes the given cache in place).
 
     ``p`` maps ``ln1``, ``ln2``, ``attn`` and ``ffn`` to the block's weights.
     """
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn.self_attention(
-        cfg, p["attn"], h, kind=kind, mode="decode", positions=positions,
-        freqs=freqs, cache=cache, window_override=cfg.serve_window_override,
-        pt=pt, pos32=pos32)
+    y, cache = attn.self_attention(
+        cfg, p["attn"], h, kind=kind, mode=mode, positions=positions,
+        freqs=freqs, cache=cache, window_override=window_override,
+        max_seq=max_seq, pt=pt, pos32=pos32)
+    x = x + y
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + ffn_apply(p["ffn"], h)
+    return x + ffn_apply(p["ffn"], h), cache

@@ -46,7 +46,9 @@ def params_from_numpy(cfg, tree, device="cpu") -> dict:
 def cache_to_numpy(cfg, cache) -> dict:
     """The port's per-layer cache list -> the reference's cache pytree
     layout (``{"blocks": {"p{i}": stacked leaves}, "rem": {...}}``) as
-    float32 numpy arrays."""
+    float32 numpy arrays.  Any per-layer leaves convert: dense decode rows,
+    page pools with their scales, and the caches ``Model.prefill`` returns
+    (padded to capacity, or ring buffers for window layers)."""
     groups: dict = {"blocks": {}, "rem": {}}
     for (_, group, key, index), layer in zip(layer_slots(cfg), cache):
         arrays = {k: v.detach().float().cpu().numpy() for k, v in layer.items()}

@@ -1,18 +1,29 @@
-"""The decoder model as an ``nn.Module``: decode steps over dense or paged KV.
+"""The decoder model as an ``nn.Module``: full-sequence passes and decode
+steps over dense or paged KV.
 
-A port of ``repro.models.model.Model`` for the serving path:
+A port of ``repro.models.model.Model`` for the attention stacks:
 
+* ``forward(tokens)`` — (B,S) tokens -> (logits (B,S,V), 0.0);
+* ``hidden(tokens)`` — final hidden states (B,S,d);
+* ``prefill(tokens, max_seq=0)`` — last-token logits (B,V) and per-layer
+  dense caches that ``decode_step`` continues from;
+* ``score(tokens)`` — log pi(tokens[t] | tokens[<t]) for t >= 1, (B,S-1),
+  through the fused vocabulary gather;
+* ``reward(tokens)`` — the PRM head at every position, (B,S);
 * ``decode_step(cache, tokens, positions, pt=None)`` — one token per row;
   the cache (a list with one dict per layer) is updated in place;
 * ``init_cache(batch, max_seq, pages=0, page_size=0)`` — dense rows or
   page pools;
 * ``reward_from_hidden(h)`` — the PRM head.
 
+Every attention layer of the full-sequence passes goes through the flash
+kernel on a CUDA tensor.  They run under ``torch.no_grad()``: the kernels
+have no backward yet, and training is a later slice.  Encoder ``source``
+inputs raise (no cross-attention family is ported).
+
 Parameters keep the reference's per-weight layouts (``wq (d,H,hd)``,
 ``wo (H,hd,d)``, ...) under flat names such as ``layers.3.attn.wq``; layer
 ``L`` is the ``L``-th layer the reference applies (see :func:`layer_slots`).
-``forward``, ``hidden``, ``prefill``, ``score`` and ``reward`` arrive with
-the flash-attention and logprob-gather slices.
 """
 from __future__ import annotations
 
@@ -20,6 +31,7 @@ import torch
 from torch import nn
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import blocks
 from repro_torch.models.common import (embed_specs, embed_tokens,
                                        init_params, norm_spec, rms_norm,
@@ -135,6 +147,74 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.final_ln.device
 
+    def _run_stack(self, x, *, mode, positions, cache=None, max_seq=0,
+                   window_override=0, pt=None, pos32=None):
+        """Every layer in ``mode``, then the final norm; returns the hidden
+        states and the per-layer caches the blocks return."""
+        cfg = self.cfg
+        caches = []
+        for i, layer in enumerate(self.layers):
+            x, c = blocks.block_apply(
+                cfg, layer.kind, layer, x, mode=mode, positions=positions,
+                freqs=self.rope_freqs,
+                cache=None if cache is None else cache[i],
+                window_override=window_override, max_seq=max_seq, pt=pt,
+                pos32=pos32)
+            caches.append(c)
+        return rms_norm(x, self.final_ln, cfg.norm_eps), caches
+
+    def _full_sequence(self, tokens, source, **kw):
+        if source is not None:
+            raise NotImplementedError(
+                "encoder / cross-attention sources are not ported yet")
+        x = embed_tokens(self.cfg, self.embed, tokens)
+        positions = torch.arange(tokens.shape[1], device=x.device)
+        return self._run_stack(x, positions=positions, **kw)
+
+    @torch.no_grad()
+    def forward(self, tokens, *, source=None):
+        """Training-shaped forward: (B,S) tokens -> (logits (B,S,V), 0.0)
+        (no MoE family is ported, so the auxiliary loss is 0)."""
+        x, _ = self._full_sequence(tokens, source, mode="train")
+        return unembed(self.cfg, self.embed, x), 0.0
+
+    @torch.no_grad()
+    def hidden(self, tokens, *, source=None):
+        """Final hidden states (B,S,d), read by ``score`` and ``reward``."""
+        return self._full_sequence(tokens, source, mode="train")[0]
+
+    @torch.no_grad()
+    def prefill(self, tokens, *, source=None, max_seq: int = 0):
+        """(B,S) tokens -> (last-token logits (B,V), cache): one dense
+        ``{'k','v'}`` cache per layer with ``max_seq`` (default S) rows, or a
+        ring buffer for a sliding-window layer, which ``decode_step``
+        continues from at position S."""
+        cfg = self.cfg
+        x, cache = self._full_sequence(
+            tokens, source, mode="prefill", max_seq=max_seq or tokens.shape[1],
+            window_override=cfg.serve_window_override)
+        return unembed(cfg, self.embed, x[:, -1:])[:, 0], cache
+
+    @torch.no_grad()
+    def score(self, tokens, *, source=None):
+        """log pi(tokens[t] | tokens[<t]) for t >= 1 -> (B, S-1) float32.
+
+        One full-sequence pass and the fused log-softmax gather; a tied
+        embedding is read through its transpose's strides, never copied.
+        """
+        h = self.hidden(tokens[:, :-1], source=source)
+        emb = self.embed
+        w = emb["unembed"] if "unembed" in emb else emb["embedding"].T
+        return ops.logprob_gather(h, w, tokens[:, 1:], self.cfg.vocab_size)
+
+    @torch.no_grad()
+    def reward(self, tokens, *, source=None):
+        """PRM: per-position reward in [0,1] -> (B,S)."""
+        if not self.cfg.reward_head:
+            raise ValueError(f"{self.cfg.name}: reward() needs "
+                             f"cfg.reward_head")
+        return self.reward_from_hidden(self.hidden(tokens, source=source))
+
     @torch.no_grad()
     def decode_step(self, cache, tokens, positions, *,
                     return_hidden: bool = False, pt=None):
@@ -147,12 +227,10 @@ class Model(nn.Module):
         """
         cfg = self.cfg
         x = embed_tokens(cfg, self.embed, tokens)
-        pos32 = None if pt is None else positions.to(torch.int32)
-        for layer, c in zip(self.layers, cache):
-            x = blocks.block_apply(cfg, layer.kind, layer, x,
-                                   positions=positions, cache=c,
-                                   freqs=self.rope_freqs, pt=pt, pos32=pos32)
-        x = rms_norm(x, self.final_ln, cfg.norm_eps)
+        x, _ = self._run_stack(
+            x, mode="decode", positions=positions, cache=cache,
+            window_override=cfg.serve_window_override, pt=pt,
+            pos32=None if pt is None else positions.to(torch.int32))
         logits = unembed(cfg, self.embed, x)[:, 0]
         if return_hidden:
             return logits, x[:, 0]

@@ -1,8 +1,13 @@
 """The port's CUDA kernels on a card, against their plain versions.
 
 Paged attention (fp32 and bf16 pools), quantized paged attention (int8 and
-fp8-e4m3 codes under fp32 and bf16 queries) and the fused log-softmax
-gather (bf16/bf16, fp32/bf16 and fp32/fp32, W row-major and transposed).
+fp8-e4m3 codes under fp32 and bf16 queries), the fused log-softmax
+gather (bf16/bf16, fp32/bf16 and fp32/fp32, W row-major and transposed),
+and full-sequence flash attention (fp32 and bf16; GQA groups 1, 2, 7 and
+64; head_dim 16, 40 and 128; windows shorter than the tile; ragged Sq and
+Sk), which refuses inputs that require a gradient.  A toy model's
+``score`` on the card launches the flash kernel once per layer and the
+gather once.
 
 These tests need an NVIDIA GPU and nvcc: a CUDA kernel has no CPU mode, so
 elsewhere they skip.  The file imports neither JAX nor ``repro``, so it runs
@@ -20,6 +25,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, quant
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
 from repro_torch.kernels.logprob_gather import (logprob_gather_cuda,
                                                 logprob_gather_plain)
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
@@ -162,3 +169,90 @@ def test_logprob_gather_kernel_matches_plain(cuda_device, hdt, wdt, tied):
     assert got.shape == (B, S) and got.dtype == torch.float32
     err = (got - want).abs().max().item()
     assert err <= 1e-3, err
+
+
+def flash_case(seed, *, B, Sq, Sk, H, KV, hd, dtype, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(device, dtype) for shape in ((B, Sq, H, hd), (B, Sk, KV, hd),
+                                             (B, Sk, KV, hd))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       # plain casts probabilities to bf16
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("window", [0, 5, 100])
+@pytest.mark.parametrize("H,KV,hd", [(14, 2, 128), (4, 4, 40), (4, 2, 16),
+                                     (64, 1, 8)])     # G = 7, 1, 2, 64
+def test_flash_kernel_matches_plain(cuda_device, dtype, tol, window, H, KV,
+                                    hd):
+    """S = 300: neither a multiple of the 64-key tile nor of any group's
+    query tile; window 5 leaves late rows' first visited tiles wholly
+    masked, window 100 spans tiles."""
+    q, k, v = flash_case(H + hd + window, B=2, Sq=300, Sk=300, H=H, KV=KV,
+                         hd=hd, dtype=dtype, device=cuda_device)
+    before = flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, window=window)
+    want = flash_attention_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("causal,window,Sq,Sk", [
+    (True, 0, 70, 130), (True, 0, 130, 70), (True, 9, 150, 145),
+    (False, 0, 70, 130), (False, 33, 90, 90)])
+def test_flash_kernel_ragged_and_noncausal(cuda_device, dtype, tol, causal,
+                                           window, Sq, Sk):
+    q, k, v = flash_case(Sq + Sk + window, B=3, Sq=Sq, Sk=Sk, H=6, KV=2,
+                         hd=64, dtype=dtype, device=cuda_device)
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                               scale=0.1)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 scale=0.1)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol, err
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_gradients_and_rowless_windows(cuda_device):
+    q, k, v = flash_case(0, B=1, Sq=16, Sk=16, H=2, KV=1, hd=16,
+                         dtype=torch.float32, device=cuda_device)
+    before = flash_attention_cuda.launches
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ops.flash_attention(q.requires_grad_(), k, v)
+    q = q.detach()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ops.flash_attention(q, k, v.requires_grad_())
+    # a query row with no live key (Sq >= Sk + window)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q, k[:, :4], v.detach()[:, :4], window=8)
+    assert flash_attention_cuda.launches == before
+
+
+@pytest.mark.cuda
+def test_model_score_runs_flash_per_layer_and_one_gather(cuda_device):
+    from repro_torch.launch import serve
+    from repro_torch.models import Model, random_params
+    cfg = serve.toy_triple(vocab=64)[1]           # head_dim 40, 4 layers
+    params = random_params(cfg, 0, "cpu")
+    cpu = Model(cfg, params)
+    card = Model(cfg, params, device=cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        3, 64, (3, 90)))
+    before = (flash_attention_cuda.launches, logprob_gather_cuda.launches)
+    got = card.score(toks.to(cuda_device))
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before[0] + cfg.num_layers
+    assert logprob_gather_cuda.launches == before[1] + 1
+    want = cpu.score(toks)
+    err = (got.cpu() - want).abs().max().item()
+    # fp32 both sides; cuBLAS and the CPU sum in other orders
+    assert err <= 1e-4 * max(want.abs().max().item(), 1.0), err

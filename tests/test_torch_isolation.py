@@ -38,6 +38,10 @@ def _imported(tree):
 def test_port_sources_import_no_jax_and_no_reference():
     files = _port_files()
     assert len(files) > 20
+    # the full-sequence slice's modules are among them
+    rel = {str(p.relative_to(PORT)) for p in files if PORT in p.parents}
+    assert {"kernels/flash_attention.py", "rewards/prm.py",
+            "rewards/__init__.py"} <= rel
     bad = []
     for path in files:
         for name in _imported(ast.parse(path.read_text(), str(path))):

@@ -166,7 +166,11 @@ def test_unported_kinds_and_modes_raise(stack):
     with pytest.raises(NotImplementedError):
         block_specs(tcfg, "recurrent")
     x = torch.zeros(1, 4, tcfg.d_model)
+    # train/prefill are ported (tests/test_torch_forward.py); encoder
+    # sources are not, and a mode the reference lacks is refused
     with pytest.raises(NotImplementedError):
+        model.prefill(torch.ones(1, 4, dtype=torch.long), source=x)
+    with pytest.raises(ValueError):
         self_attention(tcfg, model.layers[0]["attn"], x, kind="full",
-                       mode="prefill", positions=torch.arange(4),
+                       mode="extend", positions=torch.arange(4),
                        freqs=model.rope_freqs)
