@@ -13,11 +13,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    the main paths' shapes, with the stated tolerances: paged attention,
    quantized paged attention (int8 and fp8 codes), the fused log-softmax
    gather (the target's row-major unembedding and the draft's tied,
-   transposed embedding) and flash attention (target and draft heads,
+   transposed embedding), flash attention (target and draft heads,
    bf16 and fp32, causal with no window and with one shorter than the
-   query tile, S = 1000).  Each kernel's time beside its bound, the plain
-   version's time and one PyTorch library call computing the same function
-   (a yardstick the port never calls).  Launches made here are not counted.
+   query tile, S = 1000) and the WKV6 scan (rwkv6-3b's heads at its decode,
+   shared-scoring and full-sequence shapes in bf16, and a toy hd = 32 in
+   fp32; spread decays and a non-zero initial state).  Each kernel's time
+   beside its bound, the plain version's time and, where one exists, one
+   PyTorch library call computing the same function (a yardstick the port
+   never calls).  Launches made here are not counted.
 4. main paths — the full-width Qwen2.5-Math draft/target/PRM triple with
    seeded random weights in bf16, served by the paged GSI engine through
    the continuous-batching scheduler: (a) 6 requests on 4 slots over bf16
@@ -33,27 +36,42 @@ Phases, each printing its own lines; any failure exits non-zero:
    quantized kernel and the vocab gather ran twice per draft phase; in
    score-prm the flash kernel ran once per layer of every full-sequence
    call and the gather once per score call, with no paged launch.
+   Then, once the Qwen weights are freed, the full-width full-depth
+   rwkv6-3b triple (bf16, seeded random weights, every decay_base
+   overwritten so the WKV state carries): run gsi-rwkv-shared serves 4
+   requests through the dense engine with shared scoring, at a threshold
+   at which it both accepts draft candidates and falls back to the target
+   (both counted and required), and the scan ran
+   exactly layers x (decode_step calls + score_candidates calls) times and
+   the gather once per score_candidates call; run score-rwkv puts its
+   sequences through the four full-sequence calls (the scan once per layer
+   of each, the gather twice) and holds them against the decode path
+   (printing the counted bf16 run's own gap as a control, then in fp32
+   activations over the same weights).
 4b. agreement — a toy fp32 triple at temperature 0: paged (kernel) against
    dense (plain attention) serving on the card, and int8 / fp8 pages with
    shared scoring on the card against the same engine on the CPU; then the
    toy models' forward, score, prefill and rewards on the card (head_dim 16
    and 40, a full/local stack with a window shorter than S) against the
-   CPU.
-5. profile — one engine step of (a) and of (c), and one score-prm batch,
-   under ``torch.profiler``.
+   CPU; and a toy fp32 RWKV triple served dense and paged on the card
+   commits the CPU's tokens, its forward, score, prefill state and rewards
+   matching the CPU's.
+5. profile — one engine step of (a), of (c) and of gsi-rwkv-shared, and
+   one score-prm batch, under ``torch.profiler`` (device activity only).
 
 The line before the last is ``{"kernels": [...]}``: every ported kernel
 with its largest error in phase 3, its timings and its launch count from the
 phase-4 run(s) of its path.  The last line is
 ``{"ok": true, "device": {...}}``.  ``--layers`` cuts the depth of runs (a)
-and (b) (never a width, never run (c) or score-prm) and says so on a
-``reduced:`` line.
+and (b) (never a width, never run (c), score-prm or the RWKV runs) and
+says so on a ``reduced:`` line.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -83,13 +101,40 @@ LOGPROB_ATOL, LOGPROB_RTOL = 1e-3, 1e-5
 # in log-probs (nats) and in logits, and to 0.01 in rewards (a sigmoid,
 # slope at most 1/4, of a logit of the same scale)
 LP_TOL, LOGIT_TOL, REWARD_TOL = 0.1, 0.1, 0.01
+# run score-rwkv against the decode path: the random-weight RWKV stack
+# amplifies the two paths' different roundings from layer to layer, so in
+# bf16 activations the 32-layer gap is of the order of a nat (the run
+# prints it as a control and requires it above LP_TOL, which shows that
+# the fp32 comparison is the one able to see a fault).  Both paths then
+# run again with fp32 activations over the same bf16 weights and are held
+# to score-prm's tolerances, and the state that prefill leaves in layer 0,
+# which no depth amplifies, is held to the state decode carries to the
+# same position within TOY_RTOL of its scale
 # phase 4b, card against CPU in fp32: summation orders differ (cuBLAS and
 # the kernels against the CPU's), 1e-4 of each output's scale
 TOY_RTOL = 1e-4
+# the toy RWKV triple's draft and target disagree (independent random
+# weights), so its tilted rewards are negative: this threshold both accepts
+# and rejects
+TOY_RWKV_THRESHOLD = -2.0
+# run gsi-rwkv-shared: at full width the draft and target (independent
+# random weights) disagree too, so tilted rewards r + (log pi_B - log pi_S)
+# / beta lie below the PRM's rewards; this threshold lies among the
+# selected tilted rewards, so the run both accepts a draft candidate and
+# falls back to the target
+RWKV_THRESHOLD = -0.29
+
+
+T0 = time.perf_counter()
 
 
 class SmokeFailure(Exception):
     pass
+
+
+def elapsed(what):
+    print(f"elapsed {time.perf_counter() - T0:.1f} s after {what}",
+          flush=True)
 
 
 def check(cond, msg):
@@ -633,6 +678,106 @@ def phase_kernels_flash(torch):
             "bound_by": bound_by, "library_ms": library_ms}
 
 
+def rwkv_case(torch, *, B, T, H, hd, dtype, seed):
+    """r, k, v N(0, 1) in ``dtype`` (as normed projections are about);
+    decays spread in (0.45, 0.999); u N(0, 0.3^2); a non-zero fp32
+    initial state."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    r, k, v = (randn(B, T, H, hd).to(dtype) for _ in range(3))
+    w = 0.45 + 0.549 * torch.rand((B, T, H, hd), generator=gen,
+                                  device="cuda")
+    return r, k, v, w, 0.3 * randn(H, hd), 0.1 * randn(B, H, hd, hd)
+
+
+def bound_rwkv(r):
+    """Least time for one call: r, k, v, w, u and the output moved once and
+    the state read and written once, over the HBM rate, against the flops
+    the recurrence needs at the fp32 rate.  Per (row, step, head): the u
+    term sum_k r[k] u[k] k[k] is one dot product (3 hd flops), so the output
+    sum_k r[k] S[k, n] + (that) v[n] takes 2 hd^2 + 2 hd, and the update
+    w[k] S[k, n] + k[k] v[n] takes 3 hd^2: 5 hd^2 + 5 hd in all."""
+    B, T, H, hd = r.shape
+    nbytes = B * T * H * hd * (3 * r.element_size() + 4 + 4) + H * hd * 4 \
+        + 2 * B * H * hd * hd * 4
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = B * T * H * (5 * hd * hd + 5 * hd) / PEAK_OPS["torch.float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_kernels_rwkv(torch):
+    print("== phase 3: rwkv6_scan vs its plain version", flush=True)
+    from repro_torch.kernels.rwkv6_scan import (rwkv6_scan_cuda,
+                                                rwkv6_scan_plain)
+    # rwkv6-3b's heads (H = 40, hd = 64, bf16 r/k/v) at its three call
+    # shapes, and a toy model's (hd = 32, fp32)
+    cases = [("decode (4 slots x n = 4)", 16, 1, 40, 64, torch.bfloat16),
+             ("shared scoring (16 + 1 feeds)", 16, 17, 40, 64,
+              torch.bfloat16),
+             ("full sequence", 4, 1024, 40, 64, torch.bfloat16),
+             ("toy", 4, 300, 4, 32, torch.float32)]
+    max_err, row = 0.0, None
+    for i, (tag, B, T, H, hd, dtype) in enumerate(cases):
+        args = rwkv_case(torch, B=B, T=T, H=H, hd=hd, dtype=dtype,
+                         seed=400 + i)
+        out, final = rwkv6_scan_cuda(*args)
+        want_out, want_final = rwkv6_scan_plain(*args)
+        torch.cuda.synchronize()
+        errs = []
+        for name, got, want in (("out", out, want_out),
+                                ("state", final, want_final)):
+            check(bool(torch.isfinite(got).all()),
+                  f"rwkv6_scan {tag}: non-finite {name}")
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            errs.append(f"{name} max_abs_err={err:.3e} (tol 1e-4 x "
+                        f"{scale:.2f})")
+            check(err <= 1e-4 * max(scale, 1.0), f"rwkv6_scan {tag}: "
+                  f"{name} error {err} over 1e-4 x {scale}")
+            max_err = max(max_err, err)
+        print(f"rwkv6_scan {tag} B={B} T={T} H={H} hd={hd} "
+              f"{str(dtype)[6:]}: " + ", ".join(errs), flush=True)
+        if dtype != torch.bfloat16:
+            continue
+        # time at the main paths' shapes over input sets cycled past L2
+        # (a decode step finds its state in device memory, not in L2)
+        sets = [args]
+        while len(sets) < 2 or sum(
+                a[5].numel() * 4 + a[3].numel() * 4 for a in sets) \
+                < 2 * L2_BYTES:
+            sets.append(rwkv_case(torch, B=B, T=T, H=H, hd=hd, dtype=dtype,
+                                  seed=500 + 10 * i + len(sets)))
+        ms, ms_host = time_ms(torch, lambda *a: rwkv6_scan_cuda(*a), sets,
+                              iters=20)
+        bound_ms, bound_by = bound_rwkv(args[0])
+        plain = "not timed (about 6 launches a step)"
+        plain_ms = None
+        if T <= 17:
+            plain_ms, _ = time_ms(torch, lambda *a: rwkv6_scan_plain(*a),
+                                  sets[:2], iters=1)
+            plain = f"{plain_ms:.4f}"
+        print(f"rwkv6_scan timing, {tag} B={B} T={T} H={H} hd={hd} bf16 "
+              f"({len(sets)} input sets cycled past L2), device-only ms per "
+              f"call: kernel {ms:.4f}, bound {bound_ms:.6f} ({bound_by}), "
+              f"plain {plain}, library: no single PyTorch call computes "
+              f"WKV6; back to back from the host: kernel {ms_host:.4f}",
+              flush=True)
+        if row is None:            # the decode shape: most launches
+            row = {"name": "rwkv6_scan", "route": "cuda",
+                   "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+                   "replaces": "src/repro/kernels/rwkv6_scan.py:56",
+                   "launches": 0, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None}
+        del sets
+    row["max_abs_err"] = max_err
+    return row
+
+
 def instrument(torch, model, tag, acc):
     """Count ``model``'s paged decode steps and time each one (host clock
     around the call, and CUDA events on the stream)."""
@@ -663,20 +808,30 @@ def counters(torch):
     from repro_torch.kernels.logprob_gather import logprob_gather_cuda
     from repro_torch.kernels.paged_attention import (
         paged_attention_cuda, paged_attention_quant_cuda)
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
     return {"paged_attention": paged_attention_cuda,
             "paged_attention_quant": paged_attention_quant_cuda,
             "logprob_gather": logprob_gather_cuda,
-            "flash_attention": flash_attention_cuda}
+            "flash_attention": flash_attention_cuda,
+            "rwkv6_scan": rwkv6_scan_cuda}
+
+
+def only(launches, **want):
+    """True iff the kernels in ``want`` launched exactly as many times as
+    it says and every other kernel not at all."""
+    return all(n == want.get(k, 0) for k, n in launches.items())
 
 
 def serve_run(torch, name, cfgs, params, g, count, seed, acc, **kw):
-    """Serve ``count`` requests through a fresh engine with every launch
-    counter zeroed just before and read just after; returns the result."""
+    """Serve ``count`` requests through a fresh engine (paged unless ``kw``
+    says otherwise) with every launch counter zeroed just before and read
+    just after; returns the result."""
     from repro_torch.launch import serve
-    from repro_torch.serving import GSIServingEngine
+    from repro_torch.serving import GSIServingEngine, gsi_engine
     from repro_torch.models import scoring
     engine = GSIServingEngine(*cfgs, *params, g, mode="gsi", max_seq=512,
-                              paged=True, page_size=16, device="cuda", **kw)
+                              device="cuda",
+                              **{"paged": True, "page_size": 16, **kw})
     rec = acc.setdefault(name, {})
     for tag, model in (("draft", engine.draft), ("target", engine.target),
                        ("prm", engine.prm)):
@@ -689,6 +844,15 @@ def serve_run(torch, name, cfgs, params, g, count, seed, acc, **kw):
         return draft_phase(*a, **k)
 
     engine._draft_phase = counted
+    scores = {"calls": 0, "layers": 0}
+    score_candidates = gsi_engine.score_candidates
+
+    def scored(model, *a, **k):
+        scores["calls"] += 1
+        scores["layers"] += len(model.layers)
+        return score_candidates(model, *a, **k)
+
+    gsi_engine.score_candidates = scored
     seen = []                       # (h dtype, w dtype, h shape) per call
     gather = scoring.ops.logprob_gather
 
@@ -707,9 +871,11 @@ def serve_run(torch, name, cfgs, params, g, count, seed, acc, **kw):
         res = serve.serve(engine, prompts, capacity=4, seed=seed)
     finally:
         scoring.ops.logprob_gather = gather
+        gsi_engine.score_candidates = score_candidates
     launches = {k: fn.launches for k, fn in wrappers.items()}
     torch.cuda.synchronize()
-    res.update(launches=launches, draft_phases=phases["draft"],
+    res.update(name=name, launches=launches, draft_phases=phases["draft"],
+               score_calls=scores["calls"], score_layers=scores["layers"],
                prompts=prompts,
                gather_inputs=sorted(set(seen)), count=count,
                mem=engine.cache_memory_report(4))
@@ -729,14 +895,16 @@ def report_run(name, res, rec, vocab):
           f"target tokens {res['target_tokens']}, prefix {res['prefix']}",
           flush=True)
     total = mem["num_pages"] + mem["scratch_pages"] + 1
-    print(f"run {name}: page pool [{mem['kv_dtype']}] {total} pages x "
-          f"{mem['bytes_per_page'] + mem['scale_bytes_per_page']} B = "
-          f"{mem['paged_pool_bytes'] / 2 ** 30:.3f} GiB; capacity "
-          f"{mem['capacity_pages']} pages, {mem['capacity_tokens']} tokens, "
-          f"{mem['capacity_bytes']} B (payload {mem['bytes_per_page']} B + "
-          f"scales {mem['scale_bytes_per_page']} B per page; "
-          f"{mem['fp_bytes_per_page']} B at the activation dtype)",
-          flush=True)
+    if mem["bytes_per_page"]:          # an engine with paged layers
+        print(f"run {name}: page pool [{mem['kv_dtype']}] {total} pages x "
+              f"{mem['bytes_per_page'] + mem['scale_bytes_per_page']} B = "
+              f"{mem['paged_pool_bytes'] / 2 ** 30:.3f} GiB; capacity "
+              f"{mem['capacity_pages']} pages, {mem['capacity_tokens']} "
+              f"tokens, {mem['capacity_bytes']} B (payload "
+              f"{mem['bytes_per_page']} B + "
+              f"scales {mem['scale_bytes_per_page']} B per page; "
+              f"{mem['fp_bytes_per_page']} B at the activation dtype)",
+              flush=True)
     for tag, r in rec.items():
         stream_s = sum(a.elapsed_time(b) for a, b in r["events"]) / 1e3
         print(f"run {name}: {tag} decode_step calls {r['calls']} (paged "
@@ -802,16 +970,14 @@ def phase_main(torch, layers):
         res = serve_run(torch, name, c3, p3, g, count, seed, acc, **kw)
         results[name] = res
         report_run(name, res, acc[name], full[0].vocab_size)
+        elapsed(f"run {name}")
 
     def paged_layer_calls(name):
         return sum(r["layers"] * r["paged_calls"] for r in acc[name].values())
 
     for name in ("gsi", "gsi-forced-fallback"):
         got, want = results[name]["launches"], paged_layer_calls(name)
-        check(got["paged_attention"] == want > 0
-              and got["paged_attention_quant"] == 0
-              and got["logprob_gather"] == 0
-              and got["flash_attention"] == 0,
+        check(want > 0 and only(got, paged_attention=want),
               f"{name}: launches {got}; want paged_attention = layers x "
               f"paged decode_step calls = {want} and no other kernel")
     q = results["gsi-int8-shared"]
@@ -821,13 +987,12 @@ def phase_main(torch, layers):
           f"{want}; logprob_gather launches {got['logprob_gather']}, 2 x "
           f"draft phases {2 * q['draft_phases']}; vocab-gather inputs (h, w,"
           f" h shape) {q['gather_inputs']}", flush=True)
-    check(got["paged_attention_quant"] == want > 0
-          and got["paged_attention"] == 0 and got["flash_attention"] == 0,
+    check(want > 0 and q["draft_phases"] > 0
+          and only(got, paged_attention_quant=want,
+                   logprob_gather=2 * q["draft_phases"]),
           f"gsi-int8-shared: launches {got}; want paged_attention_quant = "
-          f"layers x paged decode_step calls = {want}, no bf16 kernel")
-    check(got["logprob_gather"] == 2 * q["draft_phases"] > 0,
-          f"gsi-int8-shared: logprob_gather launches "
-          f"{got['logprob_gather']} != 2 x draft phases {q['draft_phases']}")
+          f"layers x paged decode_step calls = {want}, logprob_gather = 2 x"
+          f" draft phases = {2 * q['draft_phases']}, no other kernel")
     fallback = results["gsi-forced-fallback"]
     check(fallback["target_tokens"] > 0 and fallback["accept_rate"] == 0.0,
           "forced-fallback run: the target fallback did not run")
@@ -842,7 +1007,9 @@ def phase_main(torch, layers):
           + f"; bytes per page ratio "
           f"{(fp['bytes_per_page'] + fp['scale_bytes_per_page']) / (i8['bytes_per_page'] + i8['scale_bytes_per_page']):.4f}",
           flush=True)
-    scored = phase_score_prm(torch, full, params, results["gsi"])
+    scored = phase_score(torch, "score-prm", full, params, results["gsi"],
+                         "flash_attention",
+                         tols=(LP_TOL, REWARD_TOL, LOGIT_TOL))
     print(f"max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
           flush=True)
@@ -856,6 +1023,7 @@ def phase_main(torch, layers):
     print(f"logprob_gather launches over its runs: gsi-int8-shared "
           f"{got['logprob_gather']} + score-prm {scored['logprob_gather']}",
           flush=True)
+    elapsed("run score-prm")
     phase_profile(torch, [("gsi", cfgs, cut, {}),
                           ("gsi-int8-shared", full, params, runs[2][6])],
                   gcfg)
@@ -863,6 +1031,117 @@ def phase_main(torch, layers):
     del params, cut
     torch.cuda.empty_cache()
     return launches
+
+
+def carry_decays(torch, params, seed):
+    """Overwrite every RWKV layer's ``decay_base`` in ``params`` (in place)
+    with a seeded uniform in [-6, -0.5], so that the base decays
+    w = exp(-exp(decay_base)) lie in about (0.54, 0.9975) and the WKV state
+    carries from token to token (at the seeded init they lie in about
+    [2e-24, 1.2e-4]).  Returns the range of the base decays as stored."""
+    gen = torch.Generator().manual_seed(seed)
+    ws = []
+    for name, t in params.items():
+        if name.endswith(".tm.decay_base"):
+            t.copy_(torch.empty(t.shape).uniform_(-6.0, -0.5, generator=gen))
+            ws.append(torch.exp(-torch.exp(t.float())))
+    return min(w.min().item() for w in ws), max(w.max().item() for w in ws)
+
+
+def toy_rwkv_triple():
+    """The reduced ``rwkv6-3b`` (fp32, d 128, 4 heads of 32, vocab 64) as a
+    2-layer draft, a 3-layer target and the target's PRM."""
+    from repro_torch.config import get_config, reduced_config
+    draft = reduced_config(get_config("rwkv6-3b"), vocab=64)
+    target = dataclasses.replace(draft, name="rwkv6-3b-smoke-target",
+                                 num_layers=3)
+    prm = dataclasses.replace(target, name="rwkv6-3b-smoke-prm",
+                              reward_head=True)
+    return draft, target, prm
+
+
+def phase_rwkv(torch):
+    """Runs gsi-rwkv-shared and score-rwkv at rwkv6-3b's full width and
+    depth, then one engine step under the profiler."""
+    print("== phase 4: RWKV-6 runs at full rwkv6-3b width and depth",
+          flush=True)
+    from repro_torch.config import GSIConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import random_params
+    cfgs = serve.build_triple("rwkv6-3b")
+    for c in cfgs:
+        print(f"model {c.name}: layers={c.num_layers} d={c.d_model} "
+              f"heads={c.num_heads} hd={c.rwkv_head_dim} ffn={c.d_ff} "
+              f"vocab={c.vocab_size} tied={c.tie_embeddings} "
+              f"params~{c.param_count() / 1e9:.2f}B", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = [random_params(c, i, "cuda") for i, c in enumerate(cfgs)]
+    ranges = [carry_decays(torch, p, 50 + i)
+              for i, p in enumerate(params)]
+    torch.cuda.synchronize()
+    print(f"random bf16 weights on the card: "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    print(f"decays: every layer's decay_base overwritten with U[-6, -0.5] "
+          f"(seeded); base w = exp(-exp(decay_base)) in "
+          f"[{min(r[0] for r in ranges):.4f}, "
+          f"{max(r[1] for r in ranges):.4f}] over the three models, before "
+          f"the data-dependent LoRA term", flush=True)
+    gcfg = GSIConfig(n=4, beta=20.0, threshold_u=RWKV_THRESHOLD,
+                     temperature=0.7, max_step_tokens=16, max_steps=4,
+                     min_step_reward=0.0)
+    kw = {"paged": False, "shared_scoring": True}
+    acc = {}
+    res = serve_run(torch, "gsi-rwkv-shared", cfgs, params, gcfg, 4, 3, acc,
+                    **kw)
+    rec = acc["gsi-rwkv-shared"]
+    report_run("gsi-rwkv-shared", res, rec, cfgs[0].vocab_size)
+    print(f"run gsi-rwkv-shared: cache_memory_report(4) {res['mem']}",
+          flush=True)
+    stats = res["stats"]
+    tilted = torch.cat([torch.as_tensor(t).flatten()
+                        for t in stats.tilted_rewards])
+    print(f"run gsi-rwkv-shared: threshold {RWKV_THRESHOLD}; decisions "
+          f"{stats.decisions}: accepted {stats.accepted} (a draft candidate "
+          f"committed over the frozen state), rejected "
+          f"{stats.decisions - stats.accepted} (target fallback); tilted "
+          f"rewards in [{tilted.min().item():.4f}, "
+          f"{tilted.max().item():.4f}]", flush=True)
+    check(0 < stats.accepted < stats.decisions,
+          f"gsi-rwkv-shared: {stats.accepted} of {stats.decisions} decisions "
+          f"accepted; the run must take both the accept and the fallback "
+          f"branch")
+    steps = sum(r["layers"] * r["calls"] for r in rec.values())
+    want = steps + res["score_layers"]
+    got = res["launches"]
+    print(f"run gsi-rwkv-shared: rwkv6_scan launches {got['rwkv6_scan']}, "
+          f"layers x decode_step calls {steps} "
+          f"({ {t: r['calls'] for t, r in rec.items()} }) + layers x "
+          f"score_candidates calls {res['score_layers']} "
+          f"({res['score_calls']} calls) = {want}; logprob_gather launches "
+          f"{got['logprob_gather']}, score_candidates calls "
+          f"{res['score_calls']}; vocab-gather inputs (h, w, h shape) "
+          f"{res['gather_inputs']}", flush=True)
+    check(res["score_calls"] == 2 * res["draft_phases"] > 0
+          and only(got, rwkv6_scan=want, logprob_gather=res["score_calls"]),
+          f"gsi-rwkv-shared: launches {got}; want rwkv6_scan = {want}, "
+          f"logprob_gather = {res['score_calls']} score_candidates calls "
+          f"(2 x {res['draft_phases']} draft phases), no other kernel")
+    elapsed("run gsi-rwkv-shared")
+    scored = phase_score(torch, "score-rwkv", cfgs, params, res,
+                         "rwkv6_scan", agree_dtype="float32",
+                         tols=(LP_TOL, REWARD_TOL, LOGIT_TOL))
+    elapsed("run score-rwkv")
+    print(f"max_memory_allocated (RWKV phase) "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    phase_profile(torch, [("gsi-rwkv-shared", cfgs, params, kw)], gcfg)
+    del params
+    torch.cuda.empty_cache()
+    return {"rwkv6_scan": got["rwkv6_scan"] + scored["rwkv6_scan"],
+            "logprob_gather": got["logprob_gather"]
+            + scored["logprob_gather"]}
 
 
 def finished_sequences(torch, res):
@@ -892,17 +1171,20 @@ def scoring_models(full, params):
 
 
 def scoring_batch(draft, target, prm, toks, lengths, prompt):
-    """The run score-prm's four full-sequence calls."""
+    """A scoring run's four full-sequence calls."""
     prefill = target.prefill(toks[:, :prompt], max_seq=prompt + 8)
     return (prefill, target.score(toks), draft.score(toks),
             prm.reward_at_end(toks, lengths))
 
 
-def teacher_forced(torch, model, toks, *, keep=(), hidden_at=None):
+def teacher_forced(torch, model, toks, *, keep=(), hidden_at=None,
+                   state_at=None):
     """Feed ``toks`` one position at a time through paged ``decode_step``
-    (the decode path: the paged kernel in every layer, from an empty
-    cache, identity block table).  Returns the log-prob of each next token
-    (B, S-1), the logits at the positions in ``keep``, and the final hidden
+    (the decode path: the paged kernel in every attention layer, the scan
+    at T = 1 in every RWKV layer, from an empty cache, identity block
+    table).  Returns the log-prob of each next token (B, S-1), the logits
+    at the positions in ``keep`` (and, under ``"state"``, a copy of every
+    layer's cache right after position ``state_at``), and the final hidden
     state of row b at position ``hidden_at[b]``."""
     B, S = toks.shape
     ps = 16
@@ -920,6 +1202,9 @@ def teacher_forced(torch, model, toks, *, keep=(), hidden_at=None):
                                       return_hidden=True, pt=pt)
         if t in keep:
             kept[t] = logits.float()
+        if t == state_at:
+            kept["state"] = [{k: v.clone() for k, v in layer.items()}
+                             for layer in cache]
         if t + 1 < S:
             lsm = torch.log_softmax(logits[:, :vocab].float(), dim=-1)
             lp[:, t] = lsm[rows, toks[:, t + 1]]
@@ -929,17 +1214,23 @@ def teacher_forced(torch, model, toks, *, keep=(), hidden_at=None):
     return lp, kept, hid
 
 
-def phase_score_prm(torch, full, params, gsi_res):
-    """Run score-prm: the sequences run gsi finished, through the full-width
-    full-depth target's prefill and score, the draft's score and the PRM's
-    reward_at_end, with every launch counter zeroed just before and read
-    just after; then each result against the decode path on the card."""
-    print("== phase 4: run score-prm (full-sequence passes at full width "
-          "and depth)", flush=True)
+def phase_score(torch, run, full, params, served, kernel, *,
+                agree_dtype=None, tols=(None, None, None)):
+    """Run ``run``: the sequences a serving run finished (``served``),
+    through the full-width full-depth target's prefill and score, the
+    draft's score and the PRM's reward_at_end, with every launch counter
+    zeroed just before and read just after: ``kernel`` (flash attention or
+    the WKV6 scan) once per layer of each call, the gather once per score
+    and nothing else.  Then each result against the decode path on the
+    card, held to ``tols`` (log-probs, rewards, logits); with
+    ``agree_dtype`` both sides of that comparison run again with
+    activations of that dtype over the same weights."""
+    print(f"== phase 4: run {run} (full-sequence passes at full width "
+          f"and depth)", flush=True)
     draft, target, prm = scoring_models(full, params)
-    toks, lengths, prompt = finished_sequences(torch, gsi_res)
+    toks, lengths, prompt = finished_sequences(torch, served)
     B, S = toks.shape
-    print(f"run score-prm: {B} sequences of run gsi, lengths "
+    print(f"run {run}: {B} sequences of run {served['name']}, lengths "
           f"{lengths.tolist()}, padded to {S}; prefill of the first "
           f"{prompt} tokens (the shortest prompt)", flush=True)
     wrappers = counters(torch)
@@ -956,33 +1247,63 @@ def phase_score_prm(torch, full, params, gsi_res):
              "target.score": len(target.layers),
              "draft.score": len(draft.layers),
              "prm.reward_at_end": len(prm.model.layers)}
-    want_flash = sum(calls.values())
-    print(f"run score-prm: wall {wall:.3f} s for the four calls; kernel "
-          f"launches {launches}; flash_attention wanted = layers summed "
-          f"over the full-sequence calls {calls} = {want_flash}; "
-          f"logprob_gather wanted = 2 score calls", flush=True)
-    check(launches["flash_attention"] == want_flash
-          and launches["logprob_gather"] == 2
-          and launches["paged_attention"] == 0
-          and launches["paged_attention_quant"] == 0,
-          f"score-prm: launches {launches}; want flash_attention = "
-          f"{want_flash}, logprob_gather = 2, no paged kernel")
+    want = sum(calls.values())
+    print(f"run {run}: wall {wall:.3f} s for the four calls; kernel "
+          f"launches {launches}; {kernel} wanted = layers summed over the "
+          f"full-sequence calls {calls} = {want}; logprob_gather wanted = 2"
+          f" score calls", flush=True)
+    check(only(launches, **{kernel: want, "logprob_gather": 2}),
+          f"{run}: launches {launches}; want {kernel} = {want}, "
+          f"logprob_gather = 2, no other kernel")
     for name, t in (("target.score", lp_t), ("draft.score", lp_d),
                     ("prm.reward_at_end", r_end),
                     ("target.prefill logits", pf_logits)):
-        check(bool(torch.isfinite(t).all()), f"score-prm: {name} not finite")
+        check(bool(torch.isfinite(t).all()), f"{run}: {name} not finite")
     check(lp_t.shape == (B, S - 1) and lp_d.shape == (B, S - 1)
           and r_end.shape == (B,) and float(r_end.min()) >= 0
-          and float(r_end.max()) <= 1, "score-prm: bad output shapes or "
-          "rewards outside [0, 1]")
+          and float(r_end.max()) <= 1, f"{run}: bad output shapes or "
+          f"rewards outside [0, 1]")
 
-    # the same functions through the decode path (the paged kernel)
     live = torch.arange(S - 1, device="cuda")[None] < (lengths - 1)[:, None]
+    lp_tol, reward_tol, logit_tol = tols
+    if agree_dtype is not None:
+        # control: the counted run's own target.score against the decode
+        # path at the same activation dtype
+        lp_ctrl, _, _ = teacher_forced(torch, target, toks)
+        err_ctrl = (lp_t - lp_ctrl)[live].abs().max().item()
+        print(f"{run} control ({target.cfg.dtype} activations, the counted "
+              f"run): target.score log-probs vs the decode path "
+              f"max_abs_err={err_ctrl:.5f} over {int(live.sum())} tokens; "
+              f"the agreement below runs in {agree_dtype} activations, "
+              f"where the log-prob tol is {lp_tol}", flush=True)
+        check(math.isfinite(err_ctrl) and err_ctrl > lp_tol,
+              f"{run} control: the {target.cfg.dtype} gap {err_ctrl} is "
+              f"within {lp_tol}, so the comparison needs no "
+              f"{agree_dtype} activations")
+        del pf_cache
+        draft, target, prm = scoring_models(
+            [dataclasses.replace(c, dtype=agree_dtype) for c in full],
+            params)
+        (pf_logits, pf_cache), lp_t, lp_d, r_end = scoring_batch(
+            draft, target, prm, toks, lengths, prompt)
+    # the same functions through the decode path (paged attention or the
+    # scan at T = 1, state carried in the cache)
+    rwkv = target.kinds[0] == "rwkv"
     lp_dec, kept, _ = teacher_forced(torch, target, toks,
-                                     keep=(prompt - 1, prompt))
+                                     keep=(prompt - 1, prompt),
+                                     state_at=prompt - 1 if rwkv else None)
     _, _, h_end = teacher_forced(torch, prm.model, toks,
                                  hidden_at=lengths - 1)
     r_dec = prm.model.reward_from_hidden(h_end)
+    # (d) the state prefill leaves (the scan over T = prompt) against the
+    # state decode carried to the same position (the scan at T = 1, written
+    # into the cache step by step), read before a step moves it on
+    state_errs = []
+    for i, (got, want) in enumerate(zip(pf_cache, kept.get("state", ()))):
+        for key in got:
+            err = (got[key].float() - want[key].float()).abs().max().item()
+            scale = max(want[key].float().abs().max().item(), 1.0)
+            state_errs.append((i, key, err / scale))
     step = target.decode_step(pf_cache, toks[:, prompt:prompt + 1],
                               torch.full((B,), prompt, device="cuda"))
     V = full[1].vocab_size
@@ -990,21 +1311,32 @@ def phase_score_prm(torch, full, params, gsi_res):
     err_r = (r_end - r_dec).abs().max().item()
     err_pf = (pf_logits[:, :V] - kept[prompt - 1][:, :V]).abs().max().item()
     err_step = (step[:, :V].float() - kept[prompt][:, :V]).abs().max().item()
-    print(f"score-prm vs the decode path on the same tokens: (a) "
-          f"target.score log-probs max_abs_err={err_lp:.4f} (tol "
-          f"{LP_TOL}) over {int(live.sum())} tokens, log-probs in "
+    print(f"{run} vs the decode path on the same tokens "
+          f"({target.cfg.dtype} activations): (a) "
+          f"target.score log-probs max_abs_err={err_lp:.5f} (tol "
+          f"{lp_tol}) over {int(live.sum())} tokens, log-probs in "
           f"[{lp_t[live].min().item():.2f}, {lp_t[live].max().item():.2f}]; "
-          f"(b) prm.reward_at_end max_abs_err={err_r:.5f} (tol {REWARD_TOL})"
+          f"(b) prm.reward_at_end max_abs_err={err_r:.5f} (tol {reward_tol})"
           f", rewards {[round(x, 4) for x in r_end.tolist()]}; (c) prefill "
-          f"last-token logits max_abs_err={err_pf:.4f}, one decode_step "
-          f"from the prefill cache {err_step:.4f} (tol {LOGIT_TOL}), logits "
+          f"last-token logits max_abs_err={err_pf:.5f}, one decode_step "
+          f"from the prefill cache {err_step:.5f} (tol {logit_tol}), logits "
           f"in [{kept[prompt - 1][:, :V].min().item():.2f}, "
           f"{kept[prompt - 1][:, :V].max().item():.2f}]", flush=True)
-    check(err_lp <= LP_TOL, f"score-prm (a): log-prob error {err_lp}")
-    check(err_r <= REWARD_TOL, f"score-prm (b): reward error {err_r}")
-    check(err_pf <= LOGIT_TOL and err_step <= LOGIT_TOL,
-          f"score-prm (c): prefill logits error {err_pf}, decode from the "
+    check(err_lp <= lp_tol, f"{run} (a): log-prob error {err_lp}")
+    check(err_r <= reward_tol, f"{run} (b): reward error {err_r}")
+    check(err_pf <= logit_tol and err_step <= logit_tol,
+          f"{run} (c): prefill logits error {err_pf}, decode from the "
           f"prefill cache {err_step}")
+    if state_errs:
+        # layer 0 sees no depth amplification: 1e-4 of its scale
+        first = {key: f"{e:.2e}" for i, key, e in state_errs if i == 0}
+        worst = max(state_errs, key=lambda x: x[2])
+        print(f"{run} (d): prefill state vs decode state after {prompt} "
+              f"tokens, error / scale: layer 0 {first} (tol {TOY_RTOL}); "
+              f"largest over the {len(pf_cache)} layers {worst[2]:.2e} "
+              f"(layer {worst[0]} {worst[1]})", flush=True)
+        check(all(e <= TOY_RTOL for i, _, e in state_errs if i == 0),
+              f"{run} (d): layer 0 state differs: {first}")
     del pf_cache, draft, target, prm
     torch.cuda.empty_cache()
     return launches
@@ -1019,8 +1351,7 @@ def phase_profile_scoring(torch, full, params, gsi_res):
     toks, lengths, prompt = finished_sequences(torch, gsi_res)
     scoring_batch(draft, target, prm, toks, lengths, prompt)   # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         scoring_batch(draft, target, prm, toks, lengths, prompt)
         torch.cuda.synchronize()
@@ -1056,8 +1387,8 @@ def phase_profile(torch, configs, gcfg):
         print(f"== phase 5: where one engine step's time goes ({name})",
               flush=True)
         eng = GSIServingEngine(*cfgs, *params, gcfg, mode="gsi",
-                               max_seq=512, paged=True, page_size=16,
-                               device="cuda", **kw)
+                               max_seq=512, device="cuda",
+                               **{"paged": True, "page_size": 16, **kw})
         prompts = serve.random_prompts(4, seed=5, vocab=cfgs[0].vocab_size,
                                        lo=24, hi=72)
         width = max(p.size for p in prompts)
@@ -1067,16 +1398,16 @@ def phase_profile(torch, configs, gcfg):
         gen = torch.Generator(device="cuda").manual_seed(0)
         state, _ = eng.step_decode(state, gen)       # warm-up step
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             state, res = eng.step_decode(state, gen)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         rows = []
         for e in prof.key_averages():
-            # device-side events only (kernels, copies): a CPU op's self
-            # device time repeats its kernels' time
+            # device-side events only (kernels, copies); host ops are not
+            # recorded: recording them slowed the host-bound step under
+            # the profiler and their processing took minutes per step
             if e.device_type == torch.autograd.DeviceType.CUDA \
                     and e.self_device_time_total > 0:
                 rows.append((e.self_device_time_total, e.count, e.key))
@@ -1091,7 +1422,17 @@ def phase_profile(torch, configs, gcfg):
             print(f"  {dev_us / 1e3:10.2f} ms  {count:7d} calls  "
                   f"{100 * dev_us / 1e6 / max(busy, 1e-12):5.1f}%  "
                   f"{key[:90]}", flush=True)
+        for kernel in ("paged_attention_kernel", "paged_attention_quant",
+                       "logprob_", "rwkv6_scan_kernel"):
+            mine = [r for r in rows if kernel in r[2]]
+            if mine:
+                us = sum(r[0] for r in mine)
+                print(f"  {kernel}: {us / 1e3:.2f} ms over "
+                      f"{sum(r[1] for r in mine)} launches = "
+                      f"{100 * us / 1e6 / max(busy, 1e-12):.1f}% of busy",
+                      flush=True)
         del eng, state
+        elapsed(f"the profile of {name}")
 
 
 def toy_serve(torch, cfgs, params, g, prompts, device, **kw):
@@ -1207,6 +1548,76 @@ def phase_agreement_full(torch):
               f"run in every layer")
 
 
+def phase_agreement_rwkv(torch):
+    """The toy RWKV triple in fp32 (decays overwritten so the state
+    carries): served at temperature 0 on the card, dense and paged (with
+    shared scoring), it commits the CPU's tokens; the toy target's and
+    PRM's forward, score, prefill (logits and state leaves) and rewards on
+    the card match the CPU."""
+    print("== phase 4b: toy RWKV triple, card vs CPU", flush=True)
+    import numpy as np
+    from repro_torch.config import GSIConfig
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
+    from repro_torch.launch import serve
+    from repro_torch.models import Model, random_params
+    from repro_torch.rewards import PRM
+    cfgs = toy_rwkv_triple()
+    params = [random_params(c, 30 + i, "cpu") for i, c in enumerate(cfgs)]
+    for i, p in enumerate(params):
+        carry_decays(torch, p, 60 + i)
+    g = GSIConfig(n=2, max_step_tokens=5, max_steps=3, beta=4.0,
+                  temperature=0.0, threshold_u=TOY_RWKV_THRESHOLD,
+                  min_step_reward=-1.0)
+    prompts = serve.random_prompts(5, seed=3, vocab=64, lo=3, hi=20)
+    for kw in ({"paged": False}, {"paged": True, "shared_scoring": True}):
+        before = rwkv6_scan_cuda.launches
+        card = toy_serve(torch, cfgs, params, g, prompts, "cuda", **kw)
+        check(rwkv6_scan_cuda.launches > before,
+              f"toy RWKV {kw}: the card run did not launch the scan")
+        cpu = toy_serve(torch, cfgs, params, g, prompts, "cpu", **kw)
+        same = card[0] == cpu[0]
+        print(f"toy RWKV {kw}, card vs CPU: {sum(map(len, card[0]))} "
+              f"tokens, identical={same}, accept {card[1]:.3f} vs "
+              f"{cpu[1]:.3f}, mean reward {card[2]:.6f} vs {cpu[2]:.6f}",
+              flush=True)
+        check(same, f"toy RWKV {kw}: card and CPU committed different "
+              f"tokens")
+
+    def close(tag, got, want):
+        want = want.float()
+        err = (got.float().cpu() - want).abs().max().item()
+        scale = max(want.abs().max().item(), 1.0)
+        print(f"toy RWKV {tag}: max_abs_err={err:.3e} (tol {TOY_RTOL:.0e} "
+              f"x {scale:.2f})", flush=True)
+        check(err <= TOY_RTOL * scale, f"toy RWKV {tag}: card and CPU "
+              f"differ")
+
+    toks = np.random.default_rng(4).integers(3, 64, (3, 77))
+    lengths = np.array([77, 40, 9])
+    tc, tg = torch.from_numpy(toks), torch.from_numpy(toks).cuda()
+    for cfg, p in zip(cfgs[1:], params[1:]):
+        cpu, card = Model(cfg, p), Model(cfg, p, device="cuda")
+        V = cfg.vocab_size
+        before = rwkv6_scan_cuda.launches
+        close(f"{cfg.name} forward", card.forward(tg)[0][..., :V],
+              cpu.forward(tc)[0][..., :V])
+        close(f"{cfg.name} score", card.score(tg), cpu.score(tc))
+        lg, state = card.prefill(tg[:, :50])
+        lc, state_c = cpu.prefill(tc[:, :50])
+        close(f"{cfg.name} prefill logits", lg[:, :V], lc[:, :V])
+        for key in state[0]:
+            close(f"{cfg.name} prefill state {key}",
+                  torch.cat([c[key].flatten() for c in state]),
+                  torch.cat([c[key].flatten() for c in state_c]))
+        if cfg.reward_head:
+            close(f"{cfg.name} reward_at_end",
+                  PRM(cfg, p, device="cuda").reward_at_end(tg, lengths),
+                  PRM(cfg, p, device="cpu").reward_at_end(tc, lengths))
+        torch.cuda.synchronize()
+        check(rwkv6_scan_cuda.launches - before >= 3 * cfg.num_layers,
+              f"toy RWKV {cfg.name}: the scan did not run in every layer")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=0,
@@ -1224,21 +1635,28 @@ def main() -> int:
               f"a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
-    t0 = time.perf_counter()
     try:
         phase_device(torch)
         phase_build()
         rows = [phase_kernels(torch), phase_kernels_quant(torch),
-                phase_kernels_logprob(torch), phase_kernels_flash(torch)]
+                phase_kernels_logprob(torch), phase_kernels_flash(torch),
+                phase_kernels_rwkv(torch)]
+        elapsed("phases 1-3")
         launches = phase_main(torch, args.layers)
+        elapsed("the Qwen runs")
+        rwkv = phase_rwkv(torch)
+        elapsed("the RWKV runs")
+        launches["rwkv6_scan"] = rwkv["rwkv6_scan"]
+        launches["logprob_gather"] += rwkv["logprob_gather"]
         for row in rows:
             row["launches"] = launches[row["name"]]
         phase_agreement(torch)
         phase_agreement_full(torch)
+        phase_agreement_rwkv(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    print(f"chip_smoke seconds: {time.perf_counter() - t0:.1f}", flush=True)
+    print(f"chip_smoke seconds: {time.perf_counter() - T0:.1f}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -89,15 +89,20 @@ class ModelConfig:
         return tuple(self.layer_pattern[:rem])
 
     def param_count(self) -> int:
-        """Approximate parameter count of a dense attention stack (embedding
-        + attention/FFN blocks), the only family the port builds so far."""
+        """Approximate parameter count (embedding + blocks) of the families
+        the port builds: dense attention stacks and RWKV (``ssm``) stacks,
+        counted as the reference counts them."""
         d, ff, v = self.d_model, self.d_ff, self.vocab_size
         total = v * d * (1 if self.tie_embeddings else 2)
         pattern = list(self.layer_pattern) * self.pattern_repeats \
             + list(self.pattern_remainder)
         for _ in pattern:
-            total += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
-            total += 3 * d * ff
+            if self.family == "ssm":
+                # r,k,v,o projections + decay/mix params; channel-mix
+                total += 4 * d * d + 6 * d + 2 * d * int(3.5 * d)
+            else:
+                total += d * self.q_dim + 2 * d * self.kv_dim \
+                    + self.q_dim * d + 3 * d * ff
         return int(total)
 
 

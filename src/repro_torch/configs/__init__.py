@@ -1,5 +1,5 @@
 """Architecture registry: importing this package registers every config."""
-from repro_torch.configs import qwen25_math  # noqa: F401
+from repro_torch.configs import qwen25_math, rwkv6_3b  # noqa: F401
 
 # The paper's own model triple (draft / target / PRM).
 PAPER_MODELS = (

@@ -14,6 +14,8 @@ from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain,
                                                  paged_attention_quant_cuda,
                                                  paged_attention_quant_plain)
+from repro_torch.kernels.rwkv6_scan import (rwkv6_scan_cuda,
+                                            rwkv6_scan_plain)
 
 
 def flash_attention(q, k, v, *, causal=True, window: int = 0, scale=None):
@@ -53,3 +55,11 @@ def logprob_gather(h, w, labels, vocab_size: int):
     if h.is_cuda:
         return logprob_gather_cuda(h, w, labels, vocab_size)
     return logprob_gather_plain(h, w, labels, vocab_size)
+
+
+def rwkv6_scan(r, k, v, w, u, state):
+    """WKV6 recurrence: r/k/v/w (B,T,H,hd), u (H,hd), state (B,H,hd,hd)
+    -> (out (B,T,H,hd) fp32, final state fp32)."""
+    if r.is_cuda:
+        return rwkv6_scan_cuda(r, k, v, w, u, state)
+    return rwkv6_scan_plain(r, k, v, w, u, state)

@@ -5,6 +5,9 @@ continuous-batching scheduler.
     PYTHONPATH=src python -m repro_torch.launch.serve --config qwen2.5-math \
         --requests 6 --capacity 4 --n 4 --paged [--layers 28] [--device cuda] \
         [--kv-dtype {fp,bf16,int8,fp8}] [--quantize-draft]
+    PYTHONPATH=src python -m repro_torch.launch.serve --config rwkv6-3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --config rwkv6-3b \
+        --device cpu --layers 2 --requests 2 --max-steps 1 --max-step-tokens 4
 
 The real checkpoints are not in the repository, so weights are random
 (seeded): the run exercises the serving path at the published widths, and
@@ -14,6 +17,13 @@ reference's ``--sync``; its pipelined default is not ported, so there is no
 mode flag).  ``--kv-dtype`` (with ``--paged``) picks the page storage
 format and ``--quantize-draft`` rounds the draft's weights through int8, as
 in the reference's CLI.  ``--replicas > 1`` and ``--tp`` raise.
+
+``--config rwkv6-3b`` serves the RWKV-6 family: draft, target and PRM all
+have ``rwkv6-3b``'s shape (the PRM adds the reward head), with seeds 0, 1
+and 2.  The repository registers only this one RWKV model, so the triple
+covers the RWKV serving path (the WKV6 scan kernel in every layer) and
+says nothing about GSI's speed-up: its draft costs what its target does.
+``toy`` is a small fp32 triple for a look on the CPU.
 """
 from __future__ import annotations
 
@@ -24,7 +34,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.config import GSIConfig, ModelConfig
+from repro_torch.config import GSIConfig, ModelConfig, get_config
 from repro_torch.configs import qwen25_math
 from repro_torch.device import resolve_device
 from repro_torch.models import random_params
@@ -43,7 +53,16 @@ def toy_triple(vocab: int = 16):
     return draft, target, prm
 
 
-TRIPLES = {"qwen2.5-math": lambda: qwen25_math.TRIPLE, "toy": toy_triple}
+def rwkv_triple():
+    """``rwkv6-3b`` as draft and target, and as the PRM with a reward head
+    (``rwkv6-3b-prm``)."""
+    cfg = get_config("rwkv6-3b")
+    return cfg, cfg, dataclasses.replace(cfg, name="rwkv6-3b-prm",
+                                         reward_head=True)
+
+
+TRIPLES = {"qwen2.5-math": lambda: qwen25_math.TRIPLE, "toy": toy_triple,
+           "rwkv6-3b": rwkv_triple}
 
 
 def build_triple(name: str, *, layers: int = 0):

@@ -16,7 +16,7 @@ import torch
 class ParamSpec(NamedTuple):
     shape: tuple
     axes: tuple          # logical axis name (or None) per dim
-    init: str = "normal"  # normal | zeros | ones | embed
+    init: str = "normal"  # normal | zeros | ones | embed | uniform_decay
     scale: float = 1.0    # stddev multiplier for "normal"
 
 
@@ -46,6 +46,11 @@ def _materialize(s: ParamSpec, gen, dtype, device):
         return torch.zeros(s.shape, dtype=dtype, device=device)
     if s.init == "ones":
         return torch.ones(s.shape, dtype=dtype, device=device)
+    if s.init == "uniform_decay":
+        # logit of U[0.9, 0.999], drawn in fp32 and cast (as the reference)
+        u = torch.rand(s.shape, generator=gen, dtype=torch.float32,
+                       device=device).mul_(0.999 - 0.9).add_(0.9)
+        return (torch.log(u) - torch.log1p(-u)).to(dtype)
     if s.init == "embed":
         std = 1.0
     else:

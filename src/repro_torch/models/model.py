@@ -1,29 +1,36 @@
 """The decoder model as an ``nn.Module``: full-sequence passes and decode
 steps over dense or paged KV.
 
-A port of ``repro.models.model.Model`` for the attention stacks:
+A port of ``repro.models.model.Model`` for the attention stacks and the
+RWKV-6 (``ssm``) stacks:
 
 * ``forward(tokens)`` — (B,S) tokens -> (logits (B,S,V), 0.0);
 * ``hidden(tokens)`` — final hidden states (B,S,d);
 * ``prefill(tokens, max_seq=0)`` — last-token logits (B,V) and per-layer
-  dense caches that ``decode_step`` continues from;
+  dense caches (an RWKV layer's state dict) that ``decode_step`` continues
+  from;
 * ``score(tokens)`` — log pi(tokens[t] | tokens[<t]) for t >= 1, (B,S-1),
   through the fused vocabulary gather;
 * ``reward(tokens)`` — the PRM head at every position, (B,S);
-* ``decode_step(cache, tokens, positions, pt=None)`` — one token per row;
-  the cache (a list with one dict per layer) is updated in place;
+* ``decode_step(cache, tokens, positions, pt=None, live=None)`` — one
+  token per row; the cache (a list with one dict per layer) is updated in
+  place, and ``live`` (B,) freezes the recurrent state of rows where it is
+  False;
 * ``init_cache(batch, max_seq, pages=0, page_size=0)`` — dense rows or
   page pools;
 * ``reward_from_hidden(h)`` — the PRM head.
 
 Every attention layer of the full-sequence passes goes through the flash
-kernel on a CUDA tensor.  They run under ``torch.no_grad()``: the kernels
-have no backward yet, and training is a later slice.  Encoder ``source``
-inputs raise (no cross-attention family is ported).
+kernel on a CUDA tensor, and every RWKV layer of every pass (decode steps
+included) through the WKV6 scan kernel.  They run under
+``torch.no_grad()``: the kernels have no backward yet, and training is a
+later slice.  Encoder ``source`` inputs raise (no cross-attention family
+is ported).
 
 Parameters keep the reference's per-weight layouts (``wq (d,H,hd)``,
-``wo (H,hd,d)``, ...) under flat names such as ``layers.3.attn.wq``; layer
-``L`` is the ``L``-th layer the reference applies (see :func:`layer_slots`).
+``wo (H,hd,d)``, ...) under flat names such as ``layers.3.attn.wq`` or
+``layers.3.tm.wr``; layer ``L`` is the ``L``-th layer the reference applies
+(see :func:`layer_slots`).
 """
 from __future__ import annotations
 
@@ -45,10 +52,12 @@ def layer_slots(cfg: ModelConfig) -> list:
     (``blocks/p{i}``, stacked ``index`` along a leading dim) followed by the
     unscanned remainder (``rem/r{i}``, ``index`` None); the bridge and the
     cache converters map port layer ``L`` to entry ``L`` of this list.
+    An ``ssm`` stack is all ``rwkv`` layers, grouped as its pattern's
+    length says (the reference's ``effective_pattern``).
     """
-    if cfg.family == "ssm":
-        raise NotImplementedError("rwkv (ssm) stacks are not ported yet")
     pattern = tuple(cfg.layer_pattern)
+    if cfg.family == "ssm":
+        pattern = ("rwkv",) * len(pattern)
     n = len(pattern)
     repeats = cfg.num_layers // n if cfg.scan_layers else 0
     if cfg.scan_layers:
@@ -86,19 +95,22 @@ def _frozen(t) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One layer's weights; ``block["attn"]`` etc. for ``blocks.block_apply``."""
+    """One layer's weights: ``ln1``, ``ln2`` and, for each group of dotted
+    names (``attn.*`` and ``ffn.*``, or ``tm.*`` and ``cm.*``), a
+    ``ParameterDict``; ``block["attn"]`` etc. for ``blocks.block_apply``."""
 
     def __init__(self, kind: str, tensors: dict):
         super().__init__()
         self.kind = kind
-        self.ln1 = _frozen(tensors["ln1"])
-        self.ln2 = _frozen(tensors["ln2"])
-        self.attn = nn.ParameterDict(
-            {k[5:]: _frozen(v) for k, v in tensors.items()
-             if k.startswith("attn.")})
-        self.ffn = nn.ParameterDict(
-            {k[4:]: _frozen(v) for k, v in tensors.items()
-             if k.startswith("ffn.")})
+        groups: dict = {}
+        for name, t in tensors.items():
+            group, _, leaf = name.partition(".")
+            if leaf:
+                groups.setdefault(group, {})[leaf] = _frozen(t)
+            else:
+                setattr(self, name, _frozen(t))
+        for group, leaves in groups.items():
+            setattr(self, group, nn.ParameterDict(leaves))
 
     def __getitem__(self, name):
         return getattr(self, name)
@@ -148,7 +160,7 @@ class Model(nn.Module):
         return self.final_ln.device
 
     def _run_stack(self, x, *, mode, positions, cache=None, max_seq=0,
-                   window_override=0, pt=None, pos32=None):
+                   window_override=0, pt=None, pos32=None, live=None):
         """Every layer in ``mode``, then the final norm; returns the hidden
         states and the per-layer caches the blocks return."""
         cfg = self.cfg
@@ -159,7 +171,7 @@ class Model(nn.Module):
                 freqs=self.rope_freqs,
                 cache=None if cache is None else cache[i],
                 window_override=window_override, max_seq=max_seq, pt=pt,
-                pos32=pos32)
+                pos32=pos32, live=live)
             caches.append(c)
         return rms_norm(x, self.final_ln, cfg.norm_eps), caches
 
@@ -186,9 +198,10 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens, *, source=None, max_seq: int = 0):
         """(B,S) tokens -> (last-token logits (B,V), cache): one dense
-        ``{'k','v'}`` cache per layer with ``max_seq`` (default S) rows, or a
-        ring buffer for a sliding-window layer, which ``decode_step``
-        continues from at position S."""
+        ``{'k','v'}`` cache per attention layer with ``max_seq`` (default S)
+        rows, or a ring buffer for a sliding-window layer, and the state
+        dict of each RWKV layer, which ``decode_step`` continues from at
+        position S."""
         cfg = self.cfg
         x, cache = self._full_sequence(
             tokens, source, mode="prefill", max_seq=max_seq or tokens.shape[1],
@@ -217,10 +230,13 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, positions, *,
-                    return_hidden: bool = False, pt=None):
+                    return_hidden: bool = False, pt=None, live=None):
         """One serving step: tokens (B,1), positions (B,) -> logits (B,V).
 
-        Writes each layer's K/V for ``positions`` into ``cache`` in place.
+        Writes each attention layer's K/V for ``positions`` and each RWKV
+        layer's new state into ``cache`` in place; ``live`` (B,) bool keeps
+        the old RWKV state of rows where it is False (finished requests,
+        slots passing through an admission), as the reference's freeze.
         ``pt`` (B, nblk1) int32 routes every attention layer through the
         paged kernel.  ``return_hidden`` also returns the final hidden state
         (B,d), which the PRM reward head reads.
@@ -230,7 +246,8 @@ class Model(nn.Module):
         x, _ = self._run_stack(
             x, mode="decode", positions=positions, cache=cache,
             window_override=cfg.serve_window_override, pt=pt,
-            pos32=None if pt is None else positions.to(torch.int32))
+            pos32=None if pt is None else positions.to(torch.int32),
+            live=live)
         logits = unembed(cfg, self.embed, x)[:, 0]
         if return_hidden:
             return logits, x[:, 0]

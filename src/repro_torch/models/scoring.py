@@ -1,6 +1,6 @@
 """Shared-prefix candidate scoring: n candidates against ONE committed cache.
 
-A port of ``repro.models.scoring`` for the attention kinds.  Each
+A port of ``repro.models.scoring`` for the attention and RWKV kinds.  Each
 candidate's queries attend jointly to the shared committed cache and to its
 own prefix (a two-block softmax), so the committed prefix is read once per
 request instead of once per candidate, and nothing is written to any cache.
@@ -11,14 +11,17 @@ reference leaves it to XLA.
 
 Dtypes follow ``jnp``'s promotion: a dequantized (fp32) cache view under
 bf16 activations promotes the attention output, and from there the rest of
-the pass, to fp32.  Recurrent, RWKV and cross kinds raise, as the port's
-blocks do.
+the pass, to fp32.  An RWKV layer repeats its O(1) state n ways and runs
+its block over the L + 1 feeds, as the reference does (one WKV6 scan
+launch with T = L + 1 on the card).  Recurrent and cross kinds raise, as
+the port's blocks do.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models import rwkv
 from repro_torch.models.blocks import check_kind
 from repro_torch.models.common import (apply_rope, embed_tokens, ffn_apply,
                                        matmul, rms_norm)
@@ -95,8 +98,11 @@ def score_attention(cfg, p, x, *, cache, pos, n: int, kind: str, freqs,
 
 def score_block(cfg, kind: str, p, x, *, cache, pos, n: int, freqs,
                 window_override: int = 0):
-    """One decoder block in score mode (attention kinds); returns x."""
+    """One decoder block in score mode; returns x (no cache writes)."""
     check_kind(kind)
+    if kind == "rwkv":
+        state = {k: v.repeat_interleave(n, dim=0) for k, v in cache.items()}
+        return rwkv.rwkv_block(cfg, p, x, state)[0]
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     x = x + score_attention(cfg, p["attn"], h, cache=cache, pos=pos, n=n,
                             kind=kind, freqs=freqs,
@@ -112,8 +118,9 @@ def score_candidates(model, cache, pending, pos, cand_tokens, *,
 
     cand_tokens: (B, n, L) PAD-padded; pending/pos: (B,) engine invariant
     (the cache holds positions < pos; ``pending`` sits at pos, not yet
-    cached); ``cache`` a list of per-layer {'k','v'} (B, S, KV, hd), a dense
-    cache or :func:`repro_torch.serving.engine.paged_view` of a paged one.
+    cached); ``cache`` a list of per-layer {'k','v'} (B, S, KV, hd) or RWKV
+    state dicts, a dense cache or :func:`repro_torch.serving.engine.
+    paged_view` of a paged one.
 
     Returns logp (B, n) — log pi(candidate | prefix) — and, with
     ``return_rewards``, the PRM reward (B, n) at each candidate's last real

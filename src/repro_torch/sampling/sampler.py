@@ -2,7 +2,9 @@
 
 A port of ``repro.sampling.sampler``: the reference's ``lax.scan`` loops
 become Python loops over ``Model.decode_step``, which writes each token's
-K/V into the cache in place.  A *reasoning step* ends at the sep token or
+K/V (or RWKV state) into the cache in place; rows that are done, or whose
+fed token is not kept, pass ``live=False`` so their recurrent state stays
+frozen, as in the reference.  A *reasoning step* ends at the sep token or
 EOS.  Categorical sampling is ``argmax(logits + Gumbel noise)``, exactly how
 ``jax.random.categorical`` samples; the noise comes from a
 ``torch.Generator`` or, for tests, is passed in.
@@ -81,7 +83,8 @@ def sample_steps(model, cache, last_token, positions, gen, *,
     lp = torch.zeros(B, dtype=torch.float32, device=dev)
     toks = []
     for _ in range(max_tokens):
-        logits = model.decode_step(cache, tok[:, None], pos, pt=pt)
+        logits = model.decode_step(cache, tok[:, None], pos, pt=pt,
+                                   live=~done)
         nxt = sample_token(gen, logits, temperature, top_p)
         logp_all = torch.log_softmax(logits.float(), dim=-1)
         logp_tok = torch.gather(logp_all, 1, nxt[:, None])[:, 0]
@@ -124,7 +127,7 @@ def score_and_append(model, cache, last_token, positions, step_tokens, *,
         live = target != PAD
         if row_live is not None:
             live = live & row_live
-        out = model.decode_step(cache, tok[:, None], pos,
+        out = model.decode_step(cache, tok[:, None], pos, live=live,
                                 return_hidden=return_rewards, pt=pt)
         if return_rewards:
             logits, hidden = out

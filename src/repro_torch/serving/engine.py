@@ -4,7 +4,8 @@ A port of ``repro.serving.engine``.  A cache is a list with one dict per
 layer: dense rows ``{"k","v"}`` shaped ``(B, S, KV, hd)`` or page pools
 ``{"kp","vp"}`` shaped ``(P, ps, KV, hd)`` addressed through a block table
 (plus ``{"ks","vs"}`` ``(P, KV)`` per-page scales for int8/fp8 pools, which
-travel with their pages).
+travel with their pages); an RWKV layer keeps dense per-slot state
+``{"tm_prev","wkv","cm_prev"}`` in either layout.
 
 * Dense branching (``repeat_cache``) copies each slot's rows n times, row
   ``b*n+j`` being candidate j of request b.
@@ -96,7 +97,8 @@ def paged_view(cache, pt):
     ``(B, nblk1 * ps, KV, hd)`` (absolute positions).  Quantized pools are
     dequantized on the way out, every row of logical block j carrying block
     j's page scale, so they come out float32; other pools keep their dtype.
-    Read by the shared-prefix scoring pass; decode never builds it."""
+    Dense leaves (an RWKV layer's state) pass through as they are.  Read by
+    the shared-prefix scoring pass; decode never builds it."""
     B, nblk = pt.shape
     ptc = pt.long()
 
@@ -110,8 +112,14 @@ def paged_view(cache, pt):
             out = out.float() * per_row[..., None]
         return out
 
-    return [{"k": gather(layer["kp"], layer.get("ks")),
-             "v": gather(layer["vp"], layer.get("vs"))} for layer in cache]
+    out = []
+    for layer in cache:
+        view = {k: v for k, v in layer.items() if k not in _PAGED_KEYS}
+        if "kp" in layer:
+            view["k"] = gather(layer["kp"], layer.get("ks"))
+            view["v"] = gather(layer["vp"], layer.get("vs"))
+        out.append(view)
+    return out
 
 
 def expand_requests(x, n: int):

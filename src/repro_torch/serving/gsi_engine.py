@@ -12,7 +12,10 @@ pi_B and the PRM run the step-level loop:
   commit        — append the chosen step to all three committed caches.
 
 The same engine, re-parameterized, runs every baseline of the paper:
-``gsi | gsi_norej | rsd | sbon_s | sbon_b``, on dense or paged caches.
+``gsi | gsi_norej | rsd | sbon_s | sbon_b``, on dense or paged caches,
+over attention or RWKV-6 stacks (an RWKV layer keeps dense per-slot state
+in either layout, and cross-request prefix sharing turns itself off unless
+all three stacks are attention-only, as in the reference).
 Paged pools may be stored as bf16, int8 or fp8 (``kv_dtype``; quantized
 pools carry per-page scales), the draft's weights may be rounded through
 int8 at load (``quantize_draft``), and ``shared_scoring`` scores the n
@@ -228,14 +231,23 @@ class GSIServingEngine:
         self.draft = Model(draft_cfg, params_s, device=self.device)
         self.target = Model(target_cfg, params_b, device=self.device)
         self.prm = Model(prm_cfg, params_p, device=self.device)
-        # the stacks are attention-only (other kinds raise in Model), so
-        # cross-request prefix sharing is exact
-        self.prefix_cache = bool(prefix_cache and paged)
+        # cross-request prefix sharing is exact only where every layer's
+        # serving state lives in position-addressed pages
+        self.prefix_cache = bool(prefix_cache and paged
+                                 and self._prefix_supported())
         self.decode_publish = bool(decode_publish and self.prefix_cache)
         # host mirrors of per-slot pos/done, refreshed at admit and after
         # every step: page assignment reads these, not the device state
         self._known_pos = np.zeros((0,), np.int64)
         self._known_done = np.zeros((0,), bool)
+
+    def _prefix_supported(self) -> bool:
+        """Sharing is exact iff every layer of all three models keeps its
+        serving state in the paged (position-addressed) KV pools: an RWKV
+        layer's state summarises the whole prefix and cannot be spliced."""
+        return all(k in ("full", "local")
+                   for m in (self.draft, self.target, self.prm)
+                   for k in m.kinds)
 
     # ------------------------------------------------------------------
     # State
@@ -357,28 +369,32 @@ class GSIServingEngine:
         whole caches; paged branching ``n * span`` pages per slot), and the
         pool's capacity at the engine's ``kv_dtype`` (page payload at the
         pool's storage dtype, per-page scales counted apart), keyed as the
-        reference's report on one device."""
+        reference's report on one device.  Only attention layers count, as
+        in the reference: an RWKV layer's O(1) state is not paged."""
         g = self.gcfg
         models = (self.draft, self.target, self.prm)
+
+        def attn_layers(model):
+            return [k for k in model.kinds if k != "rwkv"]
 
         def row_bytes(model, dtype=None):
             cfg = model.cfg
             dt = dtype or quant.pool_dtype(self.kv_dtype, adtype(cfg))
             item = torch.empty((), dtype=dt).element_size()
-            return len(model.kinds) * 2 * cfg.num_kv_heads * cfg.head_dim \
-                * item
+            return len(attn_layers(model)) * 2 * cfg.num_kv_heads \
+                * cfg.head_dim * item
 
         def scale_bytes(model):
             if not quant.is_quantized(self.kv_dtype):
                 return 0
-            return len(model.kinds) * 2 * model.cfg.num_kv_heads * 4
+            return len(attn_layers(model)) * 2 * model.cfg.num_kv_heads * 4
 
         def dense_bytes(model):
             cfg = model.cfg
             item = torch.empty((), dtype=adtype(cfg)).element_size()
             return batch * sum(2 * cfg.num_kv_heads * cfg.head_dim * item
                                * _cache_len(cfg, k, self.max_seq)
-                               for k in model.kinds)
+                               for k in attn_layers(model))
 
         branched = [self.draft, self.prm]
         if self.mode in ("gsi", "gsi_norej") and not self.shared_scoring:
@@ -411,7 +427,9 @@ class GSIServingEngine:
                                    / max(1, rep["paged_branch_bytes"]))
         rep["devices"] = 1
         rep["bytes_per_device"] = rep["capacity_bytes"]
-        rep["capacity_tokens_per_device"] = rep["capacity_tokens"]
+        rep["capacity_tokens_per_device"] = round(
+            rep["capacity_tokens"] * rep["bytes_per_device"]
+            / max(1, rep["capacity_bytes"]))     # 0 when no layer is paged
         if self.pager is not None:
             # distinct pages are what the device holds: a page spliced
             # into several slots' tables occupies one page

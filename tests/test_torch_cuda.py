@@ -5,9 +5,12 @@ fp8-e4m3 codes under fp32 and bf16 queries), the fused log-softmax
 gather (bf16/bf16, fp32/bf16 and fp32/fp32, W row-major and transposed),
 and full-sequence flash attention (fp32 and bf16; GQA groups 1, 2, 7 and
 64; head_dim 16, 40 and 128; windows shorter than the tile; ragged Sq and
-Sk), which refuses inputs that require a gradient.  A toy model's
-``score`` on the card launches the flash kernel once per layer and the
-gather once.
+Sk), which refuses inputs that require a gradient, and the WKV6 scan
+(head dims 32 and 64; T = 1, 17 and 1000; bf16 and fp32 r/k/v; spread
+decays and a non-zero initial state), which refuses other head dims and
+inputs that require a gradient.  A toy model's ``score`` on the card
+launches the flash kernel once per layer and the gather once; a toy RWKV
+model's ``score`` and ``decode_step`` launch the scan once per layer.
 
 These tests need an NVIDIA GPU and nvcc: a CUDA kernel has no CPU mode, so
 elsewhere they skip.  The file imports neither JAX nor ``repro``, so it runs
@@ -20,6 +23,8 @@ on a machine that has only the port (``--noconftest``: the shared
 Paged serving through the kernel against dense serving on the card is
 checked by ``chip_smoke.py`` (its toy agreement phase), not repeated here.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -33,6 +38,7 @@ from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain,
                                                  paged_attention_quant_cuda,
                                                  paged_attention_quant_plain)
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda, rwkv6_scan_plain
 
 
 @pytest.fixture
@@ -256,3 +262,93 @@ def test_model_score_runs_flash_per_layer_and_one_gather(cuda_device):
     err = (got.cpu() - want).abs().max().item()
     # fp32 both sides; cuBLAS and the CPU sum in other orders
     assert err <= 1e-4 * max(want.abs().max().item(), 1.0), err
+
+
+def scan_case(seed, *, B, T, H, hd, dtype, device):
+    """r, k, v N(0, 1) in ``dtype``; decays spread in (0.45, 0.999);
+    u N(0, 0.3^2); a non-zero initial state."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (torch.from_numpy(rng.standard_normal((B, T, H, hd)).astype(
+        np.float32)).to(device, dtype) for _ in range(3))
+    w = torch.from_numpy((0.45 + 0.549 * rng.uniform(size=(B, T, H, hd)))
+                         .astype(np.float32)).to(device)
+    u = torch.from_numpy((0.3 * rng.standard_normal((H, hd))).astype(
+        np.float32)).to(device)
+    s0 = torch.from_numpy((0.1 * rng.standard_normal((B, H, hd, hd)))
+                          .astype(np.float32)).to(device)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 17, 1000])
+@pytest.mark.parametrize("hd", [32, 64])
+def test_rwkv6_scan_kernel_matches_plain(cuda_device, dtype, T, hd):
+    """Both sides compute in fp32 from the same inputs and differ in
+    summation order: 1e-4 of each output's largest magnitude."""
+    args = scan_case(T + hd, B=2, T=T, H=3, hd=hd, dtype=dtype,
+                     device=cuda_device)
+    before = rwkv6_scan_cuda.launches
+    out, sT = ops.rwkv6_scan(*args)
+    want_out, want_s = rwkv6_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert rwkv6_scan_cuda.launches == before + 1
+    assert out.dtype == sT.dtype == torch.float32
+    assert out.shape == (2, T, 3, hd) and sT.shape == (2, 3, hd, hd)
+    assert sT.data_ptr() != args[5].data_ptr()       # a fresh buffer
+    for got, want in ((out, want_out), (sT, want_s)):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * max(want.abs().max().item(), 1.0), err
+
+
+@pytest.mark.cuda
+def test_rwkv6_scan_kernel_refuses_other_head_dims_and_gradients(
+        cuda_device):
+    before = rwkv6_scan_cuda.launches
+    args = scan_case(0, B=1, T=4, H=2, hd=16, dtype=torch.float32,
+                     device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.rwkv6_scan(*args)
+    r, k, v, w, u, s0 = scan_case(1, B=1, T=4, H=2, hd=32,
+                                  dtype=torch.float32, device=cuda_device)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ops.rwkv6_scan(r.requires_grad_(), k, v, w, u, s0)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ops.rwkv6_scan(r.detach(), k, v, w, u, s0.requires_grad_())
+    with pytest.raises(TypeError):
+        ops.rwkv6_scan(r.detach(), k, v, w.double(), u, s0.detach())
+    assert rwkv6_scan_cuda.launches == before
+
+
+@pytest.mark.cuda
+def test_rwkv_model_runs_the_scan_per_layer(cuda_device):
+    from repro_torch.config import get_config, reduced_config
+    from repro_torch.models import Model, random_params
+    cfg = dataclasses.replace(reduced_config(get_config("rwkv6-3b"),
+                                             vocab=64), num_layers=3)  # hd 32
+    params = random_params(cfg, 0, "cpu")
+    # base decays in about (0.54, 0.9975), so the WKV state carries (the
+    # seeded init's lie below 1.2e-4)
+    gen = torch.Generator().manual_seed(1)
+    for name, t in params.items():
+        if name.endswith(".tm.decay_base"):
+            t.copy_(torch.empty(t.shape).uniform_(-6.0, -0.5, generator=gen))
+    cpu = Model(cfg, params)
+    card = Model(cfg, params, device=cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        3, 64, (3, 40)))
+    before = rwkv6_scan_cuda.launches
+    got = card.score(toks.to(cuda_device))
+    cache = card.init_cache(3, 0)
+    step = card.decode_step(cache, toks[:, :1].to(cuda_device),
+                            torch.zeros(3, dtype=torch.long,
+                                        device=cuda_device))
+    torch.cuda.synchronize()
+    assert rwkv6_scan_cuda.launches == before + 2 * cfg.num_layers
+    want = cpu.score(toks)
+    want_step = cpu.decode_step(cpu.init_cache(3, 0), toks[:, :1],
+                                torch.zeros(3, dtype=torch.long))
+    for g, w in ((got, want), (step, want_step)):
+        w = w[..., :cfg.vocab_size]
+        err = (g[..., :cfg.vocab_size].cpu() - w).abs().max().item()
+        assert err <= 1e-4 * max(w.abs().max().item(), 1.0), err
