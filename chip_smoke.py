@@ -10,12 +10,15 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build   — compile every CUDA source of ``src/repro_torch/csrc`` with nvcc,
    one process per source, all started together.
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the main paths' shapes, with the stated tolerances: paged attention,
-   quantized paged attention (int8 and fp8 codes), the fused log-softmax
-   gather (the target's row-major unembedding and the draft's tied,
-   transposed embedding), flash attention (target and draft heads,
-   bf16 and fp32, causal with no window and with one shorter than the
-   query tile, S = 1000) and the WKV6 scan (rwkv6-3b's heads at its decode,
+   the main paths' shapes, with the stated tolerances: paged attention
+   (bf16, fp32, and fp32 queries over bf16 pools), quantized paged
+   attention (int8 and fp8 codes), the fused log-softmax gather (the
+   target's row-major unembedding with fp32 and bf16 h, and the draft's
+   tied, transposed embedding; timed with bf16 h and with fp32 h), flash
+   attention (target and draft heads, bf16 through the TMA/wgmma kernel
+   and fp32; bf16 at the toy head dims 40 and 16 through the mma.sync
+   kernel, G = 7 and 1; causal with no window and with one shorter than
+   every tile, S = 1000) and the WKV6 scan (rwkv6-3b's heads at its decode,
    shared-scoring and full-sequence shapes in bf16, and a toy hd = 32 in
    fp32; spread decays and a non-zero initial state).  Each kernel's time
    beside its bound, the plain version's time and, where one exists, one
@@ -49,8 +52,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    (printing the counted bf16 run's own gap as a control, then in fp32
    activations over the same weights).
 4b. agreement — a toy fp32 triple at temperature 0: paged (kernel) against
-   dense (plain attention) serving on the card, and int8 / fp8 pages with
-   shared scoring on the card against the same engine on the CPU; then the
+   dense (plain attention) serving on the card, bf16 pages under its fp32
+   activations (the kernel's fp32-query, bf16-pool instance) on the card
+   against the CPU, and int8 / fp8 pages with shared scoring on the card
+   against the same engine on the CPU; then the
    toy models' forward, score, prefill and rewards on the card (head_dim 16
    and 40, a full/local stack with a window shorter than S) against the
    CPU; and a toy fp32 RWKV triple served dense and paged on the card
@@ -61,7 +66,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 The line before the last is ``{"kernels": [...]}``: every ported kernel
 with its largest error in phase 3, its timings and its launch count from the
-phase-4 run(s) of its path.  The last line is
+phase-4 run(s) of its path (the gather's row also carries its fp32-h
+timings under ``fp32_h_*``).  The last line is
 ``{"ok": true, "device": {...}}``.  ``--layers`` cuts the depth of runs (a)
 and (b) (never a width, never run (c), score-prm or the RWKV runs) and
 says so on a ``reduced:`` line.
@@ -300,11 +306,16 @@ def phase_kernels(torch):
                                                      paged_attention_plain)
     max_err = 0.0
     shapes = {"target": (28, 4), "draft": (12, 2)}
+    # (q dtype, pool dtype): fp32 queries over bf16 pools are the
+    # kernel's widening instance (kv_dtype="bf16" under fp32 activations)
+    pairs = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+             (torch.float32, torch.bfloat16))
     for tag, (H, KV) in shapes.items():
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype, pool in pairs:
             for window in (0, 64):
                 q, kp, vp, pt, pos = paged_case(torch, H=H, KV=KV,
                                                 dtype=dtype, seed=H + window)
+                kp, vp = kp.to(pool), vp.to(pool)
                 got = paged_attention_cuda(q, kp, vp, pt, pos, window=window)
                 want = paged_attention_plain(q, kp, vp, pt, pos,
                                              window=window)
@@ -315,10 +326,11 @@ def phase_kernels(torch):
                 tol = TOL[str(dtype)]
                 print(f"paged_attention {tag} H={H} KV={KV} hd=128 ps=16 "
                       f"rows={q.shape[0]} table={pt.shape[1]} "
-                      f"{str(dtype)[6:]} window={window}: max_abs_err="
-                      f"{err:.3e} (tol {tol:.0e})", flush=True)
-                check(err <= tol, f"paged_attention {tag} {dtype} window "
-                      f"{window}: error {err} > {tol}")
+                      f"q={str(dtype)[6:]} pools={str(pool)[6:]} window="
+                      f"{window}: max_abs_err={err:.3e} (tol {tol:.0e})",
+                      flush=True)
+                check(err <= tol, f"paged_attention {tag} {dtype} over "
+                      f"{pool} window {window}: error {err} > {tol}")
                 max_err = max(max_err, err)
 
     # timing at the target's main-path shape, bf16, full attention
@@ -488,14 +500,21 @@ def phase_kernels_quant(torch):
 
 def bound_logprob(torch, h, w, vocab):
     """Least time for one call: h, W (once each), labels and the output
-    over the HBM rate, against 2 * T * d * vocab flops over the peak rate of
-    the type the products run in (fp32 when either input is fp32)."""
+    over the HBM rate, against the products' flops over the peak rate they
+    run at.  bf16 W: 2 * T * d * vocab flops at the bf16 tensor-core rate
+    with bf16 h; with fp32 h, the function the kernel computes, fp32 math
+    over bf16 W, is three bf16 products (h split into three bf16 parts, a
+    bf16 x bf16 product being exact in fp32): 3 * 2 * T * d * vocab at the
+    bf16 rate, which is also below the 2 * T * d * vocab fp32 CUDA-core
+    count it replaced (4.165 ms at the target's shape).  fp32 W: the fp32
+    rate."""
     T, d = h.shape[0] * h.shape[1], h.shape[2]
     nbytes = h.numel() * h.element_size() + w.numel() * w.element_size() \
         + T * 4 + T * 4
-    kind = str(torch.promote_types(h.dtype, w.dtype))
+    passes = 3 if (h.dtype, w.dtype) == (torch.float32,
+                                         torch.bfloat16) else 1
     t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = 2 * T * d * vocab / PEAK_OPS[kind]
+    t_ops = passes * 2 * T * d * vocab / PEAK_OPS[str(w.dtype)]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -563,8 +582,13 @@ def phase_kernels_logprob(torch):
               f"the tolerance")
         max_err = max(max_err, err)
 
-    row = None
-    for hdt in (torch.float32, torch.bfloat16):     # main path's h is fp32
+    row = {"name": "logprob_gather", "route": "cuda",
+           "source": "src/repro_torch/csrc/logprob_gather.cu",
+           "replaces": "src/repro/kernels/logprob_gather.py:69",
+           "launches": 0, "max_abs_err": max_err}
+    # bf16 h (scoring, RWKV shared scoring) fills the row's main fields;
+    # fp32 h (shared scoring over quantized pools) its fp32_h_* fields
+    for hdt in (torch.bfloat16, torch.float32):
         h, w, labels = logprob_inputs(torch, T=T, d=tgt.d_model,
                                       V=tgt.vocab_size, hdtype=hdt,
                                       tied=False, seed=7)
@@ -587,13 +611,10 @@ def phase_kernels_logprob(torch):
               f"plain {plain_ms:.4f}, library (h @ W, then -cross_entropy: "
               f"two calls) {library_ms:.4f}; back to back from the host: "
               f"kernel {ms_host:.4f}", flush=True)
-        if row is None:
-            row = {"name": "logprob_gather", "route": "cuda",
-                   "source": "src/repro_torch/csrc/logprob_gather.cu",
-                   "replaces": "src/repro/kernels/logprob_gather.py:69",
-                   "launches": 0, "max_abs_err": max_err, "ms": ms,
-                   "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "library_ms": library_ms}
+        pre = "" if hdt == torch.bfloat16 else "fp32_h_"
+        row.update({f"{pre}ms": ms, f"{pre}plain_ms": plain_ms,
+                    f"{pre}bound_ms": bound_ms, f"{pre}bound_by": bound_by,
+                    f"{pre}library_ms": library_ms})
     return row
 
 
@@ -623,31 +644,42 @@ def phase_kernels_flash(torch):
     print("== phase 3: flash_attention vs its plain version", flush=True)
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     uses_hopper_kernel)
     max_err = 0.0
     shapes = {"target": (28, 4), "draft": (12, 2)}
-    # window 8 is shorter than the kernel's query tile (64 // G = 9 or 10
-    # positions) and its 64-key tile: late rows' first tile is wholly
-    # masked.  S = 1000 is not a multiple of either tile.
-    for tag, (H, KV) in shapes.items():
-        for dtype in (torch.bfloat16, torch.float32):
-            for window in (0, 8):
-                q, k, v = flash_case(torch, B=4, S=1000, H=H, KV=KV,
-                                     dtype=dtype, seed=H + window)
-                got = flash_attention_cuda(q, k, v, window=window)
-                want = flash_attention_plain(q, k, v, window=window)
-                torch.cuda.synchronize()
-                check(bool(torch.isfinite(got).all()),
-                      f"flash {tag}: non-finite kernel output")
-                err = (got.float() - want.float()).abs().max().item()
-                tol = TOL[str(dtype)]
-                print(f"flash_attention {tag} B=4 S=1000 H={H} KV={KV} "
-                      f"hd=128 {str(dtype)[6:]} causal window={window}: "
-                      f"max_abs_err={err:.3e} (tol {tol:.0e})", flush=True)
-                check(err <= tol, f"flash_attention {tag} {dtype} window "
-                      f"{window}: error {err} > {tol}")
-                max_err = max(max_err, err)
-                del q, k, v, got, want
+    # bf16 at hd 128 runs the TMA/wgmma kernel: 128-key tiles, 2 x (64 // G)
+    # = 18 or 20 positions a block.  fp32 runs the CUDA-core kernel and
+    # bf16 at hd 40 and 16 (the toy models' head dims) the mma.sync one:
+    # 64-key tiles, 64 // G positions.  Window 8 is shorter than every
+    # query and key tile, so late rows' first tile is wholly masked.
+    # S = 1000 is a multiple of no tile.
+    cases = [(tag, H, KV, 128, dtype)
+             for tag, (H, KV) in shapes.items()
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(f"toy G={H // KV}", H, KV, hd, torch.bfloat16)
+              for H, KV in ((28, 4), (4, 4)) for hd in (40, 16)]
+    for tag, H, KV, hd, dtype in cases:
+        check(uses_hopper_kernel(dtype, hd) == (dtype == torch.bfloat16
+                                                and hd == 128),
+              f"flash {tag} hd={hd} {dtype}: unexpected kernel choice")
+        for window in (0, 8):
+            q, k, v = flash_case(torch, B=4, S=1000, H=H, KV=KV, hd=hd,
+                                 dtype=dtype, seed=H + hd % 128 + window)
+            got = flash_attention_cuda(q, k, v, window=window)
+            want = flash_attention_plain(q, k, v, window=window)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()),
+                  f"flash {tag}: non-finite kernel output")
+            err = (got.float() - want.float()).abs().max().item()
+            tol = TOL[str(dtype)]
+            print(f"flash_attention {tag} B=4 S=1000 H={H} KV={KV} "
+                  f"hd={hd} {str(dtype)[6:]} causal window={window}: "
+                  f"max_abs_err={err:.3e} (tol {tol:.0e})", flush=True)
+            check(err <= tol, f"flash_attention {tag} hd={hd} {dtype} "
+                  f"window {window}: error {err} > {tol}")
+            max_err = max(max_err, err)
+            del q, k, v, got, want
 
     # timing at a scoring shape: B = 4, S = 1024, the target's heads, bf16
     H, KV = shapes["target"]
@@ -1344,7 +1376,8 @@ def phase_score(torch, run, full, params, served, kernel, *,
 
 def phase_profile_scoring(torch, full, params, gsi_res):
     """One score-prm batch under torch.profiler: wall and device busy
-    time, the top device operations and the flash kernel's share."""
+    time, the top device operations and the flash kernel's and the vocab
+    gather's shares."""
     from torch.profiler import ProfilerActivity, profile
     print("== phase 5: where one score-prm batch's time goes", flush=True)
     draft, target, prm = scoring_models(full, params)
@@ -1366,10 +1399,12 @@ def phase_profile_scoring(torch, full, params, gsi_res):
         return
     busy = sum(r[0] for r in rows) / 1e6
     flash = sum(r[0] for r in rows if "flash_" in r[2]) / 1e6
+    gather = sum(r[0] for r in rows if "logprob_" in r[2]) / 1e6
     print(f"score-prm batch: wall {wall:.3f} s, device busy {busy:.3f} s, "
           f"device idle share {1 - busy / wall:.3f}, flash kernel "
-          f"{flash * 1e3:.2f} ms = {100 * flash / busy:.1f}% of busy",
-          flush=True)
+          f"{flash * 1e3:.2f} ms = {100 * flash / busy:.1f}% of busy, "
+          f"vocab gather (partials and merge) {gather * 1e3:.2f} ms = "
+          f"{100 * gather / busy:.1f}% of busy", flush=True)
     for dev_us, count, key in sorted(rows, reverse=True)[:12]:
         print(f"  {dev_us / 1e3:10.2f} ms  {count:7d} calls  "
               f"{100 * dev_us / 1e6 / busy:5.1f}%  {key[:90]}", flush=True)
@@ -1473,7 +1508,24 @@ def phase_agreement(torch):
           f"{sum(map(len, paged[0]))} tokens, identical={same}", flush=True)
     check(same, "paged and dense serving committed different tokens")
     from repro_torch.kernels.logprob_gather import logprob_gather_cuda
-    from repro_torch.kernels.paged_attention import paged_attention_quant_cuda
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_cuda, paged_attention_quant_cuda)
+    # kv_dtype="bf16" under fp32 activations: fp32 queries over bf16 pages,
+    # K and V widened in the kernel; the CPU promotes the same way
+    before = paged_attention_cuda.launches
+    card = toy_serve(torch, cfgs, params, g, prompts, "cuda", paged=True,
+                     kv_dtype="bf16")
+    launched = paged_attention_cuda.launches - before
+    cpu = toy_serve(torch, cfgs, params, g, prompts, "cpu", paged=True,
+                    kv_dtype="bf16")
+    same = card[0] == cpu[0]
+    print(f"toy bf16 pages under fp32 activations, card vs CPU: "
+          f"{sum(map(len, card[0]))} tokens, identical={same}, accept "
+          f"{card[1]:.3f} vs {cpu[1]:.3f}, paged_attention launches "
+          f"{launched}", flush=True)
+    check(launched > 0, "toy bf16 pages: the card run did not launch the "
+          "paged kernel")
+    check(same, "toy bf16 pages: card and CPU committed different tokens")
     for kv in ("int8", "fp8"):
         kw = dict(paged=True, kv_dtype=kv, shared_scoring=True)
         before = (paged_attention_quant_cuda.launches,

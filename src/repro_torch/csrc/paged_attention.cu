@@ -114,11 +114,14 @@ __device__ __forceinline__ float dot_row(const float* q, const char* krow,
   return (s0 + s1) + (s2 + s3);
 }
 
-template <typename T>
+// TQ: the queries' and the output's type; T: the pools' (TQ = float over
+// T = bf16 widens K and V to fp32 as they are read, as the reference's
+// promotion does; the math is fp32 throughout either way).
+template <typename TQ, typename T>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+paged_attention_kernel(const TQ* __restrict__ q, const T* __restrict__ kp,
                        const T* __restrict__ vp, const int* __restrict__ pt,
-                       const int* __restrict__ pos, T* __restrict__ out,
+                       const int* __restrict__ pos, TQ* __restrict__ out,
                        int H, int KV, int hd, int ps, int nblk1, int window,
                        float scale) {
   extern __shared__ __align__(16) char smem[];
@@ -149,7 +152,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                 row_bytes);
 
   // the group's query heads h*G .. h*G+G-1 are contiguous rows of q[b, 0]
-  const T* qg = q + ((long)b * H + (long)h * G) * hd;
+  const TQ* qg = q + ((long)b * H + (long)h * G) * hd;
   for (int i = threadIdx.x; i < G * hd; i += blockDim.x)
     q_s[i] = to_float(qg[i]);
   if (threadIdx.x < G) {
@@ -246,7 +249,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-template <typename T>
+template <typename TQ, typename T>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const void* pt, const void* pos, void* out, int B, int H,
                    int KV, int hd, int ps, int nblk1, int window, float scale,
@@ -257,24 +260,26 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
       + sizeof(float) * ((size_t)G * hd + (size_t)G * ps + 3 * (size_t)G);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<T>,
+        paged_attention_kernel<TQ, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const dim3 grid(B, KV);
-  paged_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
+  paged_attention_kernel<TQ, T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), static_cast<const int*>(pt),
-      static_cast<const int*>(pos), static_cast<T*>(out), H, KV, hd, ps,
+      static_cast<const int*>(pos), static_cast<TQ*>(out), H, KV, hd, ps,
       nblk1, window, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q, out: (B, 1, H, hd); kp, vp:
-// (P, ps, KV, hd); pt: (B, nblk1) int32; pos: (B,) int32; all contiguous,
-// 16-byte aligned, head_dim * element size a multiple of 16 bytes.
+// dtype: 0 = float32 q and pools, 1 = bfloat16 q and pools, 2 = float32 q
+// over bfloat16 pools (K and V widened as read; fp32 output).  q, out:
+// (B, 1, H, hd); kp, vp: (P, ps, KV, hd); pt: (B, nblk1) int32; pos: (B,)
+// int32; all contiguous, 16-byte aligned, head_dim * the pools' element
+// size a multiple of 16 bytes.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int paged_attention_fwd(const void* q, const void* kp,
                                    const void* vp, const void* pt,
@@ -282,17 +287,21 @@ extern "C" int paged_attention_fwd(const void* q, const void* kp,
                                    int KV, int hd, int ps, int nblk1,
                                    int window, float scale, int dtype,
                                    void* stream) {
-  const int esize = dtype == 0 ? 4 : 2;
+  const int esize = dtype == 0 ? 4 : 2;     // the pools' element size
   if (B <= 0 || KV <= 0 || H % KV != 0 || H / KV > kMaxGroup || hd <= 0 ||
       hd > kThreads * kMaxDimPerThread || (hd * esize) % 16 != 0 ||
       ps <= 0 || ps > kMaxPage || nblk1 <= 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(q, kp, vp, pt, pos, out, B, H, KV, hd, ps,
-                              nblk1, window, scale, s);
+    return (int)launch<float, float>(q, kp, vp, pt, pos, out, B, H, KV, hd,
+                                     ps, nblk1, window, scale, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, kp, vp, pt, pos, out, B, H, KV, hd,
-                                      ps, nblk1, window, scale, s);
+    return (int)launch<__nv_bfloat16, __nv_bfloat16>(
+        q, kp, vp, pt, pos, out, B, H, KV, hd, ps, nblk1, window, scale, s);
+  if (dtype == 2)
+    return (int)launch<float, __nv_bfloat16>(q, kp, vp, pt, pos, out, B, H,
+                                             KV, hd, ps, nblk1, window,
+                                             scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,8 +2,12 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/kernels/lib<name>-<digest>.so`` at the repository root (``build/``
-is git-ignored); the digest covers the source and the flags, so an edited
-source rebuilds and an unchanged one is reused.  Libraries are loaded with
+is git-ignored); the digest covers the source, every shared header
+``csrc/*.cuh`` (``hopper.cuh``: the TMA, mbarrier and wgmma building
+blocks) and the flags, so an edited source or header rebuilds its users
+and an unchanged one is reused.  No library links ``-lcuda``: the one
+driver function used (``cuTensorMapEncodeTiled``) is reached through the
+runtime's ``cudaGetDriverEntryPoint``.  Libraries are loaded with
 ``ctypes``.  Nothing here runs at import time: the CPU tests import every
 module on machines with no ``nvcc``.
 """
@@ -38,9 +42,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to, keyed by the source, the shared
+    headers ``csrc/*.cuh`` (any source may include any of them) and the
+    flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        digest.update(b"\0" + path.name.encode() + b"\0")
+        digest.update(path.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -12,8 +12,11 @@ it.
   probabilities cast to q's dtype before the P.V product.  The CPU path,
   and the yardstick the kernel is held to.
 * :func:`flash_attention_cuda` launches ``csrc/flash_attention.cu`` (the
-  Hopper kernel that replaces ``flash_attention_pallas``) and counts its
-  launches in ``flash_attention_cuda.launches``.  It is forward-only: an
+  Hopper kernels that replace ``flash_attention_pallas``) and counts its
+  launches in ``flash_attention_cuda.launches``.  bf16 at head_dim 64 or
+  128 (every Qwen2.5-Math layer) goes to the TMA/wgmma kernel; other bf16
+  head dims to the ``mma.sync`` kernel and fp32 to the CUDA-core kernel,
+  chosen from dtype and shape before the launch.  It is forward-only: an
   input that requires a gradient raises, since no backward kernel exists.
 """
 from __future__ import annotations
@@ -54,6 +57,9 @@ def flash_attention_plain(q, k, v, *, causal=True, window: int = 0,
     return out.reshape(B, Sq, H, hd)
 
 
+HOPPER_HEAD_DIMS = (64, 128)   # bf16 head dims of the TMA/wgmma kernel
+
+
 def _library():
     lib = build.load("flash_attention")
     fn = lib.flash_attention_fwd
@@ -61,7 +67,17 @@ def _library():
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return fn
+        hop = lib.flash_attention_hopper_fwd
+        hop.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+            + [ctypes.c_float, ctypes.c_void_p]
+        hop.restype = ctypes.c_int
+    return lib
+
+
+def uses_hopper_kernel(dtype, head_dim: int) -> bool:
+    """Whether :func:`flash_attention_cuda` sends these inputs to the
+    TMA/wgmma kernel (else the ``mma.sync`` or CUDA-core one)."""
+    return dtype == torch.bfloat16 and head_dim in HOPPER_HEAD_DIMS
 
 
 def flash_attention_cuda(q, k, v, *, causal=True, window: int = 0,
@@ -112,11 +128,15 @@ def flash_attention_cuda(q, k, v, *, causal=True, window: int = 0,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if any(t.data_ptr() % 16 for t in (q, k, v, out)):
         raise ValueError(f"{who}: tensors must be 16-byte aligned")
-    err = _library()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
-        H, KV, hd, int(bool(causal)), int(window),
-        float(hd ** -0.5 if scale is None else scale), _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Sk, H, KV, hd, int(bool(causal)), int(window),
+            float(hd ** -0.5 if scale is None else scale))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lib = _library()
+    if uses_hopper_kernel(q.dtype, hd):
+        err = lib.flash_attention_hopper_fwd(*args, stream)
+    else:
+        err = lib.flash_attention_fwd(*args, _DTYPE_CODE[q.dtype], stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -9,9 +9,11 @@ token through it.
   logprob_gather_ref``: the full fp32 logits, a masked logsumexp and a
   gather.  The CPU path, and the yardstick the kernel is held to.
 * :func:`logprob_gather_cuda` launches ``csrc/logprob_gather.cu`` (the
-  Hopper kernel that replaces ``logprob_gather_pallas``; the ``(T, V)``
+  Hopper kernels that replace ``logprob_gather_pallas``; the ``(T, V)``
   logits never reach device memory) and counts its launches in
-  ``logprob_gather_cuda.launches``.
+  ``logprob_gather_cuda.launches``.  bf16 W goes to the TMA/wgmma kernel:
+  bf16 h as it is, fp32 h as the three bf16 parts of :func:`bf16_split`;
+  fp32 h over fp32 W (the toy models) to the CUDA-core kernel.
 """
 from __future__ import annotations
 
@@ -22,13 +24,16 @@ import torch
 from repro_torch.kernels import build
 
 NEG = -1e30
-TOKEN_TILE = 64       # tokens per block of the kernel
-VOCAB_TILE = 64       # vocab columns per tile of the kernel
-BLOCKS_PER_SM = 4     # grid size the vocab split aims at
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# (h, w) dtype pairs the kernel takes
-_PAIRS = {(torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
-          (torch.float32, torch.float32)}
+# (tokens per block, vocab columns per strip, blocks per SM the vocab split
+# aims at) of the TMA/wgmma kernel (bf16 W: 192 KB of shared memory, one
+# block an SM) and of the CUDA-core kernel (fp32 W)
+HOPPER_TILES = (128, 256, 1)
+FP32_TILES = (64, 64, 4)
+# (h, w) dtype pairs the kernels take -> the C interface's h dtype code
+# (2: fp32 h as three bf16 parts) and w dtype code
+_CODES = {(torch.bfloat16, torch.bfloat16): (1, 1),
+          (torch.float32, torch.bfloat16): (2, 1),
+          (torch.float32, torch.float32): (0, 0)}
 
 
 def logprob_gather_plain(h, w, labels, vocab_size: int):
@@ -53,13 +58,28 @@ def _library():
     return fn
 
 
-def vocab_split(tokens: int, vocab_size: int, sms: int):
-    """``(tiles_per_split, nsplit)``: the vocabulary's tiles cut so that
-    token tiles x splits is about ``BLOCKS_PER_SM`` blocks per SM, with no
-    split empty."""
-    ttiles = -(-tokens // TOKEN_TILE)
-    vtiles = -(-vocab_size // VOCAB_TILE)
-    want = max(1, min(vtiles, -(-BLOCKS_PER_SM * sms // ttiles)))
+def bf16_split(h):
+    """Three bf16 parts of fp32 ``h`` stacked as ``(3, *h.shape)``:
+    h1 = bf16(h), h2 = bf16(h - h1), h3 = bf16(h - h1 - h2).  Each
+    subtraction is exact in fp32 and each part takes the next 8 bits, so
+    h1 + h2 + h3 leaves a residual below 2^-24 |h|; since a bf16 x bf16
+    product is exact in fp32, sum_i h_i @ W on the tensor cores is h @ W in
+    fp32 up to summation order."""
+    h = h.float()
+    h1 = h.bfloat16()
+    r = h - h1.float()
+    h2 = r.bfloat16()
+    return torch.stack((h1, h2, (r - h2.float()).bfloat16()))
+
+
+def vocab_split(tokens: int, vocab_size: int, sms: int, tiles):
+    """``(tiles_per_split, nsplit)``: the vocabulary's strips (``tiles[1]``
+    columns) cut so that token tiles (``tiles[0]`` tokens) x splits is
+    about ``tiles[2]`` blocks per SM, with no split empty."""
+    token_tile, strip, per_sm = tiles
+    ttiles = -(-tokens // token_tile)
+    vtiles = -(-vocab_size // strip)
+    want = max(1, min(vtiles, -(-per_sm * sms // ttiles)))
     per = -(-vtiles // want)
     return per, -(-vtiles // per)
 
@@ -70,15 +90,16 @@ def logprob_gather_cuda(h, w, labels, vocab_size: int):
     :func:`logprob_gather_plain`.  ``w`` is read through its strides, one of
     which must be 1 (a row-major ``(d, V)`` matrix or the transpose of a
     row-major ``(V, d)`` one, such as a tied embedding's ``.T``); ``h`` is
-    made contiguous and ``labels`` int32.  Raises on anything the kernel
-    does not take, and on a failed launch."""
+    made contiguous (fp32 h over bf16 W: split by :func:`bf16_split`) and
+    ``labels`` int32.  Raises on anything the kernel does not take, and on
+    a failed launch."""
     B, S, d = h.shape
     d_w, V = w.shape
     for name, t in (("h", h), ("w", w), ("labels", labels)):
         if not t.is_cuda or t.device != h.device:
             raise ValueError(f"logprob_gather_cuda: {name} must be on "
                              f"{h.device} (CUDA), got {t.device}")
-    if (h.dtype, w.dtype) not in _PAIRS:
+    if (h.dtype, w.dtype) not in _CODES:
         raise TypeError(f"logprob_gather_cuda takes (h, w) dtypes "
                         f"bf16/bf16, fp32/bf16 or fp32/fp32, got {h.dtype}, "
                         f"{w.dtype}")
@@ -95,8 +116,11 @@ def logprob_gather_cuda(h, w, labels, vocab_size: int):
     else:
         raise ValueError(f"logprob_gather_cuda: w needs one unit stride, got "
                          f"strides {tuple(w.stride())}")
-    ew, eh = 16 // w.element_size(), 16 // h.element_size()
-    if d % eh or d % ew or ldw % ew or (not kcontig and V % ew) \
+    hcode, wcode = _CODES[(h.dtype, w.dtype)]
+    # rows of whole 16-byte chunks (h and its parts share W's dtype, or are
+    # fp32 with fp32 W); the fp32 kernel's copies also read V-wide rows
+    e = 16 // w.element_size()
+    if d % e or ldw % e or (not wcode and not kcontig and V % e) \
             or w.data_ptr() % 16:
         raise ValueError(f"logprob_gather_cuda: needs 16-byte aligned rows: "
                          f"d={d}, V={V}, leading stride {ldw}")
@@ -109,17 +133,19 @@ def logprob_gather_cuda(h, w, labels, vocab_size: int):
                          f"the current device is cuda:"
                          f"{torch.cuda.current_device()}")
     hf = h.reshape(T, d).contiguous()
+    if hcode == 2:
+        hf = bf16_split(hf)
     lab = labels.reshape(T).to(torch.int32).contiguous()
     if hf.data_ptr() % 16:
         raise ValueError("logprob_gather_cuda: h must be 16-byte aligned")
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count
-    per, nsplit = vocab_split(T, vocab_size, sms)
+    per, nsplit = vocab_split(T, vocab_size, sms,
+                              HOPPER_TILES if wcode else FP32_TILES)
     part = torch.empty((3, nsplit, T), dtype=torch.float32, device=h.device)
     err = _library()(hf.data_ptr(), w.data_ptr(), lab.data_ptr(),
                      part.data_ptr(), out.data_ptr(), T, d, V,
-                     int(vocab_size), ldw, kcontig, per, nsplit,
-                     _DTYPE_CODE[h.dtype], _DTYPE_CODE[w.dtype],
-                     torch.cuda.current_stream(h.device).cuda_stream)
+                     int(vocab_size), ldw, kcontig, per, nsplit, hcode,
+                     wcode, torch.cuda.current_stream(h.device).cuda_stream)
     if err:
         raise RuntimeError(f"logprob_gather kernel launch failed: CUDA error "
                            f"{err}")

@@ -31,6 +31,12 @@ MAX_GROUP = 16        # query heads per kv head the kernel serves
 MAX_HEAD_DIM = 256
 MAX_PAGE = 32         # rows per page (one warp lane each in the softmax)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# (q dtype, pool dtype) pairs the unquantized kernel takes; fp32 queries
+# over bf16 pools widen K and V as they are read, as the plain version's
+# promotion does
+_PAIR_CODE = {(torch.float32, torch.float32): 0,
+              (torch.bfloat16, torch.bfloat16): 1,
+              (torch.float32, torch.bfloat16): 2}
 
 
 def paged_attention_plain(q, kp, vp, pt, pos, *, window: int = 0,
@@ -145,15 +151,19 @@ def _library():
 def paged_attention_cuda(q, kp, vp, pt, pos, *, window: int = 0,
                          scale=None):
     """Launch the CUDA kernel on the current stream; same contract as
-    :func:`paged_attention_plain`.  ``pt``/``pos`` must be int32, the
-    pools contiguous; ``q`` is made contiguous.  Raises on anything the
-    kernel does not take, and on a failed launch."""
+    :func:`paged_attention_plain`.  q and the pools are float32 or bfloat16
+    of one dtype, or float32 q over bfloat16 pools (fp32 output).
+    ``pt``/``pos`` must be int32, the pools contiguous; ``q`` is made
+    contiguous.  Raises on anything the kernel does not take (any other
+    mixed pair among them), and on a failed launch."""
     who = "paged_attention_cuda"
-    _check(who, q, kp, vp, pt, pos, hd_multiple=16 // q.element_size())
-    if q.dtype not in _DTYPE_CODE or kp.dtype != q.dtype \
-            or vp.dtype != q.dtype:
+    _check(who, q, kp, vp, pt, pos,
+           hd_multiple=16 // min(q.element_size(), kp.element_size()))
+    code = _PAIR_CODE.get((q.dtype, kp.dtype))
+    if code is None or vp.dtype != kp.dtype:
         raise TypeError(f"{who} takes float32 or bfloat16 q/kp/vp of one "
-                        f"dtype, got {q.dtype}, {kp.dtype}, {vp.dtype}")
+                        f"dtype, or float32 q over bfloat16 kp/vp; got "
+                        f"{q.dtype}, {kp.dtype}, {vp.dtype}")
     B, _, H, hd = q.shape
     ps, KV = kp.shape[1], kp.shape[2]
     q = q.contiguous()
@@ -164,8 +174,8 @@ def paged_attention_cuda(q, kp, vp, pt, pos, *, window: int = 0,
     err = _library()(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), pt.data_ptr(),
         pos.data_ptr(), out.data_ptr(), B, H, KV, hd, ps, pt.shape[1],
-        int(window), float(hd ** -0.5 if scale is None else scale),
-        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        int(window), float(hd ** -0.5 if scale is None else scale), code,
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")

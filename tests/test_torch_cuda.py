@@ -1,11 +1,15 @@
 """The port's CUDA kernels on a card, against their plain versions.
 
-Paged attention (fp32 and bf16 pools), quantized paged attention (int8 and
-fp8-e4m3 codes under fp32 and bf16 queries), the fused log-softmax
-gather (bf16/bf16, fp32/bf16 and fp32/fp32, W row-major and transposed),
-and full-sequence flash attention (fp32 and bf16; GQA groups 1, 2, 7 and
-64; head_dim 16, 40 and 128; windows shorter than the tile; ragged Sq and
-Sk), which refuses inputs that require a gradient, and the WKV6 scan
+Paged attention (fp32 and bf16 pools, and fp32 queries over bf16 pools),
+quantized paged attention (int8 and fp8-e4m3 codes under fp32 and bf16
+queries), the fused log-softmax gather (bf16/bf16 and fp32/bf16 through
+the TMA/wgmma kernel, fp32 h as three bf16 parts; fp32/fp32; W row-major
+and transposed; ragged tokens, depth and vocabulary strips), and
+full-sequence flash attention (fp32 and bf16; GQA groups 1, 2, 6, 7 and
+64; head_dim 16, 40, 64 and 128, bf16 at 64 and 128 through the TMA/wgmma
+kernel; windows shorter and longer than the key tile; ragged Sq and Sk,
+Sk > Sq non-causal), which refuses inputs that require a gradient, and
+the WKV6 scan
 (head dims 32 and 64; T = 1, 17 and 1000; bf16 and fp32 r/k/v; spread
 decays and a non-zero initial state), which refuses other head dims and
 inputs that require a gradient.  A toy model's ``score`` on the card
@@ -137,12 +141,28 @@ def test_quant_kernel_narrow_heads(cuda_device, kv_dtype, hd):
 
 
 @pytest.mark.cuda
-def test_paged_kernel_refuses_fp32_queries_over_bf16_pools(cuda_device):
-    """kv_dtype="bf16" under fp32 activations: the kernel takes one dtype
-    for q and the pools, so the call raises rather than casting."""
-    q, kp, vp, pt, pos = [t.to(cuda_device) for t in paged_case(3)]
+@pytest.mark.parametrize("window", [0, 8])
+@pytest.mark.parametrize("H,KV", [(14, 2), (4, 4)])      # G = 7 and 1
+def test_paged_kernel_refuses_fp32_queries_over_bf16_pools(cuda_device,
+                                                           window, H, KV):
+    """kv_dtype="bf16" under fp32 activations: the kernel widens the bf16
+    K and V to fp32 as it reads them and computes in fp32, as the plain
+    version's promotion does (2e-5, summation order only).  Every other
+    mixed pair, such as bf16 queries over fp32 pools, is refused."""
+    q, kp, vp, pt, pos = [t.to(cuda_device)
+                          for t in paged_case(H + window + 3, H=H, KV=KV)]
+    kp, vp = kp.bfloat16(), vp.bfloat16()
+    before = paged_attention_cuda.launches
+    got = ops.paged_attention(q, kp, vp, pt, pos, window=window)
+    want = paged_attention_plain(q, kp, vp, pt, pos, window=window)
+    torch.cuda.synchronize()
+    assert paged_attention_cuda.launches == before + 1
+    assert got.dtype == want.dtype == torch.float32
+    err = (got - want).abs().max().item()
+    assert err <= 2e-5, err
     with pytest.raises(TypeError):
-        ops.paged_attention(q, kp.bfloat16(), vp.bfloat16(), pt, pos)
+        ops.paged_attention(q.bfloat16(), kp.float(), vp.float(), pt, pos)
+    assert paged_attention_cuda.launches == before + 1
 
 
 @pytest.mark.cuda
@@ -175,6 +195,37 @@ def test_logprob_gather_kernel_matches_plain(cuda_device, hdt, wdt, tied):
     assert got.shape == (B, S) and got.dtype == torch.float32
     err = (got - want).abs().max().item()
     assert err <= 1e-3, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tied", [False, True])
+def test_logprob_gather_hopper_strips_and_depth(cuda_device, hdt, tied):
+    """bf16 W through the TMA/wgmma kernel: T = 130 (two token tiles, the
+    second ragged), d = 200 (four 64-deep chunks, the last ragged), V =
+    1600 with vocab_size 1537 (seven 256-column strips, the last holding
+    one live column, some splits more than one strip), labels 0,
+    vocab_size - 1 (that live column) and 1535 (the strip before's last
+    column).  Held to the plain
+    version at 1e-3 + 1e-5 |log-prob| (fp32 math both sides, summation
+    order; fp32 h as three bf16 parts leaves below 2^-24 |h|)."""
+    rng = np.random.default_rng(11)
+    B, S, d, V, vocab = 2, 65, 200, 1600, 1537
+    h = torch.from_numpy(rng.standard_normal((B, S, d)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((d, V)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, vocab, (B, S)))
+    labels[0, 0], labels[1, -1], labels[0, 1] = 0, vocab - 1, 1535
+    h, labels = h.to(cuda_device, hdt), labels.to(cuda_device)
+    w = w.to(cuda_device, torch.bfloat16)
+    if tied:
+        w = w.T.contiguous().T
+    before = logprob_gather_cuda.launches
+    got = ops.logprob_gather(h, w, labels, vocab)
+    want = logprob_gather_plain(h, w, labels, vocab)
+    torch.cuda.synchronize()
+    assert logprob_gather_cuda.launches == before + 1
+    over = ((got - want).abs() - 1e-3 - 1e-5 * want.abs()).max().item()
+    assert over <= 0, (got - want).abs().max().item()
 
 
 def flash_case(seed, *, B, Sq, Sk, H, KV, hd, dtype, device):
@@ -225,6 +276,33 @@ def test_flash_kernel_ragged_and_noncausal(cuda_device, dtype, tol, causal,
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("H,KV", [(28, 4), (12, 2), (4, 4)])  # G = 7, 6, 1
+@pytest.mark.parametrize("causal,window,Sq,Sk", [
+    (True, 0, 300, 300), (True, 8, 300, 300), (True, 200, 300, 300),
+    (False, 0, 150, 333)])
+def test_flash_hopper_kernel_matches_plain(cuda_device, hd, H, KV, causal,
+                                           window, Sq, Sk):
+    """bf16 at head_dim 64 and 128 goes to the TMA/wgmma kernel.  Sq = 300
+    is not a multiple of any group's query tile (2 x 9, 2 x 10, 2 x 64
+    positions); window 8 is shorter than the 128-key tile (late rows' first
+    tile wholly masked) and 200 longer; Sk = 333 > Sq without the causal
+    mask leaves a ragged last key tile."""
+    from repro_torch.kernels.flash_attention import uses_hopper_kernel
+    assert uses_hopper_kernel(torch.bfloat16, hd)
+    q, k, v = flash_case(H + hd + window + Sk, B=2, Sq=Sq, Sk=Sk, H=H, KV=KV,
+                         hd=hd, dtype=torch.bfloat16, device=cuda_device)
+    before = flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2e-2, err
 
 
 @pytest.mark.cuda

@@ -4,7 +4,8 @@
 held to ``repro.kernels.ref.paged_attention_ref`` and to the Pallas kernel
 run in interpret mode, on identical numpy inputs: GQA groups 1, 2 and 7,
 page sizes 4 and 16, full and sliding-window masks, random (stale) content
-in every page, a page shared by two rows, and the trash column.  The CUDA
+in every page, a page shared by two rows, and the trash column; and with
+fp32 queries over bf16 pools against the oracle's promotion.  The CUDA
 kernel itself is checked against the plain version on a card, in
 ``tests/test_torch_cuda.py``.
 """
@@ -58,6 +59,27 @@ def test_plain_matches_reference_oracle_and_pallas(H, KV, ps, window):
     kern = np.asarray(paged_attention_pallas(
         *[jnp.asarray(a) for a in case], window=window, interpret=True))
     np.testing.assert_allclose(got, kern, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("H,KV", [(4, 2), (14, 2)])            # G = 2, 7
+@pytest.mark.parametrize("window", [0, 8])
+def test_plain_fp32_queries_over_bf16_pools_match_reference(H, KV, window):
+    """kv_dtype="bf16" under fp32 activations: the plain version promotes
+    the bf16 K and V to fp32 as jnp does, and returns fp32 (the card's
+    kernel widens them the same way)."""
+    q, kp, vp, pt, pos = make_case(H + window + 7, B=3, H=H, KV=KV, hd=16,
+                                   ps=4, nblk=6)
+    kpb, vpb = (torch.from_numpy(a).bfloat16() for a in (kp, vp))
+    got = paged_attention_plain(torch.from_numpy(q), kpb, vpb,
+                                torch.from_numpy(pt), torch.from_numpy(pos),
+                                window=window)
+    assert got.dtype == torch.float32
+    want = np.asarray(ref.paged_attention_ref(
+        jnp.asarray(q), jnp.asarray(kp).astype(jnp.bfloat16),
+        jnp.asarray(vp).astype(jnp.bfloat16), jnp.asarray(pt),
+        jnp.asarray(pos), window=window))
+    assert want.dtype == np.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
 
 
 def test_ops_dispatch_cpu_goes_to_plain_version():
