@@ -11,8 +11,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    one process per source, all started together.
 3. kernels — each kernel against its plain PyTorch version on the card at
    the main paths' shapes, with the stated tolerances: paged attention
-   (bf16, fp32, and fp32 queries over bf16 pools), quantized paged
-   attention (int8 and fp8 codes), the fused log-softmax gather (the
+   (bf16, fp32, and fp32 queries over bf16 pools) and quantized paged
+   attention (int8 and fp8 codes under bf16 and fp32 queries), each at the
+   main path's positions (up to ~200) and at a long-context case (440-509
+   in the engine's max_seq = 512 table), and at the split plan's other
+   shapes (B = KV = 1, G = 16, a window that leaves splits empty, head_dim
+   8, 16, 40 and 256, pages of 4, 8 and 32 rows), both timed at the two
+   position ranges with the wrapper's host time per call; the fused
+   log-softmax gather (the
    target's row-major unembedding with fp32 and bf16 h, and the draft's
    tied, transposed embedding; timed with bf16 h and with fp32 h), flash
    attention (target and draft heads, bf16 through the TMA/wgmma kernel
@@ -27,7 +33,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 4. main paths — the full-width Qwen2.5-Math draft/target/PRM triple with
    seeded random weights in bf16, served by the paged GSI engine through
    the continuous-batching scheduler: (a) 6 requests on 4 slots over bf16
-   pages, (b) a short run whose threshold no tilted reward can reach, so the
+   pages at a threshold among the selected tilted rewards, so that it both
+   accepts draft candidates and falls back (both counted and required),
+   (b) a short run whose threshold no tilted reward can reach, so the
    target fallback must run, and (c) 5 requests over int8 pages with shared
    scoring and the draft's weights rounded through int8.  Then run
    score-prm, at full depth: the sequences (a) finished go through
@@ -61,16 +69,20 @@ Phases, each printing its own lines; any failure exits non-zero:
    CPU; and a toy fp32 RWKV triple served dense and paged on the card
    commits the CPU's tokens, its forward, score, prefill state and rewards
    matching the CPU's.
-5. profile — one engine step of (a), of (c) and of gsi-rwkv-shared, and
-   one score-prm batch, under ``torch.profiler`` (device activity only).
+5. profile — one engine step of (a) (at threshold 0.5, as it was profiled
+   before it had its own threshold), of (c)
+   and of gsi-rwkv-shared, and one score-prm batch, under
+   ``torch.profiler`` (device activity only); a paged kernel's row counts
+   its split and combine kernels together.
 
 The line before the last is ``{"kernels": [...]}``: every ported kernel
 with its largest error in phase 3, its timings and its launch count from the
 phase-4 run(s) of its path (the gather's row also carries its fp32-h
-timings under ``fp32_h_*``).  The last line is
-``{"ok": true, "device": {...}}``.  ``--layers`` cuts the depth of runs (a)
-and (b) (never a width, never run (c), score-prm or the RWKV runs) and
-says so on a ``reduced:`` line.
+timings under ``fp32_h_*``, the paged rows their long-context timings
+under ``long_*`` and the wrapper's host time per call under ``host_ms``).
+The last line is ``{"ok": true, "device": {...}}``.  ``--layers`` cuts
+the depth of runs (a) and (b) (never a width, never run (c), score-prm or
+the RWKV runs) and says so on a ``reduced:`` line.
 """
 from __future__ import annotations
 
@@ -129,6 +141,13 @@ TOY_RWKV_THRESHOLD = -2.0
 # selected tilted rewards, so the run both accepts a draft candidate and
 # falls back to the target
 RWKV_THRESHOLD = -0.29
+# run gsi: the full-width Qwen2.5-Math draft (tied std-1 embedding, nearly
+# deterministic) and target (independent random weights) disagree by about
+# 12 nats a token, so its selected tilted rewards lie near -10 (-10.75 to
+# -8.45 in a chip run at threshold 0.5, which nothing reached); this
+# threshold lies among them, so the run commits accepted draft candidates
+# over paged caches and falls back to the target
+QWEN_THRESHOLD = -9.5
 
 
 T0 = time.perf_counter()
@@ -153,7 +172,7 @@ def check(cond, msg):
 # ----------------------------------------------------------------------
 
 def paged_case(torch, *, H, KV, dtype, seed, hd=128, ps=16, slots=4, n=4,
-               nblk=32, span=2):
+               nblk=32, span=2, lo=20, hi=190):
     """Inputs shaped like one layer's paged attention call on the main path.
 
     Pool: ``slots * nblk`` allocatable pages + ``slots * n * span`` scratch
@@ -162,7 +181,9 @@ def paged_case(torch, *, H, KV, dtype, seed, hd=128, ps=16, slots=4, n=4,
     aliases its slot's committed pages below its write block (slot 1 shares
     slot 0's first three pages, as a prefix-cache hit does) and writes into
     its own scratch pages from there; unassigned columns and the extra
-    table column point at the trash page.  Positions are ragged, up to ~200.
+    table column point at the trash page.  Slot positions are drawn from
+    [lo, hi) (the main path's ~200 by default; the long-context case takes
+    440-500 in the engine's max_seq = 512 table), branches 3 apart.
     """
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -176,7 +197,7 @@ def paged_case(torch, *, H, KV, dtype, seed, hd=128, ps=16, slots=4, n=4,
     perm = torch.randperm(slots * nblk, generator=cpu)
     committed = perm.reshape(slots, nblk)
     committed[1, :3] = committed[0, :3]            # shared prefix pages
-    slot_pos = torch.randint(20, 190, (slots,), generator=cpu)
+    slot_pos = torch.randint(lo, hi, (slots,), generator=cpu)
     pt = torch.full((B, nblk + 1), trash, dtype=torch.int32)
     pos = torch.zeros(B, dtype=torch.int32)
     scratch = slots * nblk
@@ -193,6 +214,80 @@ def paged_case(torch, *, H, KV, dtype, seed, hd=128, ps=16, slots=4, n=4,
                 pt[b, col] = scratch
                 scratch += 1
     return q, kp, vp, pt.to(dev), pos.to(dev)
+
+
+# the split plan's shapes beyond the main path's (B, H, KV, head_dim, page
+# size, table columns, largest pos, window): B = KV = 1 (one (row, kv head)
+# pair, 9 splits), G = 16, a window that leaves splits empty, the toys'
+# head dims 8, 16 and 40, pages of 4, 8 and 32 rows, head_dim 256 (fp32
+# pools of 32-row pages are cut into 16-row units); the largest pos of
+# each sits in the trash column or near the table's end
+SPLIT_SHAPES = {
+    "b1kv1": (1, 7, 1, 128, 16, 33, 527, 0),
+    "g16": (4, 32, 2, 64, 16, 33, 300, 0),
+    "window": (8, 28, 4, 128, 16, 33, 527, 40),
+    "hd8": (4, 8, 2, 8, 16, 12, 180, 0),
+    "hd16-g1": (4, 4, 4, 16, 16, 12, 180, 8),
+    "hd40-ps8": (4, 14, 2, 40, 8, 20, 150, 8),
+    "ps4-g1": (3, 4, 4, 16, 4, 40, 150, 0),
+    "hd256-ps32": (3, 14, 2, 256, 32, 10, 300, 0),
+}
+
+
+def split_case(torch, shape, qdt, pool, seed):
+    """One paged call at ``SPLIT_SHAPES[shape]``: distinct random pages in
+    every column but the last (the trash page), stale values everywhere,
+    rows 0 and 1 sharing their first page, positions spread from the
+    largest down to 0.  ``pool`` is a dtype or "int8" / "fp8" (codes and
+    scales as the engine writes them)."""
+    from repro_torch.kernels import quant
+    B, H, KV, hd, ps, nblk1, top, window = SPLIT_SHAPES[shape]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    P = B * (nblk1 - 1) + 1
+    q = torch.randn((B, 1, H, hd), generator=gen, device="cuda").to(qdt)
+    kp, vp = (torch.randn((P, ps, KV, hd), generator=gen, device="cuda")
+              for _ in range(2))
+    cpu = torch.Generator().manual_seed(seed)
+    pt = torch.randperm(P - 1, generator=cpu)[:B * (nblk1 - 1)].reshape(
+        B, nblk1 - 1)
+    pt[min(1, B - 1), 0] = pt[0, 0]
+    pt = torch.cat([pt, torch.full((B, 1), P - 1)], dim=1).int().cuda()
+    pos = torch.linspace(top, 0, B).int().cuda()
+    if not isinstance(pool, str):
+        return (q, kp.to(pool), vp.to(pool), pt, pos), window
+    codes = []
+    for x in (kp, vp):
+        sc = x.abs().amax(dim=(1, 3)).clamp(min=quant.EPS) / quant.QMAX[pool]
+        codes += [quant.quantize_codes(x / sc[:, None, :, None],
+                                       quant.pool_dtype(pool, qdt)), sc]
+    return (q, codes[0], codes[2], codes[1], codes[3], pt, pos), window
+
+
+def check_split_shapes(torch, fn, plain, name, instances):
+    """``fn`` against ``plain`` at every :data:`SPLIT_SHAPES` entry for each
+    (q dtype, pool) instance; returns the largest error."""
+    worst = 0.0
+    for qdt, pool in instances:
+        errs = []
+        for shape in SPLIT_SHAPES:
+            args, window = split_case(torch, shape, qdt, pool,
+                                      len(shape) + len(str(pool)))
+            got = fn(*args, window=window)
+            want = plain(*args, window=window)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()),
+                  f"{name} {shape}: non-finite kernel output")
+            err = (got.float() - want.float()).abs().max().item()
+            tol = TOL[str(qdt)]
+            check(err <= tol, f"{name} {shape} q={qdt} pools={pool}: error "
+                  f"{err} > {tol}")
+            errs.append(err)
+        worst = max(worst, *errs)
+        print(f"{name} at the split shapes ({', '.join(SPLIT_SHAPES)}), "
+              f"q={str(qdt)[6:]} pools={str(pool).replace('torch.', '')}: "
+              f"max_abs_err={max(errs):.3e} (tol {TOL[str(qdt)]:.0e})",
+              flush=True)
+    return worst
 
 
 def live_rows(pt, pos, ps, window):
@@ -229,16 +324,19 @@ def bound(arg_sets, window):
                                        else "operations")
 
 
-def time_ms(torch, fn, arg_sets, iters=40):
+def time_ms(torch, fn, arg_sets, iters=40, enqueue=False):
     """Mean ms per call with CUDA events, cycling through ``arg_sets``
     (together larger than the L2 cache, so K/V comes from HBM).
 
-    Returns ``(device_ms, back_to_back_ms)``.  ``device_ms`` enqueues every
-    call behind a ~0.5 s device sleep, so the card runs them back to back
-    whatever the host's per-call cost: the function's own time on the card
-    (checked: the timed region must not have started when the host finished
-    enqueueing).  ``back_to_back_ms`` is the same loop without the sleep,
-    where a host slower than the card shows up as the per-call time.
+    Returns ``(device_ms, back_to_back_ms)``, and with ``enqueue`` also
+    ``host_ms``.  ``device_ms`` enqueues every call behind a ~0.5 s device
+    sleep, so the card runs them back to back whatever the host's per-call
+    cost: the function's own time on the card (checked: the timed region
+    must not have started when the host finished enqueueing).
+    ``back_to_back_ms`` is the same loop without the sleep, where a host
+    slower than the card shows up as the per-call time.  ``host_ms`` is the
+    host clock's time per call of the queued loop: what one call costs the
+    host, whatever the card does.
     """
     for args in arg_sets:
         fn(*args)
@@ -251,17 +349,21 @@ def time_ms(torch, fn, arg_sets, iters=40):
             torch.cuda._sleep(1_000_000_000)        # clock cycles
         start.record()
         count = 0
+        t0 = time.perf_counter()
         for _ in range(iters):
             for args in arg_sets:
                 fn(*args)
                 count += 1
+        host_ms = (time.perf_counter() - t0) * 1e3 / count
         end.record()
         if queued:
             check(not start.query(), "timing: the host did not finish "
                   "enqueueing before the device sleep ended")
         torch.cuda.synchronize()
         out.append(start.elapsed_time(end) / count)
-    return tuple(out)
+        if queued:
+            enqueue_ms = host_ms
+    return (*out, enqueue_ms) if enqueue else tuple(out)
 
 
 # ----------------------------------------------------------------------
@@ -300,6 +402,63 @@ def phase_build():
     print(f"build seconds: {secs:.2f}", flush=True)
 
 
+def paged_sets(torch, make, budget):
+    """Input sets from ``make(i)`` until their pools pass ``budget`` bytes
+    (twice the L2 cache), so K/V comes from HBM when they are cycled."""
+    sets = []
+    while sum(s[1].numel() * s[1].element_size() * 2 for s in sets) < budget:
+        sets.append(make(len(sets)))
+    return sets
+
+
+def gathered_kv(torch, q, k, v, pt, pos):
+    """SDPA's inputs for one paged call: q (B, H, 1, hd) and K/V gathered
+    through the table into (B, KV, S, hd), with the causal mask (the
+    library yardstick's gather is not timed)."""
+    B, _, _, hd = q.shape
+    P, ps, KV = k.shape[:3]
+    S = pt.shape[1] * ps
+    rows = (pt.long()[:, :, None] * ps
+            + torch.arange(ps, device="cuda")).reshape(B, S)
+    kg = k.reshape(P * ps, KV, hd)[rows].transpose(1, 2).contiguous()
+    vg = v.reshape(P * ps, KV, hd)[rows].transpose(1, 2).contiguous()
+    mask = (torch.arange(S, device="cuda")[None] <= pos[:, None].long())
+    return q.transpose(1, 2).contiguous(), kg, vg, mask[:, None, None]
+
+
+def time_paged(torch, name, fn, plain, sets, plain_sets, lib_sets, bounds,
+               what, iters):
+    """Time ``fn``, ``plain`` and SDPA over the cycled sets; print the
+    device-only and the back-to-back lines; return the numbers."""
+    ms, ms_host, enqueue_ms = time_ms(torch, lambda *a: fn(*a), sets,
+                                      iters=iters, enqueue=True)
+    plain_ms, plain_host = time_ms(torch, lambda *a: plain(*a), plain_sets,
+                                   iters=1)
+    library_ms, library_host = time_ms(torch, sdpa, lib_sets, iters=5)
+    bound_ms, bound_by = bounds
+    print(f"{name} timing ({what}; kernel {len(sets)} input sets cycled past"
+          f" L2, plain {len(plain_sets)}, library {len(lib_sets)}), "
+          f"device-only ms per call: kernel {ms:.4f}, bound {bound_ms:.6f} "
+          f"({bound_by}, mean over the sets), plain {plain_ms:.4f}, library "
+          f"(scaled_dot_product_attention over pre-gathered K/V) "
+          f"{library_ms:.4f}", flush=True)
+    print(f"{name} timing ({what}), back-to-back launches from the host "
+          f"(host cost included), ms per call: kernel {ms_host:.4f}, plain "
+          f"{plain_host:.4f}, library {library_host:.4f}; the wrapper's "
+          f"host time per call (enqueue only) {enqueue_ms:.4f}", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "back_to_back_ms": ms_host, "host_ms": enqueue_ms}
+
+
+def print_plan(name, B, KV, nblk1, ps):
+    from repro_torch.kernels.paged_attention import split_plan
+    splits, bps = split_plan(B, KV, nblk1, ps)
+    print(f"{name} split plan at B={B} KV={KV} table={nblk1} ps={ps}: "
+          f"{splits} splits of {bps} logical blocks, {B * KV * splits} "
+          f"blocks", flush=True)
+
+
 def phase_kernels(torch):
     print("== phase 3: paged_attention vs its plain version", flush=True)
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
@@ -310,73 +469,69 @@ def phase_kernels(torch):
     # kernel's widening instance (kv_dtype="bf16" under fp32 activations)
     pairs = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
              (torch.float32, torch.bfloat16))
+    # the main path's positions (~200), and the long-context case (440-509
+    # in the engine's max_seq = 512 table)
+    spans = {"": (20, 190, 0), " long": (440, 500, 1000)}
     for tag, (H, KV) in shapes.items():
-        for dtype, pool in pairs:
-            for window in (0, 64):
-                q, kp, vp, pt, pos = paged_case(torch, H=H, KV=KV,
-                                                dtype=dtype, seed=H + window)
-                kp, vp = kp.to(pool), vp.to(pool)
-                got = paged_attention_cuda(q, kp, vp, pt, pos, window=window)
-                want = paged_attention_plain(q, kp, vp, pt, pos,
-                                             window=window)
-                torch.cuda.synchronize()
-                check(bool(torch.isfinite(got).all()),
-                      f"{tag}: non-finite kernel output")
-                err = (got.float() - want.float()).abs().max().item()
-                tol = TOL[str(dtype)]
-                print(f"paged_attention {tag} H={H} KV={KV} hd=128 ps=16 "
-                      f"rows={q.shape[0]} table={pt.shape[1]} "
-                      f"q={str(dtype)[6:]} pools={str(pool)[6:]} window="
-                      f"{window}: max_abs_err={err:.3e} (tol {tol:.0e})",
-                      flush=True)
-                check(err <= tol, f"paged_attention {tag} {dtype} over "
-                      f"{pool} window {window}: error {err} > {tol}")
-                max_err = max(max_err, err)
+        print_plan("paged_attention", 16, KV, 33, 16)
+        for span, (lo, hi, off) in spans.items():
+            for dtype, pool in pairs:
+                for window in (0, 64):
+                    q, kp, vp, pt, pos = paged_case(
+                        torch, H=H, KV=KV, dtype=dtype,
+                        seed=H + window + off, lo=lo, hi=hi)
+                    kp, vp = kp.to(pool), vp.to(pool)
+                    got = paged_attention_cuda(q, kp, vp, pt, pos,
+                                               window=window)
+                    want = paged_attention_plain(q, kp, vp, pt, pos,
+                                                 window=window)
+                    torch.cuda.synchronize()
+                    check(bool(torch.isfinite(got).all()),
+                          f"{tag}: non-finite kernel output")
+                    err = (got.float() - want.float()).abs().max().item()
+                    tol = TOL[str(dtype)]
+                    print(f"paged_attention {tag}{span} H={H} KV={KV} hd=128"
+                          f" ps=16 rows={q.shape[0]} table={pt.shape[1]} "
+                          f"pos<={int(pos.max())} q={str(dtype)[6:]} pools="
+                          f"{str(pool)[6:]} window={window}: max_abs_err="
+                          f"{err:.3e} (tol {tol:.0e})", flush=True)
+                    check(err <= tol, f"paged_attention {tag}{span} {dtype} "
+                          f"over {pool} window {window}: error {err} > {tol}")
+                    max_err = max(max_err, err)
+    max_err = max(max_err, check_split_shapes(
+        torch, paged_attention_cuda, paged_attention_plain,
+        "paged_attention", pairs))
 
-    # timing at the target's main-path shape, bf16, full attention
+    # timing at the target's main-path shape, bf16, full attention; then
+    # the long-context case
     H, KV = shapes["target"]
-    sets = []
-    while sum(s[1].numel() * 4 for s in sets) < 2 * L2_BYTES:
-        sets.append(paged_case(torch, H=H, KV=KV, dtype=torch.bfloat16,
-                               seed=100 + len(sets)))
-    # few enough calls that the launch queue never fills during the sleep
-    ms, ms_host = time_ms(torch, lambda *a: paged_attention_cuda(*a), sets,
-                          iters=20)
-    plain_ms, plain_host = time_ms(
-        torch, lambda *a: paged_attention_plain(*a), sets, iters=1)
-
-    def gathered(q, kp, vp, pt, pos):
-        B, _, _, hd = q.shape
-        P, ps = kp.shape[:2]
-        S = pt.shape[1] * ps
-        rows = (pt.long()[:, :, None] * ps
-                + torch.arange(ps, device="cuda")).reshape(B, S)
-        k = kp.reshape(P * ps, KV, hd)[rows].transpose(1, 2).contiguous()
-        v = vp.reshape(P * ps, KV, hd)[rows].transpose(1, 2).contiguous()
-        mask = (torch.arange(S, device="cuda")[None] <= pos[:, None].long())
-        return q.transpose(1, 2).contiguous(), k, v, mask[:, None, None]
-
-    lib_sets = [gathered(*s) for s in sets]
-    library_ms, library_host = time_ms(torch, sdpa, lib_sets, iters=5)
-    bound_ms, bound_by = bound(sets, 0)
-    print(f"paged_attention timing (target shape, bf16, {len(sets)} input "
-          f"sets cycled past L2), device-only ms per call: kernel {ms:.4f}, "
-          f"bound {bound_ms:.6f} ({bound_by}, mean over the sets), plain "
-          f"{plain_ms:.4f}, library (scaled_dot_product_attention over "
-          f"pre-gathered K/V) {library_ms:.4f}", flush=True)
-    print(f"paged_attention timing, back-to-back launches from the host "
-          f"(host cost included), ms per call: kernel {ms_host:.4f}, plain "
-          f"{plain_host:.4f}, library {library_host:.4f}", flush=True)
+    row = {}
+    for span, (lo, hi, off) in spans.items():
+        sets = paged_sets(torch, lambda i: paged_case(
+            torch, H=H, KV=KV, dtype=torch.bfloat16, seed=100 + i + off,
+            lo=lo, hi=hi), 2 * L2_BYTES)
+        # few enough calls that the launch queue never fills in the sleep
+        got = time_paged(
+            torch, f"paged_attention{span}", paged_attention_cuda,
+            paged_attention_plain, sets, sets,
+            [gathered_kv(torch, *s) for s in sets], bound(sets, 0),
+            f"target shape, bf16, pos<={max(int(s[4].max()) for s in sets)}",
+            iters=20)
+        row.update({("long_" if span else "") + k: v
+                    for k, v in got.items()})
     # launches are read from the main path's run (phase 4), not from here
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:172",
-            "launches": 0, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "launches": 0, "max_abs_err": max_err, **row}
 
 
-def quant_case(torch, *, H, KV, dtype, kv, seed):
+def deq(torch, pool, sc, dtype):
+    """A code pool dequantized to ``dtype`` (page scale per (page, head))."""
+    return (pool.float() * sc[:, None, :, None]).to(dtype)
+
+
+def quant_case(torch, *, H, KV, dtype, kv, seed, lo=20, hi=190):
     """:func:`paged_case` over code pools, quantized as the engine writes
     them: each (page, kv head) of the N(0, 1) pools, scaled by a random
     factor in [0.25, 2), gets the scale amax / QMAX and codes in range.  The
@@ -384,7 +539,7 @@ def quant_case(torch, *, H, KV, dtype, kv, seed):
     column)."""
     from repro_torch.kernels import quant
     q, kp, vp, pt, pos = paged_case(torch, H=H, KV=KV, dtype=dtype,
-                                    seed=seed)
+                                    seed=seed, lo=lo, hi=hi)
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     out = []
     for pool in (kp, vp):
@@ -422,80 +577,68 @@ def phase_kernels_quant(torch):
         paged_attention_quant_cuda, paged_attention_quant_plain)
     max_err = 0.0
     shapes = {"target": (28, 4), "draft": (12, 2)}
+    spans = {"": (20, 190, 0), " long": (440, 500, 1000)}
     for tag, (H, KV) in shapes.items():
-        for kv in ("int8", "fp8"):
-            for dtype in (torch.bfloat16, torch.float32):
-                for window in (0, 64):
-                    args = quant_case(torch, H=H, KV=KV, dtype=dtype, kv=kv,
-                                      seed=H + window + len(kv))
-                    got = paged_attention_quant_cuda(*args, window=window)
-                    want = paged_attention_quant_plain(*args, window=window)
-                    torch.cuda.synchronize()
-                    check(bool(torch.isfinite(got).all()),
-                          f"{tag} {kv}: non-finite kernel output")
-                    err = (got.float() - want.float()).abs().max().item()
-                    tol = TOL[str(dtype)]
-                    print(f"paged_attention_quant {tag} H={H} KV={KV} hd=128"
-                          f" ps=16 rows={args[0].shape[0]} table="
-                          f"{args[5].shape[1]} {kv} q={str(dtype)[6:]} "
-                          f"window={window}: max_abs_err={err:.3e} "
-                          f"(tol {tol:.0e})", flush=True)
-                    check(err <= tol, f"paged_attention_quant {tag} {kv} "
-                          f"{dtype} window {window}: error {err} > {tol}")
-                    max_err = max(max_err, err)
+        for span, (lo, hi, off) in spans.items():
+            for kv in ("int8", "fp8"):
+                for dtype in (torch.bfloat16, torch.float32):
+                    for window in (0, 64):
+                        args = quant_case(torch, H=H, KV=KV, dtype=dtype,
+                                          kv=kv, seed=H + window + len(kv)
+                                          + off, lo=lo, hi=hi)
+                        got = paged_attention_quant_cuda(*args,
+                                                         window=window)
+                        want = paged_attention_quant_plain(*args,
+                                                           window=window)
+                        torch.cuda.synchronize()
+                        check(bool(torch.isfinite(got).all()),
+                              f"{tag} {kv}: non-finite kernel output")
+                        err = (got.float() - want.float()).abs().max().item()
+                        tol = TOL[str(dtype)]
+                        print(f"paged_attention_quant {tag}{span} H={H} "
+                              f"KV={KV} hd=128 ps=16 rows={args[0].shape[0]}"
+                              f" table={args[5].shape[1]} pos<="
+                              f"{int(args[6].max())} {kv} q={str(dtype)[6:]}"
+                              f" window={window}: max_abs_err={err:.3e} "
+                              f"(tol {tol:.0e})", flush=True)
+                        check(err <= tol, f"paged_attention_quant {tag}{span}"
+                              f" {kv} {dtype} window {window}: error {err} > "
+                              f"{tol}")
+                        max_err = max(max_err, err)
+    max_err = max(max_err, check_split_shapes(
+        torch, paged_attention_quant_cuda, paged_attention_quant_plain,
+        "paged_attention_quant",
+        ((torch.bfloat16, "int8"), (torch.float32, "int8"),
+         (torch.bfloat16, "fp8"), (torch.float32, "fp8"))))
 
-    # timing at the int8 run's target shape: bf16 queries over int8 codes
+    # timing at the int8 run's target shape: bf16 queries over int8 codes;
+    # then the long-context case
     H, KV = shapes["target"]
-    sets = []
-    while sum(s[1].numel() * 2 for s in sets) < 2 * L2_BYTES:
-        sets.append(quant_case(torch, H=H, KV=KV, dtype=torch.bfloat16,
-                               kv="int8", seed=200 + len(sets)))
-    # at most a few hundred launches per timed loop, so the launch queue
-    # never fills during the device sleep: the kernel cycles all the sets;
-    # the plain version (~35 launches a call) a quarter of them; SDPA sets
-    # (gathered bf16 K/V, about 17 MB each) six, past L2 on their own
-    ms, ms_host = time_ms(torch, lambda *a: paged_attention_quant_cuda(*a),
-                          sets, iters=10)
-    plain_ms, plain_host = time_ms(
-        torch, lambda *a: paged_attention_quant_plain(*a),
-        sets[:len(sets) // 4], iters=1)
-
-    def gathered(q, kp, vp, ks, vs, pt, pos):
-        B, _, _, hd = q.shape
-        P, ps = kp.shape[:2]
-        S = pt.shape[1] * ps
-        ptl = pt.long()
-        rows = (ptl[:, :, None] * ps
-                + torch.arange(ps, device="cuda")).reshape(B, S)
-
-        def deq(pool, sc):
-            x = pool.reshape(P * ps, KV, hd)[rows].float() \
-                * sc[ptl].repeat_interleave(ps, dim=1)[..., None]
-            return x.to(q.dtype).transpose(1, 2).contiguous()
-
-        mask = (torch.arange(S, device="cuda")[None] <= pos[:, None].long())
-        return q.transpose(1, 2).contiguous(), deq(kp, ks), deq(vp, vs), \
-            mask[:, None, None]
-
-    lib_sets = [gathered(*s) for s in sets[:6]]
-    library_ms, library_host = time_ms(torch, sdpa, lib_sets, iters=5)
-    bound_ms, bound_by = bound_quant(sets, 0)
-    print(f"paged_attention_quant timing (target shape, bf16 q over int8 "
-          f"codes; kernel {len(sets)} input sets cycled past L2, plain "
-          f"{len(sets) // 4}, library 6), device-only ms "
-          f"per call: kernel {ms:.4f}, bound {bound_ms:.6f} ({bound_by}, "
-          f"mean over the sets), plain {plain_ms:.4f}, library "
-          f"(scaled_dot_product_attention over pre-gathered, dequantized "
-          f"bf16 K/V) {library_ms:.4f}", flush=True)
-    print(f"paged_attention_quant timing, back-to-back launches from the "
-          f"host (host cost included), ms per call: kernel {ms_host:.4f}, "
-          f"plain {plain_host:.4f}, library {library_host:.4f}", flush=True)
+    row = {}
+    for span, (lo, hi, off) in spans.items():
+        sets = paged_sets(torch, lambda i: quant_case(
+            torch, H=H, KV=KV, dtype=torch.bfloat16, kv="int8",
+            seed=200 + i + off, lo=lo, hi=hi), 2 * L2_BYTES)
+        # at most a few hundred launches per timed loop, so the launch
+        # queue never fills during the device sleep: the kernel cycles all
+        # the sets; the plain version (~35 launches a call) a quarter of
+        # them; SDPA sets (gathered bf16 K/V, about 17 MB each) six, past
+        # L2 on their own
+        lib_sets = [gathered_kv(torch, q, deq(torch, kp, ks, q.dtype),
+                                deq(torch, vp, vs, q.dtype), pt, pos)
+                    for q, kp, vp, ks, vs, pt, pos in sets[:6]]
+        got = time_paged(
+            torch, f"paged_attention_quant{span}", paged_attention_quant_cuda,
+            paged_attention_quant_plain, sets, sets[:len(sets) // 4],
+            lib_sets, bound_quant(sets, 0),
+            f"target shape, bf16 q over int8 codes, "
+            f"pos<={max(int(s[6].max()) for s in sets)}", iters=10)
+        row.update({("long_" if span else "") + k: v
+                    for k, v in got.items()})
     return {"name": "paged_attention_quant", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_attention_quant.cu",
             "replaces": "src/repro/kernels/paged_attention.py:121",
-            "launches": 0, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "launches": 0, "max_abs_err": max_err, **row}
 
 
 def bound_logprob(torch, h, w, vocab):
@@ -987,7 +1130,9 @@ def phase_main(torch, layers):
                      max_step_tokens=16, max_steps=4, min_step_reward=0.0)
     # (name, triple, gsi config, requests, seed, engine options); the
     # bf16-page runs may be cut in depth, the int8 run never is
-    runs = [("gsi", cfgs, cut, gcfg, 6, 0, {}),
+    runs = [("gsi", cfgs, cut,
+             dataclasses.replace(gcfg, threshold_u=QWEN_THRESHOLD), 6, 0,
+             {}),
             # no tilted reward reaches 1e9: every row rejects, the
             # target fallback must run
             ("gsi-forced-fallback", cfgs, cut,
@@ -1025,6 +1170,19 @@ def phase_main(torch, layers):
           f"gsi-int8-shared: launches {got}; want paged_attention_quant = "
           f"layers x paged decode_step calls = {want}, logprob_gather = 2 x"
           f" draft phases = {2 * q['draft_phases']}, no other kernel")
+    stats = results["gsi"]["stats"]
+    tilted = torch.cat([torch.as_tensor(t).flatten()
+                        for t in stats.tilted_rewards])
+    print(f"run gsi: threshold {QWEN_THRESHOLD}; decisions "
+          f"{stats.decisions}: accepted {stats.accepted} (a draft candidate "
+          f"committed over paged caches), rejected "
+          f"{stats.decisions - stats.accepted} (target fallback); selected "
+          f"tilted rewards in [{tilted.min().item():.4f}, "
+          f"{tilted.max().item():.4f}], median "
+          f"{tilted.median().item():.4f}", flush=True)
+    check(bool(layers) or 0 < stats.accepted < stats.decisions,
+          f"gsi: {stats.accepted} of {stats.decisions} decisions accepted; "
+          f"the run must take both the accept and the fallback branch")
     fallback = results["gsi-forced-fallback"]
     check(fallback["target_tokens"] > 0 and fallback["accept_rate"] == 0.0,
           "forced-fallback run: the target fallback did not run")
@@ -1457,15 +1615,23 @@ def phase_profile(torch, configs, gcfg):
             print(f"  {dev_us / 1e3:10.2f} ms  {count:7d} calls  "
                   f"{100 * dev_us / 1e6 / max(busy, 1e-12):5.1f}%  "
                   f"{key[:90]}", flush=True)
-        for kernel in ("paged_attention_kernel", "paged_attention_quant",
-                       "logprob_", "rwkv6_scan_kernel"):
-            mine = [r for r in rows if kernel in r[2]]
+        # each kernel row's device kernels: the paged kernels' split and
+        # combine kernels count together
+        for kernel, names in (
+                ("paged_attention", ("paged_attention_kernel",
+                                     "paged_attention_combine_kernel")),
+                ("paged_attention_quant", ("paged_attention_quant_",)),
+                ("logprob_gather", ("logprob_",)),
+                ("rwkv6_scan", ("rwkv6_scan_kernel",))):
+            mine = [r for r in rows if any(n in r[2] for n in names)]
             if mine:
                 us = sum(r[0] for r in mine)
                 print(f"  {kernel}: {us / 1e3:.2f} ms over "
-                      f"{sum(r[1] for r in mine)} launches = "
-                      f"{100 * us / 1e6 / max(busy, 1e-12):.1f}% of busy",
-                      flush=True)
+                      f"{sum(r[1] for r in mine)} device launches ("
+                      + ", ".join(f"{n} {sum(r[1] for r in mine if n in r[2])}"
+                                  for n in names)
+                      + f") = {100 * us / 1e6 / max(busy, 1e-12):.1f}% of "
+                      f"busy", flush=True)
         del eng, state
         elapsed(f"the profile of {name}")
 

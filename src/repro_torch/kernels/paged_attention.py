@@ -12,7 +12,12 @@ layers); stale rows of recycled pages are masked, never zeroed.
   product.  The CPU path, and the yardstick the kernel is held to.
 * :func:`paged_attention_cuda` launches ``csrc/paged_attention.cu`` (the
   Hopper kernel that replaces ``paged_attention_pallas``) and counts its
-  launches in ``paged_attention_cuda.launches``.
+  launches in ``paged_attention_cuda.launches``: one per call, whether the
+  C entry point ran its split kernel alone or with the combine kernel.
+* :func:`split_plan` is the host's half of both kernels' flash-decoding
+  split (``csrc/paged_decode.cuh``): how many blocks share a row's sweep,
+  from the shapes alone, so that no call reads ``pos`` or ``pt`` on the
+  host.
 * :func:`paged_attention_quant_plain` and :func:`paged_attention_quant_cuda`
   are the same pair over int8 or fp8-e4m3 code pools with per-page
   per-kv-head scales (``csrc/paged_attention_quant.cu`` replaces
@@ -21,6 +26,7 @@ layers); stale rows of recycled pages are masked, never zeroed.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -29,8 +35,13 @@ from repro_torch.kernels import build
 NEG = -1e30
 MAX_GROUP = 16        # query heads per kv head the kernel serves
 MAX_HEAD_DIM = 256
-MAX_PAGE = 32         # rows per page (one warp lane each in the softmax)
+MAX_PAGE = 32         # rows per page (at most one warp lane each)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+WARPS = 4             # warps per split block (paged::kWarps)
+MAX_PAGES_PER_WARP = 32
+MIN_ROWS_PER_WARP = 16
+MAX_SPLITS = 32
+SPLIT_BLOCKS = 8 * 132  # about eight blocks per SM of an H100 at most
 # (q dtype, pool dtype) pairs the unquantized kernel takes; fp32 queries
 # over bf16 pools widen K and V as they are read, as the plain version's
 # promotion does
@@ -101,49 +112,114 @@ def paged_attention_quant_plain(q, kp, vp, ks, vs, pt, pos, *,
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def split_plan(B: int, KV: int, nblk1: int, ps: int) -> tuple:
+    """``(splits, bps)``: the sweep over a table row's ``nblk1`` logical
+    blocks is cut into ``splits`` ranges of ``bps`` blocks, one block of the
+    grid per (row, kv head, range); warp ``w`` of a block takes the range's
+    blocks ``w, w + WARPS, ...``.  A pure function of the shapes: the
+    kernels find a row's live blocks from ``pos`` on the card.
+
+    Each warp gets at least ``MIN_ROWS_PER_WARP`` rows (one page of 16 or
+    more rows, two of 8, ...), as many splits as that allows up to
+    ``MAX_SPLITS`` and ``SPLIT_BLOCKS`` blocks in all, and at most
+    ``MAX_PAGES_PER_WARP`` pages per warp (lane k of a warp holds its k-th
+    page id).  At the main path's shapes (16 x 4, 16 x 2 and 4 x 4 (row,
+    kv head) pairs, a 33-column table of 16-row pages) that is 9 splits of
+    4 blocks: one page per warp and 144 to 576 blocks."""
+    ppw = -(-MIN_ROWS_PER_WARP // ps)
+    cap = max(1, min(MAX_SPLITS, SPLIT_BLOCKS // (B * KV)))
+    ppw = min(MAX_PAGES_PER_WARP, max(ppw, -(-nblk1 // (WARPS * cap))))
+    bps = WARPS * ppw
+    return -(-nblk1 // bps), bps
+
+
+_SCRATCH: dict = {}
+
+
+def _scratch(dev, stream, n):
+    """fp32 scratch of at least ``n`` elements for the split kernel's
+    partials, or ``None`` (a null pointer) when one split covers the table.
+
+    Calls on one stream run in order (the next call's split kernel starts
+    after this call's combine kernel), so each (device, stream) keeps one
+    buffer, grown as needed, and a call pays no allocation; another stream
+    gets its own.  Under CUDA-graph capture the scratch is allocated afresh
+    from the graph's pool, so that every captured graph owns its own."""
+    if n == 0:
+        return None
+    if torch.cuda.is_current_stream_capturing():
+        return torch.empty(n, dtype=torch.float32, device=dev)
+    buf = _SCRATCH.get((dev, stream))
+    if buf is None or buf.numel() < n:
+        buf = _SCRATCH[dev, stream] = torch.empty(n, dtype=torch.float32,
+                                                  device=dev)
+    return buf
+
+
 def _check(who, q, kp, vp, pt, pos, *, hd_multiple, scales=()):
     """The checks both kernels' wrappers make before a launch: devices,
     index dtypes, shapes, the kernels' limits, contiguity and the current
-    device.  Raises on anything the kernels do not take."""
+    device.  Raises on anything the kernels do not take; returns the
+    device's index.  Written for the host's clock: a decode step calls it
+    once per attention layer and model, thousands of times."""
     B, one, H, hd = q.shape
     P, ps, KV, hd_k = kp.shape
-    named = [("q", q), ("kp", kp), ("vp", vp), ("pt", pt), ("pos", pos)]
-    named += list(zip(("ks", "vs"), scales))
-    for name, t in named:
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"{who}: {name} must be on {q.device} (CUDA), "
-                             f"got {t.device}")
+    tensors = (q, kp, vp, pt, pos, *scales)
+    dev = q.get_device()                       # -1 off the card
+    if dev < 0 or any(t.get_device() != dev for t in tensors):
+        name, t = next((n, t) for n, t in zip(
+            ("q", "kp", "vp", "pt", "pos", "ks", "vs"), tensors)
+            if not t.is_cuda or t.device != q.device)
+        raise ValueError(f"{who}: {name} must be on {q.device} (CUDA), "
+                         f"got {t.device}")
     if pt.dtype != torch.int32 or pos.dtype != torch.int32:
         raise TypeError(f"{who}: pt and pos must be int32")
     if one != 1 or hd_k != hd or vp.shape != kp.shape or H % KV \
             or pt.dim() != 2 or pt.shape[0] != B or pos.shape != (B,) \
             or any(t.shape != (P, KV) for t in scales):
         raise ValueError(f"{who}: bad shapes " + " ".join(
-            f"{name} {tuple(t.shape)}" for name, t in named))
+            f"{name} {tuple(t.shape)}" for name, t in zip(
+                ("q", "kp", "vp", "pt", "pos", "ks", "vs"), tensors)))
     if H // KV > MAX_GROUP or hd > MAX_HEAD_DIM or hd % hd_multiple \
             or ps > MAX_PAGE:
         raise ValueError(f"{who}: needs H/KV <= {MAX_GROUP}, head_dim <= "
                          f"{MAX_HEAD_DIM} and a multiple of {hd_multiple}, "
                          f"page size <= {MAX_PAGE}")
-    if not all(t.is_contiguous() for _, t in named[1:]):
+    if not all(t.is_contiguous() for t in tensors[1:]):
         raise ValueError(f"{who}: pools, scales, pt and pos must be "
                          f"contiguous")
-    if q.device.index != torch.cuda.current_device():
+    if dev != torch.cuda.current_device():
         raise ValueError(f"{who}: tensors on {q.device} but the current "
                          f"device is cuda:{torch.cuda.current_device()}")
+    return dev
 
 
-def _aligned(who, *tensors):
-    if any(t.data_ptr() % 16 for t in tensors):
+def _aligned(who, *ptrs):
+    if any(p % 16 for p in ptrs):
         raise ValueError(f"{who}: tensors must be 16-byte aligned")
+
+
+def _partials(B, KV, H, hd, splits):
+    """fp32 elements of the partials (acc, m, l of each (row, kv head,
+    split)); 0 for a single split, whose blocks write the output."""
+    return 0 if splits == 1 else B * H * splits * (hd + 2)
+
+
+def _stream(dev):
+    """The current stream's handle, as an int.  torch.cuda.current_stream
+    builds a Stream object (about 5 microseconds of host time on the H100
+    machines, a third of this wrapper's); the raw getter, which PyTorch's
+    own Triton launchers use, does not."""
+    return torch._C._cuda_getCurrentRawStream(dev)
 
 
 def _library():
     lib = build.load("paged_attention")
     fn = lib.paged_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
+            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -157,8 +233,8 @@ def paged_attention_cuda(q, kp, vp, pt, pos, *, window: int = 0,
     contiguous.  Raises on anything the kernel does not take (any other
     mixed pair among them), and on a failed launch."""
     who = "paged_attention_cuda"
-    _check(who, q, kp, vp, pt, pos,
-           hd_multiple=16 // min(q.element_size(), kp.element_size()))
+    dev = _check(who, q, kp, vp, pt, pos,
+                 hd_multiple=16 // min(q.element_size(), kp.element_size()))
     code = _PAIR_CODE.get((q.dtype, kp.dtype))
     if code is None or vp.dtype != kp.dtype:
         raise TypeError(f"{who} takes float32 or bfloat16 q/kp/vp of one "
@@ -170,12 +246,16 @@ def paged_attention_cuda(q, kp, vp, pt, pos, *, window: int = 0,
     out = torch.empty_like(q)
     if B == 0:
         return out
-    _aligned(who, q, kp, vp, out)
+    nblk1 = pt.shape[1]
+    splits, bps = split_plan(B, KV, nblk1, ps)
+    stream = _stream(dev)
+    part = _scratch(dev, stream, _partials(B, KV, H, hd, splits))
+    ptrs = [t.data_ptr() for t in (q, kp, vp, pt, pos, out)]
+    _aligned(who, *ptrs[:3], ptrs[5])
     err = _library()(
-        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), pt.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), B, H, KV, hd, ps, pt.shape[1],
-        int(window), float(hd ** -0.5 if scale is None else scale), code,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        *ptrs, None if part is None else part.data_ptr(), B, H, KV, hd, ps,
+        nblk1, int(window), float(hd ** -0.5 if scale is None else scale),
+        splits, bps, code, stream)
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -193,8 +273,8 @@ def _quant_library():
     lib = build.load("paged_attention_quant")
     fn = lib.paged_attention_quant_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
+            + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -208,7 +288,7 @@ def paged_attention_quant_cuda(q, kp, vp, ks, vs, pt, pos, *,
     scales, table and positions contiguous.  Raises on anything the kernel
     does not take, and on a failed launch."""
     who = "paged_attention_quant_cuda"
-    _check(who, q, kp, vp, pt, pos, hd_multiple=4, scales=(ks, vs))
+    dev = _check(who, q, kp, vp, pt, pos, hd_multiple=4, scales=(ks, vs))
     if q.dtype not in _DTYPE_CODE or kp.dtype not in _CODE_KIND \
             or vp.dtype != kp.dtype:
         raise TypeError(f"{who} takes float32 or bfloat16 q over int8 or "
@@ -222,13 +302,17 @@ def paged_attention_quant_cuda(q, kp, vp, ks, vs, pt, pos, *,
     out = torch.empty_like(q)
     if B == 0:
         return out
-    _aligned(who, q, kp, vp, out)
+    nblk1 = pt.shape[1]
+    splits, bps = split_plan(B, KV, nblk1, ps)
+    stream = _stream(dev)
+    part = _scratch(dev, stream, _partials(B, KV, H, hd, splits))
+    ptrs = [t.data_ptr() for t in (q, kp, vp, ks, vs, pt, pos, out)]
+    _aligned(who, *ptrs[:3], ptrs[7])
     err = _quant_library()(
-        q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
-        vs.data_ptr(), pt.data_ptr(), pos.data_ptr(), out.data_ptr(), B, H,
-        KV, hd, ps, pt.shape[1], int(window),
-        float(hd ** -0.5 if scale is None else scale), _DTYPE_CODE[q.dtype],
-        _CODE_KIND[kp.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        *ptrs, None if part is None else part.data_ptr(), B, H, KV, hd, ps,
+        nblk1, int(window),
+        float(hd ** -0.5 if scale is None else scale), splits, bps,
+        _DTYPE_CODE[q.dtype], _CODE_KIND[kp.dtype], stream)
     if err:
         raise RuntimeError(f"paged_attention_quant kernel launch failed: "
                            f"CUDA error {err}")

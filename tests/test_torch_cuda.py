@@ -2,7 +2,11 @@
 
 Paged attention (fp32 and bf16 pools, and fp32 queries over bf16 pools),
 quantized paged attention (int8 and fp8-e4m3 codes under fp32 and bf16
-queries), the fused log-softmax gather (bf16/bf16 and fp32/bf16 through
+queries); both also at the split plan's shapes (the engine's 33-column
+table with positions up to 527, B = KV = 1, G = 16, windows that leave
+splits empty, head_dim 8, 40 and 256, pages of 4, 8 and 32 rows),
+bitwise deterministic, on two streams at once, and captured in a CUDA
+graph; the fused log-softmax gather (bf16/bf16 and fp32/bf16 through
 the TMA/wgmma kernel, fp32 h as three bf16 parts; fp32/fp32; W row-major
 and transposed; ragged tokens, depth and vocabulary strips), and
 full-sequence flash attention (fp32 and bf16; GQA groups 1, 2, 6, 7 and
@@ -163,6 +167,139 @@ def test_paged_kernel_refuses_fp32_queries_over_bf16_pools(cuda_device,
     with pytest.raises(TypeError):
         ops.paged_attention(q.bfloat16(), kp.float(), vp.float(), pt, pos)
     assert paged_attention_cuda.launches == before + 1
+
+
+# (B, H, KV, head_dim, page size, table columns, largest pos, window):
+# the split plan's shapes.  "long" is the engine's 33-column table at
+# max_seq 512 with the last row in the trash column; "b1kv1" gives one
+# (row, kv head) pair its 9 splits; "window" leaves the early splits of
+# long rows with no live position; "ps8" and "ps4" give each warp two and
+# four pages; "hd256-ps32" is the layout whose pages are cut into units of
+# 16 rows when the pools are fp32
+SPLIT_SHAPES = {
+    "long": (16, 28, 4, 128, 16, 33, 527, 0),
+    "b1kv1": (1, 7, 1, 128, 16, 33, 527, 0),
+    "g16": (4, 32, 2, 64, 16, 33, 300, 0),
+    "window": (8, 28, 4, 128, 16, 33, 527, 40),
+    "hd8": (4, 8, 2, 8, 16, 12, 180, 0),
+    "hd40-ps8": (4, 14, 2, 40, 8, 20, 150, 8),
+    "ps4-g1": (3, 4, 4, 16, 4, 40, 150, 0),
+    "hd256-ps32": (3, 14, 2, 256, 32, 10, 300, 0),
+}
+# (q dtype, pool kind, tolerance): the kernels' instances
+SPLIT_KINDS = {
+    "fp32": (torch.float32, torch.float32, 2e-5),
+    "bf16": (torch.bfloat16, torch.bfloat16, 2e-2),
+    "fp32-over-bf16": (torch.float32, torch.bfloat16, 2e-5),
+    "int8-bf16q": (torch.bfloat16, "int8", 2e-2),
+    "fp8-fp32q": (torch.float32, "fp8", 2e-5),
+}
+
+
+def split_case(kind, shape, seed, device):
+    """Inputs of one paged call at ``SPLIT_SHAPES[shape]``: distinct random
+    pages in every column but the last (the trash page), stale values
+    everywhere, rows 0 and 1 sharing their first page, positions spread up
+    to the largest.  Returns (kernel wrapper, plain version, args, window,
+    tolerance)."""
+    B, H, KV, hd, ps, nblk1, top, window = SPLIT_SHAPES[shape]
+    qdt, pool, tol = SPLIT_KINDS[kind]
+    rng = np.random.default_rng(seed)
+    P = B * (nblk1 - 1) + 1
+    q = torch.from_numpy(rng.standard_normal((B, 1, H, hd)).astype(
+        np.float32))
+    kp, vp = (torch.from_numpy(rng.standard_normal(
+        (P, ps, KV, hd)).astype(np.float32)) for _ in range(2))
+    pt = rng.permutation(P - 1)[:B * (nblk1 - 1)].reshape(B, nblk1 - 1)
+    pt[min(1, B - 1), 0] = pt[0, 0]
+    pt = np.concatenate([pt, np.full((B, 1), P - 1)], axis=1)
+    pos = np.linspace(top, 0, B).astype(np.int32)
+    pt, pos = torch.from_numpy(pt.astype(np.int32)), torch.from_numpy(pos)
+    q = q.to(device, qdt)
+    pt, pos = pt.to(device), pos.to(device)
+    if isinstance(pool, str):
+        kc, vc, ks, vs = quantize_pools(kp.to(device), vp.to(device), pool)
+        return (paged_attention_quant_cuda, paged_attention_quant_plain,
+                (q, kc, vc, ks, vs, pt, pos), window, tol)
+    return (paged_attention_cuda, paged_attention_plain,
+            (q, kp.to(device, pool), vp.to(device, pool), pt, pos), window,
+            tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(SPLIT_SHAPES))
+@pytest.mark.parametrize("kind", list(SPLIT_KINDS))
+def test_paged_kernels_split_shapes(cuda_device, kind, shape):
+    """Both redesigned kernels at every split shape, each instance of
+    theirs, against the plain versions; one launch counted per call."""
+    fn, plain, args, window, tol = split_case(kind, shape, len(shape),
+                                              cuda_device)
+    before = fn.launches
+    got = fn(*args, window=window)
+    want = plain(*args, window=window)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "fp32", "int8-bf16q"])
+@pytest.mark.parametrize("shape", ["long", "window"])
+def test_paged_kernels_are_deterministic(cuda_device, kind, shape):
+    """The partials merge in a fixed order, with no atomics: one input gives
+    bitwise the same output on every call."""
+    fn, _, args, window, _ = split_case(kind, shape, 3, cuda_device)
+    first = fn(*args, window=window)
+    for _ in range(3):
+        assert torch.equal(fn(*args, window=window), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8-bf16q"])
+def test_paged_kernels_on_two_streams(cuda_device, kind):
+    """Each stream keeps its own partials' scratch: calls in flight on two
+    streams at once, over different inputs, each match the plain version
+    (a shared scratch would mix their partials)."""
+    fn, plain, args_a, window, tol = split_case(kind, "long", 7, cuda_device)
+    _, _, args_b, _, _ = split_case(kind, "window", 8, cuda_device)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(3):
+        for stream, args in zip(streams, (args_a, args_b)):
+            with torch.cuda.stream(stream):
+                outs.append(fn(*args, window=window))
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        args = (args_a, args_b)[i % 2]
+        want = plain(*args, window=window)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol, (i, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "fp32-over-bf16", "int8-bf16q",
+                                  "fp8-fp32q"])
+def test_paged_kernels_capture_in_a_cuda_graph(cuda_device, kind):
+    """Each wrapper (the split plan, the partials' scratch and both
+    launches) records into a torch.cuda.graph: it makes no host sync and
+    allocates nothing outside the graph's pool.  A replay over new inputs
+    copied into the captured tensors equals the eager call."""
+    fn, _, args, window, _ = split_case(kind, "long", 5, cuda_device)
+    fn(*args, window=window)                  # build and load first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args, window=window)
+    _, _, fresh, _, _ = split_case(kind, "long", 6, cuda_device)
+    for dst, src in zip(args, fresh):
+        dst.copy_(src)
+    graph.replay()
+    want = fn(*args, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 @pytest.mark.cuda
