@@ -26,7 +26,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    kernel, G = 7 and 1; causal with no window and with one shorter than
    every tile, S = 1000) and the WKV6 scan (rwkv6-3b's heads at its decode,
    shared-scoring and full-sequence shapes in bf16, and a toy hd = 32 in
-   fp32; spread decays and a non-zero initial state).  Each kernel's time
+   fp32; spread decays and a non-zero initial state; then decays at the
+   model's clamp ends and mixed, B = H = 1 at T = 4096 (32 segments), the
+   in-place decode form with half the rows frozen (their state compared
+   bitwise), two calls bitwise equal, a capture into a CUDA graph and two
+   streams at once; timed with the wrapper's host time per call).  Each
+   kernel's time
    beside its bound, the plain version's time and, where one exists, one
    PyTorch library call computing the same function (a yardstick the port
    never calls).  Launches made here are not counted.
@@ -90,6 +95,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -396,9 +402,14 @@ def phase_build():
     secs = time.perf_counter() - t0
     for name, text in logs.items():
         print(f"built {name}: {build.library_path(name).name}", flush=True)
+        kernel = ""
         for line in text.splitlines():
+            if "Compiling entry function" in line:
+                # the mangled name without its file prefix and arguments
+                kernel = re.sub(r"^.*?_cu_[0-9a-f]{8}\d+", "",
+                                line.split("'")[1]).split("EEv")[0]
             if "registers" in line or "spill" in line or "error" in line:
-                print(f"  ptxas: {line.strip()}", flush=True)
+                print(f"  ptxas: {kernel}: {line.strip()}", flush=True)
     print(f"build seconds: {secs:.2f}", flush=True)
 
 
@@ -853,19 +864,133 @@ def phase_kernels_flash(torch):
             "bound_by": bound_by, "library_ms": library_ms}
 
 
-def rwkv_case(torch, *, B, T, H, hd, dtype, seed):
+# the decays' ends under models/rwkv.py:_decay's clamp of log(-log w) to
+# [-8, 4]: exp(-e^4), about 1.8e-24 a step, and exp(-e^-8), about 0.99966
+FAST_DECAY, SLOW_DECAY = math.exp(-math.exp(4.0)), math.exp(-math.exp(-8.0))
+
+
+def rwkv_case(torch, *, B, T, H, hd, dtype, seed, decays="spread"):
     """r, k, v N(0, 1) in ``dtype`` (as normed projections are about);
-    decays spread in (0.45, 0.999); u N(0, 0.3^2); a non-zero fp32
-    initial state."""
+    decays spread in (0.45, 0.999), at one clamp end (``fast``, ``slow``)
+    or ``mixed`` element by element between the two; u N(0, 0.3^2); a
+    non-zero fp32 initial state."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
     r, k, v = (randn(B, T, H, hd).to(dtype) for _ in range(3))
-    w = 0.45 + 0.549 * torch.rand((B, T, H, hd), generator=gen,
-                                  device="cuda")
+    shape = (B, T, H, hd)
+    uni = torch.rand(shape, generator=gen, device="cuda")
+    w = {"spread": lambda: 0.45 + 0.549 * uni,
+         "fast": lambda: torch.full(shape, FAST_DECAY, device="cuda"),
+         "slow": lambda: torch.full(shape, SLOW_DECAY, device="cuda"),
+         "mixed": lambda: torch.where(uni < 0.5, FAST_DECAY, SLOW_DECAY)
+         }[decays]()
     return r, k, v, w, 0.3 * randn(H, hd), 0.1 * randn(B, H, hd, hd)
+
+
+def scan_err(torch, tag, got, want):
+    """Largest error of the kernel's (out, state) against the plain
+    version's, checked against 1e-4 of each one's scale (both sides compute
+    in fp32 from the same inputs, in other summation orders)."""
+    errs, worst = [], 0.0
+    for name, g, w in zip(("out", "state"), got, want):
+        check(bool(torch.isfinite(g).all()),
+              f"rwkv6_scan {tag}: non-finite {name}")
+        err = (g - w).abs().max().item() if w.numel() else 0.0
+        scale = w.abs().max().item() if w.numel() else 0.0
+        errs.append(f"{name} max_abs_err={err:.3e} (tol 1e-4 x "
+                    f"{scale:.2f})")
+        check(err <= 1e-4 * max(scale, 1.0), f"rwkv6_scan {tag}: {name} "
+              f"error {err} over 1e-4 x {scale}")
+        worst = max(worst, err)
+    return worst, ", ".join(errs)
+
+
+def check_rwkv_forms(torch):
+    """The scan beyond phase 3's timed shapes: clamp-end and mixed decays,
+    the plan's most segments, the in-place decode form, determinism, a CUDA
+    graph and two streams.  Returns the largest error against the plain
+    version."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rwkv6_scan import (rwkv6_scan_cuda,
+                                                rwkv6_scan_plain, scan_plan)
+    worst = 0.0
+    for i, (tag, B, T, H, decays) in enumerate((
+            ("decode, mixed decays", 16, 1, 40, "mixed"),
+            ("shared scoring, fast decays", 16, 17, 40, "fast"),
+            ("full sequence, fast decays", 4, 1024, 40, "fast"),
+            ("full sequence, slow decays", 4, 1024, 40, "slow"),
+            ("full sequence, mixed decays", 4, 1024, 40, "mixed"),
+            ("one head", 1, 4096, 1, "mixed"))):
+        args = rwkv_case(torch, B=B, T=T, H=H, hd=64, dtype=torch.bfloat16,
+                         seed=600 + i, decays=decays)
+        err, text = scan_err(torch, tag, rwkv6_scan_cuda(*args),
+                             rwkv6_scan_plain(*args))
+        worst = max(worst, err)
+        print(f"rwkv6_scan {tag} B={B} T={T} H={H} hd=64 bf16 plan "
+              f"{scan_plan(B, T, H, 64)}: {text}", flush=True)
+    # the in-place decode form, half the rows frozen
+    r, k, v, w, u, s0 = rwkv_case(torch, B=16, T=1, H=40, hd=64,
+                                  dtype=torch.bfloat16, seed=610)
+    live = torch.arange(16, device="cuda") % 2 == 0
+    state = s0.clone()
+    out = ops.rwkv6_scan_(r, k, v, w, u, state, live)
+    want_out, want_s = rwkv6_scan_cuda(r, k, v, w, u, s0)
+    plain_out, plain_s = rwkv6_scan_plain(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    frozen = torch.equal(state[~live], s0[~live])
+    same = torch.equal(state[live], want_s[live]) and torch.equal(
+        out, want_out)
+    err, text = scan_err(torch, "in-place decode", (out, state), (
+        plain_out, torch.where(live[:, None, None, None], plain_s, s0)))
+    worst = max(worst, err)
+    print(f"rwkv6_scan in-place decode B=16 H=40, 8 rows frozen: frozen "
+          f"rows bitwise unchanged={frozen}, live rows and out bitwise the "
+          f"out-of-place kernel's={same}; {text}", flush=True)
+    check(frozen and same, "rwkv6_scan in-place decode: a frozen row moved "
+          "or a live row differs from the out-of-place kernel")
+    # two calls, a graph replay and two streams, at the split shape
+    args = rwkv_case(torch, B=4, T=1024, H=40, hd=64, dtype=torch.bfloat16,
+                     seed=620)
+    first = rwkv6_scan_cuda(*args)
+    again = rwkv6_scan_cuda(*args)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(first, again))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = rwkv6_scan_cuda(*args)
+    fresh = rwkv_case(torch, B=4, T=1024, H=40, hd=64, dtype=torch.bfloat16,
+                      seed=621)
+    for dst, src in zip(args, fresh):
+        dst.copy_(src)
+    graph.replay()
+    eager = rwkv6_scan_cuda(*args)
+    torch.cuda.synchronize()
+    replayed = all(torch.equal(a, b) for a, b in zip(captured, eager))
+    del graph, captured
+    sets = [fresh, rwkv_case(torch, B=2, T=600, H=40, hd=64,
+                             dtype=torch.bfloat16, seed=622)]
+    streams = [torch.cuda.Stream() for _ in sets]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(2):
+        for stream, a in zip(streams, sets):
+            with torch.cuda.stream(stream):
+                outs.append(rwkv6_scan_cuda(*a))
+    torch.cuda.synchronize()
+    for j, got in enumerate(outs):
+        err, _ = scan_err(torch, "two streams", got,
+                          rwkv6_scan_plain(*sets[j % 2]))
+        worst = max(worst, err)
+    print(f"rwkv6_scan B=4 T=1024 plan {scan_plan(4, 1024, 40, 64)}: two "
+          f"calls bitwise equal={bitwise}; a CUDA graph replay over new "
+          f"inputs bitwise the eager call={replayed}; two streams at once "
+          f"(T 1024 and 600) within 1e-4 of the plain version", flush=True)
+    check(bitwise and replayed, "rwkv6_scan: two calls or a graph replay "
+          "differ from the eager call")
+    return worst
 
 
 def bound_rwkv(r):
@@ -887,7 +1012,7 @@ def bound_rwkv(r):
 def phase_kernels_rwkv(torch):
     print("== phase 3: rwkv6_scan vs its plain version", flush=True)
     from repro_torch.kernels.rwkv6_scan import (rwkv6_scan_cuda,
-                                                rwkv6_scan_plain)
+                                                rwkv6_scan_plain, scan_plan)
     # rwkv6-3b's heads (H = 40, hd = 64, bf16 r/k/v) at its three call
     # shapes, and a toy model's (hd = 32, fp32)
     cases = [("decode (4 slots x n = 4)", 16, 1, 40, 64, torch.bfloat16),
@@ -899,23 +1024,12 @@ def phase_kernels_rwkv(torch):
     for i, (tag, B, T, H, hd, dtype) in enumerate(cases):
         args = rwkv_case(torch, B=B, T=T, H=H, hd=hd, dtype=dtype,
                          seed=400 + i)
-        out, final = rwkv6_scan_cuda(*args)
-        want_out, want_final = rwkv6_scan_plain(*args)
-        torch.cuda.synchronize()
-        errs = []
-        for name, got, want in (("out", out, want_out),
-                                ("state", final, want_final)):
-            check(bool(torch.isfinite(got).all()),
-                  f"rwkv6_scan {tag}: non-finite {name}")
-            err = (got - want).abs().max().item()
-            scale = want.abs().max().item()
-            errs.append(f"{name} max_abs_err={err:.3e} (tol 1e-4 x "
-                        f"{scale:.2f})")
-            check(err <= 1e-4 * max(scale, 1.0), f"rwkv6_scan {tag}: "
-                  f"{name} error {err} over 1e-4 x {scale}")
-            max_err = max(max_err, err)
+        err, text = scan_err(torch, tag, rwkv6_scan_cuda(*args),
+                             rwkv6_scan_plain(*args))
+        max_err = max(max_err, err)
         print(f"rwkv6_scan {tag} B={B} T={T} H={H} hd={hd} "
-              f"{str(dtype)[6:]}: " + ", ".join(errs), flush=True)
+              f"{str(dtype)[6:]} plan {scan_plan(B, T, H, hd)}: {text}",
+              flush=True)
         if dtype != torch.bfloat16:
             continue
         # time at the main paths' shapes over input sets cycled past L2
@@ -926,8 +1040,9 @@ def phase_kernels_rwkv(torch):
                 < 2 * L2_BYTES:
             sets.append(rwkv_case(torch, B=B, T=T, H=H, hd=hd, dtype=dtype,
                                   seed=500 + 10 * i + len(sets)))
-        ms, ms_host = time_ms(torch, lambda *a: rwkv6_scan_cuda(*a), sets,
-                              iters=20)
+        ms, ms_host, host_ms = time_ms(
+            torch, lambda *a: rwkv6_scan_cuda(*a), sets, iters=20,
+            enqueue=True)
         bound_ms, bound_by = bound_rwkv(args[0])
         plain = "not timed (about 6 launches a step)"
         plain_ms = None
@@ -939,7 +1054,8 @@ def phase_kernels_rwkv(torch):
               f"({len(sets)} input sets cycled past L2), device-only ms per "
               f"call: kernel {ms:.4f}, bound {bound_ms:.6f} ({bound_by}), "
               f"plain {plain}, library: no single PyTorch call computes "
-              f"WKV6; back to back from the host: kernel {ms_host:.4f}",
+              f"WKV6; back to back from the host: kernel {ms_host:.4f}; "
+              f"the wrapper's host time per call {host_ms:.4f}",
               flush=True)
         if row is None:            # the decode shape: most launches
             row = {"name": "rwkv6_scan", "route": "cuda",
@@ -947,9 +1063,9 @@ def phase_kernels_rwkv(torch):
                    "replaces": "src/repro/kernels/rwkv6_scan.py:56",
                    "launches": 0, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": None}
+                   "library_ms": None, "host_ms": host_ms}
         del sets
-    row["max_abs_err"] = max_err
+    row["max_abs_err"] = max(max_err, check_rwkv_forms(torch))
     return row
 
 
@@ -1616,13 +1732,15 @@ def phase_profile(torch, configs, gcfg):
                   f"{100 * dev_us / 1e6 / max(busy, 1e-12):5.1f}%  "
                   f"{key[:90]}", flush=True)
         # each kernel row's device kernels: the paged kernels' split and
-        # combine kernels count together
+        # combine kernels count together, and the scan's one-step, ring
+        # and fix-up kernels
         for kernel, names in (
                 ("paged_attention", ("paged_attention_kernel",
                                      "paged_attention_combine_kernel")),
                 ("paged_attention_quant", ("paged_attention_quant_",)),
                 ("logprob_gather", ("logprob_",)),
-                ("rwkv6_scan", ("rwkv6_scan_kernel",))):
+                ("rwkv6_scan", ("rwkv6_step_kernel", "rwkv6_scan_kernel",
+                                "rwkv6_scan_fixup_kernel"))):
             mine = [r for r in rows if any(n in r[2] for n in names)]
             if mine:
                 us = sum(r[0] for r in mine)

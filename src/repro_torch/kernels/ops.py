@@ -15,7 +15,9 @@ from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_quant_cuda,
                                                  paged_attention_quant_plain)
 from repro_torch.kernels.rwkv6_scan import (rwkv6_scan_cuda,
-                                            rwkv6_scan_plain)
+                                            rwkv6_scan_cuda_,
+                                            rwkv6_scan_plain,
+                                            rwkv6_scan_plain_)
 
 
 def flash_attention(q, k, v, *, causal=True, window: int = 0, scale=None):
@@ -63,3 +65,13 @@ def rwkv6_scan(r, k, v, w, u, state):
     if r.is_cuda:
         return rwkv6_scan_cuda(r, k, v, w, u, state)
     return rwkv6_scan_plain(r, k, v, w, u, state)
+
+
+def rwkv6_scan_(r, k, v, w, u, state, live=None):
+    """The in-place WKV6 recurrence of a decode step: the final state is
+    written over ``state`` (B,H,hd,hd) fp32 in the rows where ``live`` (B,)
+    bool is True (every row when None), the others keep theirs bit for
+    bit.  Returns ``out (B,T,H,hd) fp32``, computed for every row."""
+    if r.is_cuda:
+        return rwkv6_scan_cuda_(r, k, v, w, u, state, live)
+    return rwkv6_scan_plain_(r, k, v, w, u, state, live)

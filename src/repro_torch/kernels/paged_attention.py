@@ -30,7 +30,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, streams
 
 NEG = -1e30
 MAX_GROUP = 16        # query heads per kv head the kernel serves
@@ -134,29 +134,6 @@ def split_plan(B: int, KV: int, nblk1: int, ps: int) -> tuple:
     return -(-nblk1 // bps), bps
 
 
-_SCRATCH: dict = {}
-
-
-def _scratch(dev, stream, n):
-    """fp32 scratch of at least ``n`` elements for the split kernel's
-    partials, or ``None`` (a null pointer) when one split covers the table.
-
-    Calls on one stream run in order (the next call's split kernel starts
-    after this call's combine kernel), so each (device, stream) keeps one
-    buffer, grown as needed, and a call pays no allocation; another stream
-    gets its own.  Under CUDA-graph capture the scratch is allocated afresh
-    from the graph's pool, so that every captured graph owns its own."""
-    if n == 0:
-        return None
-    if torch.cuda.is_current_stream_capturing():
-        return torch.empty(n, dtype=torch.float32, device=dev)
-    buf = _SCRATCH.get((dev, stream))
-    if buf is None or buf.numel() < n:
-        buf = _SCRATCH[dev, stream] = torch.empty(n, dtype=torch.float32,
-                                                  device=dev)
-    return buf
-
-
 def _check(who, q, kp, vp, pt, pos, *, hd_multiple, scales=()):
     """The checks both kernels' wrappers make before a launch: devices,
     index dtypes, shapes, the kernels' limits, contiguity and the current
@@ -206,14 +183,6 @@ def _partials(B, KV, H, hd, splits):
     return 0 if splits == 1 else B * H * splits * (hd + 2)
 
 
-def _stream(dev):
-    """The current stream's handle, as an int.  torch.cuda.current_stream
-    builds a Stream object (about 5 microseconds of host time on the H100
-    machines, a third of this wrapper's); the raw getter, which PyTorch's
-    own Triton launchers use, does not."""
-    return torch._C._cuda_getCurrentRawStream(dev)
-
-
 def _library():
     lib = build.load("paged_attention")
     fn = lib.paged_attention_fwd
@@ -248,8 +217,8 @@ def paged_attention_cuda(q, kp, vp, pt, pos, *, window: int = 0,
         return out
     nblk1 = pt.shape[1]
     splits, bps = split_plan(B, KV, nblk1, ps)
-    stream = _stream(dev)
-    part = _scratch(dev, stream, _partials(B, KV, H, hd, splits))
+    stream = streams.current(dev)
+    part = streams.scratch(dev, stream, _partials(B, KV, H, hd, splits))
     ptrs = [t.data_ptr() for t in (q, kp, vp, pt, pos, out)]
     _aligned(who, *ptrs[:3], ptrs[5])
     err = _library()(
@@ -304,8 +273,8 @@ def paged_attention_quant_cuda(q, kp, vp, ks, vs, pt, pos, *,
         return out
     nblk1 = pt.shape[1]
     splits, bps = split_plan(B, KV, nblk1, ps)
-    stream = _stream(dev)
-    part = _scratch(dev, stream, _partials(B, KV, H, hd, splits))
+    stream = streams.current(dev)
+    part = streams.scratch(dev, stream, _partials(B, KV, H, hd, splits))
     ptrs = [t.data_ptr() for t in (q, kp, vp, ks, vs, pt, pos, out)]
     _aligned(who, *ptrs[:3], ptrs[7])
     err = _quant_library()(

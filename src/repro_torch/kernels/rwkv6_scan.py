@@ -10,20 +10,40 @@ step t::
   (and the model's ``_wkv_scan``): the sequential recurrence in fp32, one
   step at a time.  The CPU path, and the yardstick the kernel is held to.
 * :func:`rwkv6_scan_cuda` launches ``csrc/rwkv6_scan.cu`` (the Hopper
-  kernel that replaces ``rwkv6_scan_pallas``) and counts its launches in
-  ``rwkv6_scan_cuda.launches``.  It is forward-only: an input that requires
-  a gradient raises, since no backward kernel exists.
+  kernel that replaces ``rwkv6_scan_pallas``) and counts its calls in
+  ``rwkv6_scan_cuda.launches``: one per call, whether the C entry point
+  ran its scan kernel alone or with the fix-up kernel.  It is
+  forward-only: an input that requires a gradient raises, since no
+  backward kernel exists.
+* :func:`rwkv6_scan_plain_` and :func:`rwkv6_scan_cuda_` are the in-place
+  forms a decode step uses: the new state is written over ``state`` in the
+  rows where ``live`` is True, and the other rows keep theirs bit for bit.
+* :func:`scan_plan` is the host's half of the kernel's split of long
+  sequences across blocks: how many segments, of how many steps, from the
+  shapes alone, so that no call reads a tensor's values on the host.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, streams
 
 HEAD_DIMS = (32, 64)          # the kernel's template instances
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# The plan: blocks of (row, head, segment) wanted at hd 64, about four
+# scan blocks a SM of an H100 (132 SMs): with five (the most that its
+# registers allow) a T = 1024 call of 4 x 40 heads ran slower than with
+# four, in chip runs of several plans; twice as many at hd 32, whose
+# blocks are half the size.
+# Segments shorter than MIN_SEGMENT steps cost more in the fix-up than
+# their parallelism buys; MAX_SEGMENTS bounds the fix-up's chain (segment
+# j chains j boundary states).
+WANT_BLOCKS = 4 * 132
+MIN_SEGMENT = 32
+MAX_SEGMENTS = 32
 
 
 def rwkv6_scan_plain(r, k, v, w, u, state):
@@ -44,30 +64,62 @@ def rwkv6_scan_plain(r, k, v, w, u, state):
     return torch.stack(outs, dim=1), S
 
 
+def rwkv6_scan_plain_(r, k, v, w, u, state, live=None):
+    """:func:`rwkv6_scan_plain` writing the final state over ``state``
+    (fp32) where ``live`` (B,) bool is True, or in every row when it is
+    None, with ``torch.where`` semantics (``repro``'s ``_freeze``).
+    Returns ``out``."""
+    out, S = rwkv6_scan_plain(r, k, v, w, u, state)
+    if live is not None:
+        S = torch.where(live.reshape(-1, 1, 1, 1), S, state)
+    state.copy_(S)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def scan_plan(B: int, T: int, H: int, hd: int) -> tuple:
+    """``(segments, seg_len)``: the T steps of every (row, head) are cut
+    into ``segments`` runs of ``seg_len`` steps (the last may be shorter,
+    none is empty), one block of the scan kernel's grid per (row, head,
+    segment).  A pure function of the shapes.
+
+    One segment when B * H already fills the card or T is short: the
+    decode step (B 16 x H 40, T 1) and shared scoring (T 17) of
+    rwkv6-3b.  Otherwise as many as keep B * H * segments within
+    ``WANT_BLOCKS`` (x 64 / hd), one wave of blocks, within
+    ``MIN_SEGMENT`` steps a segment and ``MAX_SEGMENTS``: a full sequence
+    of B 4 x H 40, T 1024 runs in 3 segments of 342 steps."""
+    want = WANT_BLOCKS * 64 // hd
+    pairs = B * H
+    if pairs * 2 > want or T < 2 * MIN_SEGMENT:
+        return 1, T
+    segs = min(MAX_SEGMENTS, T // MIN_SEGMENT, want // pairs)
+    seg_len = -(-T // segs)
+    return -(-T // seg_len), seg_len
+
+
 def _library():
     lib = build.load("rwkv6_scan")
     fn = lib.rwkv6_scan_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def rwkv6_scan_cuda(r, k, v, w, u, state):
-    """Launch the CUDA kernel on the current stream; same contract as
-    :func:`rwkv6_scan_plain`.  r, k and v are float32 or bfloat16 of one
-    dtype; w, u and state float32; hd is 32 or 64.  Inputs are made
-    contiguous; the final state goes to a fresh buffer.  Raises on anything
-    the kernel does not take, on an input that requires a gradient, and on
-    a failed launch."""
-    who = "rwkv6_scan_cuda"
+def _check(who, r, k, v, w, u, state, live):
+    """Devices, gradients, dtypes, shapes and the current device; raises
+    on anything the kernel does not take.  Returns the device's index."""
     named = (("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
-             ("state", state))
-    for name, t in named:
-        if not t.is_cuda or t.device != r.device:
-            raise ValueError(f"{who}: {name} must be on {r.device} (CUDA), "
-                             f"got {t.device}")
+             ("state", state)) + ((("live", live),) if live is not None
+                                  else ())
+    dev = r.get_device()                       # -1 off the card
+    if dev < 0 or any(t.get_device() != dev for _, t in named):
+        name, t = next((n, t) for n, t in named
+                       if not t.is_cuda or t.device != r.device)
+        raise ValueError(f"{who}: {name} must be on {r.device} (CUDA), "
+                         f"got {t.device}")
     if any(t.requires_grad for _, t in named):
         raise RuntimeError(f"{who} is forward-only (no backward kernel): "
                            f"call it under torch.no_grad() on tensors that "
@@ -80,35 +132,86 @@ def rwkv6_scan_cuda(r, k, v, w, u, state):
             or state.dtype != torch.float32:
         raise TypeError(f"{who}: w, u and state must be float32, got "
                         f"{w.dtype}, {u.dtype}, {state.dtype}")
+    if live is not None and live.dtype != torch.bool:
+        raise TypeError(f"{who}: live must be bool, got {live.dtype}")
     if r.dim() != 4:
         raise ValueError(f"{who}: r must be (B,T,H,hd), got "
                          f"{tuple(r.shape)}")
     B, T, H, hd = r.shape
     if k.shape != r.shape or v.shape != r.shape or w.shape != r.shape \
-            or u.shape != (H, hd) or state.shape != (B, H, hd, hd):
-        raise ValueError(f"{who}: bad shapes r {tuple(r.shape)} k "
-                         f"{tuple(k.shape)} v {tuple(v.shape)} w "
-                         f"{tuple(w.shape)} u {tuple(u.shape)} state "
-                         f"{tuple(state.shape)}")
+            or u.shape != (H, hd) or state.shape != (B, H, hd, hd) \
+            or (live is not None and live.shape != (B,)):
+        raise ValueError(f"{who}: bad shapes " + " ".join(
+            f"{name} {tuple(t.shape)}" for name, t in named))
     if hd not in HEAD_DIMS:
         raise ValueError(f"{who}: head dim {hd} not in {HEAD_DIMS}")
-    out = torch.empty((B, T, H, hd), dtype=torch.float32, device=r.device)
-    final = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
-    if B == 0 or H == 0:
-        return out, final
-    if r.device.index != torch.cuda.current_device():
+    if dev != torch.cuda.current_device():
         raise ValueError(f"{who}: tensors on {r.device} but the current "
                          f"device is cuda:{torch.cuda.current_device()}")
-    r, k, v, w, u, state = (t.contiguous() for t in (r, k, v, w, u, state))
-    err = _library()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                     u.data_ptr(), state.data_ptr(), out.data_ptr(),
-                     final.data_ptr(), B, T, H, hd, _DTYPE_CODE[r.dtype],
-                     torch.cuda.current_stream(r.device).cuda_stream)
+    return dev
+
+
+def _ready(t):
+    """Contiguous and 16-byte aligned (the kernel's vector loads and
+    stores): a contiguous view at an odd offset is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(who, r, k, v, w, u, state, final, live):
+    """Run the kernel(s) from ``state`` into ``final`` (``state`` itself for
+    the in-place form) under :func:`scan_plan`'s plan; returns ``out``."""
+    dev = _check(who, r, k, v, w, u, state, live)
+    B, T, H, hd = r.shape
+    out = torch.empty((B, T, H, hd), dtype=torch.float32, device=r.device)
+    if B == 0 or H == 0:
+        return out
+    segs, seg_len = scan_plan(B, T, H, hd)
+    r, k, v, w = (_ready(t) for t in (r, k, v, w))
+    u = u.contiguous()
+    stream = streams.current(dev)
+    part = streams.scratch(dev, stream,
+                           0 if segs == 1 else B * H * segs * (hd + 1) * hd)
+    err = _library()(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        state.data_ptr(), out.data_ptr(), final.data_ptr(),
+        None if live is None else live.data_ptr(),
+        None if part is None else part.data_ptr(), B, T, H, hd,
+        _DTYPE_CODE[r.dtype], segs, seg_len, stream)
     if err:
         raise RuntimeError(f"rwkv6_scan kernel launch failed: CUDA error "
                            f"{err}")
     rwkv6_scan_cuda.launches += 1
+    return out
+
+
+def rwkv6_scan_cuda(r, k, v, w, u, state):
+    """Launch the CUDA kernel on the current stream; same contract as
+    :func:`rwkv6_scan_plain`.  r, k and v are float32 or bfloat16 of one
+    dtype; w, u and state float32; hd is 32 or 64.  Inputs are made
+    contiguous; the final state goes to a fresh buffer.  Raises on
+    anything the kernel does not take, on an input that requires a
+    gradient, and on a failed launch."""
+    final = torch.empty(state.shape, dtype=torch.float32,
+                        device=state.device)
+    out = _launch("rwkv6_scan_cuda", r, k, v, w, u, _ready(state), final,
+                  None)
     return out, final
+
+
+def rwkv6_scan_cuda_(r, k, v, w, u, state, live=None):
+    """The in-place form of :func:`rwkv6_scan_cuda`: the final state is
+    written over ``state`` (contiguous float32) in the rows where ``live``
+    (B,) bool is True, or every row when it is None; the other rows keep
+    their state bit for bit.  Returns ``out``; counts on
+    ``rwkv6_scan_cuda.launches``."""
+    who = "rwkv6_scan_cuda_"
+    if not state.is_contiguous() or state.data_ptr() % 16:
+        raise ValueError(f"{who}: state must be contiguous and 16-byte "
+                         f"aligned (it is written in place)")
+    if live is not None:
+        live = live.contiguous()
+    return _launch(who, r, k, v, w, u, state, state, live)
 
 
 rwkv6_scan_cuda.launches = 0

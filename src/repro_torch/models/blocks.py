@@ -68,7 +68,8 @@ def block_apply(cfg, kind: str, p, x, *, mode: str, positions, freqs,
     is ignored, as in the reference).  ``rwkv`` runs from ``cache`` (zeros
     when None); ``train`` returns no state, ``prefill`` the new state, and
     ``decode`` writes the new state into ``cache`` in place, keeping the
-    old one in rows where ``live`` (B,) is False.
+    old one in rows where ``live`` (B,) is False: the scan writes the
+    ``wkv`` leaf itself, and the two token-shift leaves are frozen here.
 
     ``p`` maps ``ln1``, ``ln2`` and ``attn``/``ffn`` or ``tm``/``cm`` to
     the block's weights.
@@ -76,12 +77,14 @@ def block_apply(cfg, kind: str, p, x, *, mode: str, positions, freqs,
     if kind == "rwkv":
         state = cache if cache is not None else rwkv.init_rwkv_state(
             cfg, x.shape[0], x.device)
-        x, new = rwkv.rwkv_block(cfg, p, x, state)
+        decode = mode == "decode"
+        x, new = rwkv.rwkv_block(cfg, p, x, state, live,
+                                 wkv_in_place=decode)
         if mode == "train":
             return x, None
-        if mode == "decode":
-            for k, leaf in cache.items():
-                leaf.copy_(_freeze(live, new[k], leaf))
+        if decode:
+            for k in ("tm_prev", "cm_prev"):
+                cache[k].copy_(_freeze(live, new[k], cache[k]))
             return x, cache
         return x, new
     h = rms_norm(x, p["ln1"], cfg.norm_eps)

@@ -9,8 +9,13 @@ output before casting back.
 
 State per layer: the time-mix shift ``tm_prev`` (B,d), the WKV state
 ``wkv`` (B,H,hd,hd) fp32 and the channel-mix shift ``cm_prev`` (B,d).
-The functions here are pure: they return a new state dict, and the decode
-path in ``blocks`` writes it into the cache in place.
+The functions here return a new state dict, and the decode path in
+``blocks`` writes it into the cache in place.  With ``wkv_in_place`` (the
+decode path) the scan itself writes the new WKV state over the cache's
+``wkv`` leaf, in the rows where ``live`` is True, and the dict returned
+holds that leaf: a decode step moves the 10.5 MB state of rwkv6-3b's 16
+rows once a layer instead of through a fresh buffer, a ``where`` and a
+copy.
 
 **The scan runs through ``ops.rwkv6_scan`` for every T, T = 1 included.**
 The reference calls its Pallas kernel only when T > 1 and leaves a decode
@@ -115,8 +120,9 @@ def _decay(p, xw):
     return torch.exp(log_w)
 
 
-def time_mix(cfg, p, x, state):
-    """x: (B,T,d).  Returns ``(y, new_state)``."""
+def time_mix(cfg, p, x, state, live=None, *, wkv_in_place=False):
+    """x: (B,T,d).  Returns ``(y, new_state)``; with ``wkv_in_place`` the
+    scan writes ``state["wkv"]`` in place under ``live`` (B,) bool."""
     B, T, d = x.shape
     H, hd = cfg.num_heads, cfg.rwkv_head_dim
     sx = _shift(state["tm_prev"], x)
@@ -128,7 +134,11 @@ def time_mix(cfg, p, x, state):
     g = torch.nn.functional.silu(matmul(xg, p["wg"]))
     w = _decay(p, xw).reshape(B, T, H, hd)
     u = p["bonus_u"].float()
-    out, S = ops.rwkv6_scan(r, k, v, w, u, state["wkv"])
+    if wkv_in_place:
+        S = state["wkv"]
+        out = ops.rwkv6_scan_(r, k, v, w, u, S, live)
+    else:
+        out, S = ops.rwkv6_scan(r, k, v, w, u, state["wkv"])
 
     # per-head group norm on the fp32 scan output
     mean2 = torch.mean(out * out, dim=-1, keepdim=True)
@@ -152,11 +162,12 @@ def channel_mix(cfg, p, x, state):
     return y, new_state
 
 
-def rwkv_block(cfg, p, x, state):
+def rwkv_block(cfg, p, x, state, live=None, *, wkv_in_place=False):
     """One block over x (B,T,d) from ``state``; returns ``(x, new_state)``.
-    ``p`` maps ``ln1``, ``ln2``, ``tm`` and ``cm`` to the block's weights."""
+    ``p`` maps ``ln1``, ``ln2``, ``tm`` and ``cm`` to the block's weights;
+    ``live`` and ``wkv_in_place`` go to :func:`time_mix`."""
     h, state = time_mix(cfg, p["tm"], rms_norm(x, p["ln1"], cfg.norm_eps),
-                        state)
+                        state, live, wkv_in_place=wkv_in_place)
     x = x + h
     h, state = channel_mix(cfg, p["cm"], rms_norm(x, p["ln2"], cfg.norm_eps),
                            state)

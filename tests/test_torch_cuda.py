@@ -15,7 +15,11 @@ kernel; windows shorter and longer than the key tile; ragged Sq and Sk,
 Sk > Sq non-causal), which refuses inputs that require a gradient, and
 the WKV6 scan
 (head dims 32 and 64; T = 1, 17 and 1000; bf16 and fp32 r/k/v; spread
-decays and a non-zero initial state), which refuses other head dims and
+decays and a non-zero initial state; decays at the model's clamp ends and
+mixed; B = H = 1 at T = 4096, many segments; forced plans down to
+one-step segments; the in-place decode form with half the rows frozen,
+their state bitwise unchanged; bitwise deterministic, on two streams at
+once, and captured in a CUDA graph), which refuses other head dims and
 inputs that require a gradient.  A toy model's ``score`` on the card
 launches the flash kernel once per layer and the gather once; a toy RWKV
 model's ``score`` and ``decode_step`` launch the scan once per layer.
@@ -37,7 +41,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops, quant
+from repro_torch.kernels import ops, quant, rwkv6_scan
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.logprob_gather import (logprob_gather_cuda,
@@ -46,7 +50,9 @@ from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain,
                                                  paged_attention_quant_cuda,
                                                  paged_attention_quant_plain)
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda, rwkv6_scan_plain
+from repro_torch.kernels.rwkv6_scan import (rwkv6_scan_cuda,
+                                            rwkv6_scan_cuda_,
+                                            rwkv6_scan_plain, scan_plan)
 
 
 @pytest.fixture
@@ -479,14 +485,25 @@ def test_model_score_runs_flash_per_layer_and_one_gather(cuda_device):
     assert err <= 1e-4 * max(want.abs().max().item(), 1.0), err
 
 
-def scan_case(seed, *, B, T, H, hd, dtype, device):
-    """r, k, v N(0, 1) in ``dtype``; decays spread in (0.45, 0.999);
-    u N(0, 0.3^2); a non-zero initial state."""
+FAST_DECAY = float(np.exp(-np.exp(4.0)))    # the clamp's ends in _decay
+SLOW_DECAY = float(np.exp(-np.exp(-8.0)))
+
+
+def scan_case(seed, *, B, T, H, hd, dtype, device, decays="spread"):
+    """r, k, v N(0, 1) in ``dtype``; decays spread in (0.45, 0.999), at
+    one of the model's clamp ends (``fast`` about 1.8e-24, ``slow`` about
+    0.99966) or ``mixed`` element by element between them; u N(0, 0.3^2);
+    a non-zero initial state."""
     rng = np.random.default_rng(seed)
     r, k, v = (torch.from_numpy(rng.standard_normal((B, T, H, hd)).astype(
         np.float32)).to(device, dtype) for _ in range(3))
-    w = torch.from_numpy((0.45 + 0.549 * rng.uniform(size=(B, T, H, hd)))
-                         .astype(np.float32)).to(device)
+    shape = (B, T, H, hd)
+    w = {"spread": lambda: 0.45 + 0.549 * rng.uniform(size=shape),
+         "fast": lambda: np.full(shape, FAST_DECAY),
+         "slow": lambda: np.full(shape, SLOW_DECAY),
+         "mixed": lambda: np.where(rng.uniform(size=shape) < 0.5, FAST_DECAY,
+                                   SLOW_DECAY)}[decays]()
+    w = torch.from_numpy(w.astype(np.float32)).to(device)
     u = torch.from_numpy((0.3 * rng.standard_normal((H, hd))).astype(
         np.float32)).to(device)
     s0 = torch.from_numpy((0.1 * rng.standard_normal((B, H, hd, hd)))
@@ -514,6 +531,153 @@ def test_rwkv6_scan_kernel_matches_plain(cuda_device, dtype, T, hd):
     for got, want in ((out, want_out), (sT, want_s)):
         err = (got - want).abs().max().item()
         assert err <= 1e-4 * max(want.abs().max().item(), 1.0), err
+
+
+def assert_scan_close(got, want):
+    """Both sides compute in fp32 from the same inputs and differ in
+    summation order: 1e-4 of each output's largest magnitude."""
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        err = (g - w).abs().max().item() if w.numel() else 0.0
+        scale = w.abs().max().item() if w.numel() else 0.0
+        assert err <= 1e-4 * max(scale, 1.0), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decays", ["fast", "slow", "mixed"])
+@pytest.mark.parametrize("B,T,H", [(16, 1, 40), (16, 17, 40), (4, 1024, 40)])
+def test_rwkv6_scan_kernel_clamp_end_decays(cuda_device, decays, B, T, H):
+    """rwkv6-3b's three call shapes (bf16 r/k/v, hd 64) at the decays'
+    clamp ends: the split's decay products underflow to zero at the fast
+    end, and at the slow end the state carries across every segment."""
+    args = scan_case(B + T, B=B, T=T, H=H, hd=64, dtype=torch.bfloat16,
+                     device=cuda_device, decays=decays)
+    got = ops.rwkv6_scan(*args)
+    assert_scan_close(got, rwkv6_scan_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_kernel_long_single_head(cuda_device, dtype):
+    """B = H = 1, T = 4096: the plan's most segments (32 of 128 steps)."""
+    args = scan_case(4096, B=1, T=4096, H=1, hd=64, dtype=dtype,
+                     device=cuda_device, decays="mixed")
+    assert scan_plan(1, 4096, 1, 64) == (32, 128)
+    assert_scan_close(ops.rwkv6_scan(*args), rwkv6_scan_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [(40, 1), (7, 6), (2, 39), (1, 40)])
+@pytest.mark.parametrize("hd", [32, 64])
+def test_rwkv6_scan_kernel_forced_plans(cuda_device, monkeypatch, plan,
+                                        hd):
+    """T = 40 under other plans (forced in place of ``scan_plan``'s):
+    one-step segments, a short last segment, one segment."""
+    args = scan_case(40 + hd, B=2, T=40, H=3, hd=hd, dtype=torch.float32,
+                     device=cuda_device, decays="mixed")
+    monkeypatch.setattr(rwkv6_scan, "scan_plan", lambda *shape: plan)
+    got = rwkv6_scan_cuda(*args)
+    assert_scan_close(got, rwkv6_scan_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,plan", [(1, None), (17, None), (0, None),
+                                    (300, None), (300, (1, 300))])
+def test_rwkv6_scan_kernel_in_place_freezes_rows(cuda_device, monkeypatch,
+                                                 T, plan):
+    """The decode form: half the rows frozen keep their state bit for bit,
+    the live rows get the out-of-place kernel's state (bitwise), and
+    ``out`` is computed for every row.  ``plan``, when given, is forced in
+    place of ``scan_plan``'s."""
+    r, k, v, w, u, s0 = scan_case(T + 7, B=16, T=T, H=4, hd=64,
+                                  dtype=torch.bfloat16, device=cuda_device)
+    live = torch.arange(16, device=cuda_device) % 2 == 0
+    if plan is not None:
+        monkeypatch.setattr(rwkv6_scan, "scan_plan", lambda *shape: plan)
+    want_out, want_s = rwkv6_scan_cuda(r, k, v, w, u, s0)
+    state = s0.clone()
+    before = rwkv6_scan_cuda.launches
+    if plan is None:
+        out = ops.rwkv6_scan_(r, k, v, w, u, state, live)
+    else:
+        out = rwkv6_scan_cuda_(r, k, v, w, u, state, live)
+    torch.cuda.synchronize()
+    assert rwkv6_scan_cuda.launches == before + 1
+    assert torch.equal(out, want_out)
+    assert torch.equal(state[~live], s0[~live])
+    assert torch.equal(state[live], want_s[live])
+    plain_out, plain_s = rwkv6_scan_plain(r, k, v, w, u, s0)
+    assert_scan_close((out, state), (plain_out, torch.where(
+        live[:, None, None, None], plain_s, s0)))
+    state2 = s0.clone()
+    rwkv6_scan_cuda_(r, k, v, w, u, state2, None)
+    assert torch.equal(state2, want_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(16, 1), (16, 17), (4, 1024)])
+def test_rwkv6_scan_kernel_is_deterministic(cuda_device, B, T):
+    """Fixed orders and no atomics: two calls on one input are bitwise
+    equal, the split ones (T = 1024) included."""
+    args = scan_case(T, B=B, T=T, H=40, hd=64, dtype=torch.bfloat16,
+                     device=cuda_device)
+    first = rwkv6_scan_cuda(*args)
+    for _ in range(2):
+        again = rwkv6_scan_cuda(*args)
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1], first[1])
+
+
+@pytest.mark.cuda
+def test_rwkv6_scan_kernel_on_two_streams(cuda_device):
+    """Each stream keeps its own segment scratch: split calls in flight on
+    two streams at once, over different inputs, each match the plain
+    version."""
+    sets = [scan_case(50 + i, B=2, T=600, H=4, hd=64, dtype=torch.bfloat16,
+                      device=cuda_device) for i in range(2)]
+    assert scan_plan(2, 600, 4, 64)[0] > 1
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(3):
+        for stream, args in zip(streams, sets):
+            with torch.cuda.stream(stream):
+                outs.append(rwkv6_scan_cuda(*args))
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        assert_scan_close(got, rwkv6_scan_plain(*sets[i % 2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 1024])
+def test_rwkv6_scan_kernel_captures_in_a_cuda_graph(cuda_device, T):
+    """The wrapper (the plan, the scratch, both launches; the in-place
+    form too) records into a torch.cuda.graph: no host sync, nothing
+    allocated outside the graph's pool.  A replay over new inputs copied
+    into the captured tensors equals the eager call."""
+    B = 16 if T == 1 else 4
+    args = scan_case(T, B=B, T=T, H=40, hd=64, dtype=torch.bfloat16,
+                     device=cuda_device)
+    live = torch.arange(B, device=cuda_device) % 3 != 0
+    state = args[5].clone()
+    rwkv6_scan_cuda(*args)                  # build and load first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, final = rwkv6_scan_cuda(*args)
+        out_ = ops.rwkv6_scan_(*args[:5], state, live)
+    fresh = scan_case(T + 1, B=B, T=T, H=40, hd=64, dtype=torch.bfloat16,
+                      device=cuda_device)
+    for dst, src in zip(args, fresh):
+        dst.copy_(src)
+    state.copy_(fresh[5])
+    graph.replay()
+    want_out, want_final = rwkv6_scan_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want_out) and torch.equal(final, want_final)
+    assert torch.equal(out_, want_out)
+    assert torch.equal(state, torch.where(live[:, None, None, None],
+                                          want_final, fresh[5]))
 
 
 @pytest.mark.cuda
