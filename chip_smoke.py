@@ -40,14 +40,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    the continuous-batching scheduler: (a) 6 requests on 4 slots over bf16
    pages at a threshold among the selected tilted rewards, so that it both
    accepts draft candidates and falls back (both counted and required),
-   (b) a short run whose threshold no tilted reward can reach, so the
-   target fallback must run, and (c) 5 requests over int8 pages with shared
-   scoring and the draft's weights rounded through int8.  Then run
+   (d) run (a) again through the pipelined scheduler (``sync=False``, the
+   CLI's default), whose tokens, finish reasons, engine steps, accepted
+   and decision counts, prefix counters and paged-attention launches must
+   equal (a)'s bit for bit, with host work overlapping a step
+   (``pipeline_stats``), (b) a short run whose threshold no tilted reward
+   can reach, so the target fallback must run, and (c) 5 requests over
+   int8 pages with shared scoring and the draft's weights rounded through
+   int8.  Then run
    score-prm, at full depth: the sequences (a) finished go through
    target.prefill, target.score, draft.score and PRM.reward_at_end, and
    each result is held against the decode path (teacher-forced paged
    decode_step) on the same tokens.  Every kernel launch counter is zeroed
-   just before each run and read just after: in (a) and (b) every paged
+   just before each run and read just after: in (a), (d) and (b) every paged
    attention call launched the bf16 kernel; in (c) every one launched the
    quantized kernel and the vocab gather ran twice per draft phase; in
    score-prm the flash kernel ran once per layer of every full-sequence
@@ -75,10 +80,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    commits the CPU's tokens, its forward, score, prefill state and rewards
    matching the CPU's.
 5. profile — one engine step of (a) (at threshold 0.5, as it was profiled
-   before it had its own threshold), of (c)
-   and of gsi-rwkv-shared, and one score-prm batch, under
-   ``torch.profiler`` (device activity only); a paged kernel's row counts
-   its split and combine kernels together.
+   before it had its own threshold) and of (c), then two consecutive
+   pipelined dispatches of (a)'s configuration (after the first, the
+   window pump, dispatch, pump), one score-prm batch and one engine step of
+   gsi-rwkv-shared, under ``torch.profiler`` (device activity only; each
+   with the device's busy and idle share); a paged kernel's row counts its
+   split and combine kernels together.
 
 The line before the last is ``{"kernels": [...]}``: every ported kernel
 with its largest error in phase 3, its timings and its launch count from the
@@ -86,8 +93,8 @@ phase-4 run(s) of its path (the gather's row also carries its fp32-h
 timings under ``fp32_h_*``, the paged rows their long-context timings
 under ``long_*`` and the wrapper's host time per call under ``host_ms``).
 The last line is ``{"ok": true, "device": {...}}``.  ``--layers`` cuts
-the depth of runs (a) and (b) (never a width, never run (c), score-prm or
-the RWKV runs) and says so on a ``reduced:`` line.
+the depth of runs (a), (d) and (b) (never a width, never run (c),
+score-prm or the RWKV runs) and says so on a ``reduced:`` line.
 """
 from __future__ import annotations
 
@@ -1113,10 +1120,11 @@ def only(launches, **want):
     return all(n == want.get(k, 0) for k, n in launches.items())
 
 
-def serve_run(torch, name, cfgs, params, g, count, seed, acc, **kw):
+def serve_run(torch, name, cfgs, params, g, count, seed, acc, sync=True,
+              **kw):
     """Serve ``count`` requests through a fresh engine (paged unless ``kw``
-    says otherwise) with every launch counter zeroed just before and read
-    just after; returns the result."""
+    says otherwise), lock-step or pipelined (``sync``), with every launch
+    counter zeroed just before and read just after; returns the result."""
     from repro_torch.launch import serve
     from repro_torch.serving import GSIServingEngine, gsi_engine
     from repro_torch.models import scoring
@@ -1159,7 +1167,7 @@ def serve_run(torch, name, cfgs, params, g, count, seed, acc, **kw):
     for fn in wrappers.values():
         fn.launches = 0
     try:
-        res = serve.serve(engine, prompts, capacity=4, seed=seed)
+        res = serve.serve(engine, prompts, capacity=4, seed=seed, sync=sync)
     finally:
         scoring.ops.logprob_gather = gather
         gsi_engine.score_candidates = score_candidates
@@ -1216,6 +1224,44 @@ def report_run(name, res, rec, vocab):
           f"{name}: PRM rewards not finite in [0,1]")
 
 
+def fmt_stats(stats):
+    """``pipeline_stats()`` on one line: every key, floats to 4 places."""
+    return ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                     for k, v in stats.items())
+
+
+def check_pipelined(sync, pipe):
+    """Run gsi-async against run gsi: the same tokens, finish reasons,
+    engine steps, decisions and prefix counters, bit for bit, and the same
+    paged-attention launches; the pipeline overlapped host work."""
+    def outcome(res):
+        st = res["stats"]
+        return ({r: (res["responses"][r].tokens.tolist(),
+                     res["responses"][r].finish_reason,
+                     res["responses"][r].engine_steps) for r in res["ids"]},
+                res["steps"], st.accepted, st.decisions, st.draft_tokens,
+                st.target_tokens, res["prefix"])
+
+    stats = pipe["pipeline"]
+    print(f"run gsi-async against run gsi (one process): tokens/s "
+          f"{pipe['tokens_per_s']:.2f} vs {sync['tokens_per_s']:.2f}, wall "
+          f"{pipe['wall_s']:.2f} s vs {sync['wall_s']:.2f} s, engine steps "
+          f"{pipe['steps']} vs {sync['steps']}; pipeline_stats "
+          + fmt_stats(stats), flush=True)
+    check(outcome(pipe) == outcome(sync),
+          "gsi-async: tokens, finish reasons, engine steps, decisions or "
+          "prefix counters differ from run gsi's")
+    check(pipe["launches"]["paged_attention"]
+          == sync["launches"]["paged_attention"],
+          f"gsi-async: {pipe['launches']['paged_attention']} paged launches"
+          f", run gsi {sync['launches']['paged_attention']}")
+    check(stats["sync"] is False and stats["overlap_host_s"] > 0,
+          f"gsi-async: no host work overlapped a step ({stats})")
+    print("run gsi-async: tokens, finish reasons, engine steps, accepted "
+          "and decision counts, prefix stats and paged launches identical "
+          "to run gsi", flush=True)
+
+
 def phase_main(torch, layers):
     print("== phase 4: main paths at full Qwen2.5-Math width", flush=True)
     from repro_torch.config import GSIConfig
@@ -1225,7 +1271,8 @@ def phase_main(torch, layers):
     full = serve.build_triple("qwen2.5-math")
     cfgs = serve.build_triple("qwen2.5-math", layers=layers)
     if layers and layers < full[0].num_layers:
-        print(f"reduced: runs gsi and gsi-forced-fallback cut to {layers} "
+        print(f"reduced: runs gsi, gsi-async and gsi-forced-fallback cut "
+              f"to {layers} "
               f"layers in all three models (published "
               f"{full[0].num_layers}); widths unchanged; run gsi-int8-shared"
               f" at full depth", flush=True)
@@ -1244,11 +1291,15 @@ def phase_main(torch, layers):
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
     gcfg = GSIConfig(n=4, beta=20.0, threshold_u=0.5, temperature=0.7,
                      max_step_tokens=16, max_steps=4, min_step_reward=0.0)
-    # (name, triple, gsi config, requests, seed, engine options); the
-    # bf16-page runs may be cut in depth, the int8 run never is
+    # (name, triple, gsi config, requests, seed, options); the bf16-page
+    # runs may be cut in depth, the int8 run never is
     runs = [("gsi", cfgs, cut,
              dataclasses.replace(gcfg, threshold_u=QWEN_THRESHOLD), 6, 0,
              {}),
+            # run gsi again through the pipelined scheduler
+            ("gsi-async", cfgs, cut,
+             dataclasses.replace(gcfg, threshold_u=QWEN_THRESHOLD), 6, 0,
+             {"sync": False}),
             # no tilted reward reaches 1e9: every row rejects, the
             # target fallback must run
             ("gsi-forced-fallback", cfgs, cut,
@@ -1268,7 +1319,7 @@ def phase_main(torch, layers):
     def paged_layer_calls(name):
         return sum(r["layers"] * r["paged_calls"] for r in acc[name].values())
 
-    for name in ("gsi", "gsi-forced-fallback"):
+    for name in ("gsi", "gsi-async", "gsi-forced-fallback"):
         got, want = results[name]["launches"], paged_layer_calls(name)
         check(want > 0 and only(got, paged_attention=want),
               f"{name}: launches {got}; want paged_attention = layers x "
@@ -1299,6 +1350,7 @@ def phase_main(torch, layers):
     check(bool(layers) or 0 < stats.accepted < stats.decisions,
           f"gsi: {stats.accepted} of {stats.decisions} decisions accepted; "
           f"the run must take both the accept and the fallback branch")
+    check_pipelined(results["gsi"], results["gsi-async"])
     fallback = results["gsi-forced-fallback"]
     check(fallback["target_tokens"] > 0 and fallback["accept_rate"] == 0.0,
           "forced-fallback run: the target fallback did not run")
@@ -1321,7 +1373,8 @@ def phase_main(torch, layers):
           flush=True)
     launches = {
         "paged_attention": sum(results[n]["launches"]["paged_attention"]
-                               for n in ("gsi", "gsi-forced-fallback")),
+                               for n in ("gsi", "gsi-async",
+                                         "gsi-forced-fallback")),
         "paged_attention_quant": got["paged_attention_quant"],
         "logprob_gather": got["logprob_gather"]
         + scored["logprob_gather"],
@@ -1331,8 +1384,9 @@ def phase_main(torch, layers):
           flush=True)
     elapsed("run score-prm")
     phase_profile(torch, [("gsi", cfgs, cut, {}),
-                          ("gsi-int8-shared", full, params, runs[2][6])],
+                          ("gsi-int8-shared", full, params, runs[3][6])],
                   gcfg)
+    phase_profile_pipelined(torch, cfgs, cut, gcfg)
     phase_profile_scoring(torch, full, params, results["gsi"])
     del params, cut
     torch.cuda.empty_cache()
@@ -1684,6 +1738,64 @@ def phase_profile_scoring(torch, full, params, gsi_res):
               f"{100 * dev_us / 1e6 / busy:5.1f}%  {key[:90]}", flush=True)
 
 
+def device_rows(torch, prof):
+    """(device us, calls, name) of every device-side event of a profile,
+    and the device's busy seconds.  Host ops are not recorded: recording
+    them slowed the host-bound step under the profiler and their
+    processing took minutes per step."""
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    return rows, sum(r[0] for r in rows) / 1e6
+
+
+def phase_profile_pipelined(torch, cfgs, params, gcfg):
+    """Two consecutive pipelined dispatches of the gsi configuration (4
+    slots, n = 4, the prompts of phase_profile): the first ``step``
+    admits and dispatches step 1 (a warm-up, then a synchronize); the
+    profiled window is pump (materialize and retire step 1), dispatch
+    step 2, and the pump that drains it (``flush``: step 1's harvest
+    while step 2 runs, then step 2's materialize and harvest), so it
+    holds one step's device work, as the lock-step profile does.  Prints
+    the device's busy and idle share under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve
+    from repro_torch.serving import GSIScheduler, GSIServingEngine
+    print("== phase 5: where a pipelined dispatch's time goes (gsi, "
+          "sync=False)", flush=True)
+    eng = GSIServingEngine(*cfgs, *params, gcfg, mode="gsi", max_seq=512,
+                           device="cuda", paged=True, page_size=16)
+    sched = GSIScheduler(eng, capacity=4, sync=False)
+    for p in serve.random_prompts(4, seed=5, vocab=cfgs[0].vocab_size,
+                                  lo=24, hi=72):
+        sched.submit(p)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sched.step(gen)                          # admit and dispatch (warm-up)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sched.step(gen)
+        sched.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows, busy = device_rows(torch, prof)
+    check(sched.engine_steps == 2 and not sched.has_pending,
+          f"pipelined profile: {sched.engine_steps} engine steps")
+    print(f"pipelined pump, dispatch, pump (gsi): wall {wall:.3f} s, "
+          f"device busy {busy:.3f} s, device "
+          f"idle share {1 - busy / wall:.3f}; pipeline_stats "
+          + fmt_stats(sched.pipeline_stats())
+          if rows else "pipelined dispatches: device time not measured (the "
+          "profiler saw no device activity)", flush=True)
+    for dev_us, count, key in sorted(rows, reverse=True)[:6]:
+        print(f"  {dev_us / 1e3:10.2f} ms  {count:7d} calls  "
+              f"{100 * dev_us / 1e6 / max(busy, 1e-12):5.1f}%  "
+              f"{key[:90]}", flush=True)
+    del sched, eng
+    elapsed("the pipelined profile of gsi")
+
+
 def phase_profile(torch, configs, gcfg):
     """One engine step (4 slots, n=4, prompts 24-72 tokens) of each
     configuration under torch.profiler: device time by kernel and the
@@ -1712,15 +1824,7 @@ def phase_profile(torch, configs, gcfg):
             state, res = eng.step_decode(state, gen)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        rows = []
-        for e in prof.key_averages():
-            # device-side events only (kernels, copies); host ops are not
-            # recorded: recording them slowed the host-bound step under
-            # the profiler and their processing took minutes per step
-            if e.device_type == torch.autograd.DeviceType.CUDA \
-                    and e.self_device_time_total > 0:
-                rows.append((e.self_device_time_total, e.count, e.key))
-        busy = sum(r[0] for r in rows) / 1e6
+        rows, busy = device_rows(torch, prof)
         fell_back = not bool(res.accept.all())
         print(f"engine step ({name}): wall {wall:.3f} s, device busy "
               f"{busy:.3f} s, device idle share {1 - busy / wall:.3f} "

@@ -4,7 +4,7 @@ continuous-batching scheduler.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --config qwen2.5-math \
         --requests 6 --capacity 4 --n 4 --paged [--layers 28] [--device cuda] \
-        [--kv-dtype {fp,bf16,int8,fp8}] [--quantize-draft]
+        [--kv-dtype {fp,bf16,int8,fp8}] [--quantize-draft] [--sync | --async]
     PYTHONPATH=src python -m repro_torch.launch.serve --config rwkv6-3b
     PYTHONPATH=src python -m repro_torch.launch.serve --config rwkv6-3b \
         --device cpu --layers 2 --requests 2 --max-steps 1 --max-step-tokens 4
@@ -12,11 +12,13 @@ continuous-batching scheduler.
 The real checkpoints are not in the repository, so weights are random
 (seeded): the run exercises the serving path at the published widths, and
 its tokens carry no meaning.  ``--layers`` cuts the depth of all three
-models equally; widths are never cut.  Serving is always lock-step (the
-reference's ``--sync``; its pipelined default is not ported, so there is no
-mode flag).  ``--kv-dtype`` (with ``--paged``) picks the page storage
-format and ``--quantize-draft`` rounds the draft's weights through int8, as
-in the reference's CLI.  ``--replicas > 1`` and ``--tp`` raise.
+models equally; widths are never cut.  Serving is pipelined by default
+(``--async``, as in the reference): the scheduler keeps one step ticket in
+flight and harvests and admits while it runs, and prints an ``async
+pipeline: overlap_fraction=...`` line; ``--sync`` selects the lock-step
+loop (identical tokens).  ``--kv-dtype`` (with ``--paged``) picks the page
+storage format and ``--quantize-draft`` rounds the draft's weights through
+int8, as in the reference's CLI.  ``--replicas > 1`` and ``--tp`` raise.
 
 ``--config rwkv6-3b`` serves the RWKV-6 family: draft, target and PRM all
 have ``rwkv6-3b``'s shape (the PRM adds the reward head), with seeds 0, 1
@@ -108,15 +110,16 @@ def make_frontend(engines, *, capacity: int, continuous: bool = True,
 
 
 def serve(engine: GSIServingEngine, prompts, *, capacity: int,
-          seed: int = 0, continuous: bool = True) -> dict:
-    """Submit ``prompts`` up front and drain them through the scheduler.
+          seed: int = 0, continuous: bool = True, sync: bool = True) -> dict:
+    """Submit ``prompts`` up front and drain them through the scheduler,
+    lock-step (``sync=True``) or pipelined.
 
     Returns the responses and the serving counters; ``wall_s`` is the host
-    clock around the whole drain (each engine step ends in a device-to-host
-    copy, so it includes the device work).
+    clock around the whole drain, which ends in a device synchronize, so it
+    includes the device work.
     """
     sched = make_frontend(engine, capacity=capacity, continuous=continuous,
-                          collect_stats=True)
+                          collect_stats=True, sync=sync)
     ids = [sched.submit(p) for p in prompts]
     gen = torch.Generator(device=engine.device)
     gen.manual_seed(seed)
@@ -132,7 +135,7 @@ def serve(engine: GSIServingEngine, prompts, *, capacity: int,
             "tokens_per_s": tokens / max(wall, 1e-9),
             "accept_rate": s.accept_rate, "draft_tokens": s.draft_tokens,
             "target_tokens": s.target_tokens, "prefix": sched.prefix_stats(),
-            "stats": s}
+            "pipeline": sched.pipeline_stats(), "stats": s}
 
 
 def main(argv=None) -> None:
@@ -166,6 +169,14 @@ def main(argv=None) -> None:
     ap.add_argument("--quantize-draft", action="store_true",
                     help="round the draft model's matmul weights through "
                          "int8 (per-channel scales) at engine load")
+    grp = ap.add_mutually_exclusive_group()
+    grp.add_argument("--async", dest="sync", action="store_false",
+                     help="pipelined serving (default): one step ticket "
+                          "in flight, harvest and admission overlap the "
+                          "device's decode")
+    grp.add_argument("--sync", dest="sync", action="store_true",
+                     help="lock-step serving loop (identical tokens)")
+    ap.set_defaults(sync=False)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -188,7 +199,7 @@ def main(argv=None) -> None:
     prompts = random_prompts(args.requests, seed=args.seed,
                              vocab=cfgs[0].vocab_size, lo=24, hi=72)
     res = serve(engine, prompts, capacity=args.capacity, seed=args.seed,
-                continuous=not args.gang)
+                continuous=not args.gang, sync=args.sync)
     print(f"{args.config} ({cfgs[1].num_layers} layers) method={args.method}"
           f" n={args.n} capacity={args.capacity} device={engine.device} "
           f"{'paged' if args.paged else 'dense'} kv={args.kv_dtype}"
@@ -197,7 +208,16 @@ def main(argv=None) -> None:
           f"tokens={res['tokens']} wall={res['wall_s']:.2f}s "
           f"tokens/s={res['tokens_per_s']:.1f} "
           f"accept={res['accept_rate']:.2f} draft_tokens="
-          f"{res['draft_tokens']} target_tokens={res['target_tokens']}")
+          f"{res['draft_tokens']} target_tokens={res['target_tokens']} "
+          f"({'sync' if args.sync else 'async'})")
+    if not args.sync:
+        pipe = res["pipeline"]
+        print(f"async pipeline: overlap_fraction="
+              f"{pipe['overlap_fraction']:.2f} "
+              f"overlap_host={pipe['overlap_host_s'] * 1e3:.0f}ms "
+              f"serial_host={pipe['serial_host_s'] * 1e3:.0f}ms "
+              f"materialize_wait={pipe['materialize_wait_s'] * 1e3:.0f}ms "
+              f"dispatch={pipe['dispatch_s'] * 1e3:.0f}ms")
 
 
 if __name__ == "__main__":

@@ -48,6 +48,18 @@ reference's scatter is race-free (``repro/serving/engine.py`` module notes,
 
 A paged engine backs one live state at a time (its page allocator is host
 state); the generation stamp ``state["gen"]`` is a plain int.
+
+**Dispatch and materialize.**  ``dispatch_decode`` enqueues a step and
+returns a :class:`StepTicket`: the outcome as device tensors, packed into
+one int64 and one float32 buffer whose copies into host memory of the
+ticket's own (pinned on a CUDA engine) are already queued on the step's
+stream behind one recorded event.  ``materialize`` waits on that event and
+unpacks the buffers into a :class:`StepResult`; it is the step's only
+device-to-host transfer.  The one other host sync is the fallback check
+above, which ``dispatch_decode`` passes through.  ``step_decode`` is the
+two back to back, so the lock-step and the pipelined scheduler run the
+same step.  At most one step is in flight: the caches are written in
+place, so the next dispatch must follow the last ``materialize``.
 """
 from __future__ import annotations
 
@@ -81,20 +93,77 @@ MODES = ("gsi", "gsi_norej", "rsd", "sbon_s", "sbon_b")
 
 
 class StepResult(NamedTuple):
-    """Host-side outcome of one engine decode step (all numpy, (B,...))."""
+    """Host-side outcome of one engine decode step (all numpy, (B,...)).
+
+    The trailing fields (``done`` onward) serve the async pipeline:
+    ``done``/``pos`` are the post-step bookkeeping a pipelined caller needs
+    without touching device state, and the ``*_tokens`` / trace fields
+    carry everything ``fold_step_stats`` records, so stats folding can be
+    deferred off the dispatch critical path.
+    """
 
     chosen: np.ndarray       # (B, L) committed step tokens (PAD-padded)
     done_prev: np.ndarray    # (B,) slot was already done before this step
     eos: np.ndarray          # (B,) step emitted EOS
     failed: np.ndarray       # (B,) B.2 early-stop: all draft rewards low
     accept: np.ndarray       # (B,) draft step accepted (True in sbon_b)
-    done: np.ndarray         # (B,) done *after* this step
-    pos: np.ndarray          # (B,) cache position after commit
+    done: Optional[np.ndarray] = None    # (B,) done *after* this step
+    pos: Optional[np.ndarray] = None     # (B,) cache position after commit
     draft_tokens: int = 0    # non-PAD draft candidate tokens this step
     target_tokens: int = 0   # non-PAD target candidate tokens this step
     rewards: Optional[np.ndarray] = None      # (B, n) PRM rewards
-    tilted: Optional[np.ndarray] = None       # (B, n) tilted rewards
+    tilted: Optional[np.ndarray] = None       # (B, n) tilted rewards (gsi)
     logp_ratio: Optional[np.ndarray] = None   # (B, n) log pi_B - log pi_S
+
+
+class StepTicket(NamedTuple):
+    """An in-flight engine step: device tensors, no wait on the device.
+
+    Returned by ``dispatch_decode`` once the step is enqueued; every
+    outcome field is a tensor on the engine's device (or None for fields
+    the engine mode does not produce).  ``host`` holds the int64 and
+    float32 buffers (the float one None when no float field exists) that
+    the outcome was packed into and copied to, host memory of this ticket
+    alone (pinned on a CUDA engine), and ``ready`` the CUDA event recorded
+    after those copies (None on the CPU).  ``materialize`` turns a ticket
+    into a :class:`StepResult`; until then the host is free to run
+    admission, harvest and page bookkeeping for neighbouring steps.  A
+    ticket's buffers are never reused, so releasing or re-admitting the
+    slots it covers cannot corrupt it, nor can a later step.
+    """
+
+    chosen: torch.Tensor             # (B, L) long
+    done_prev: torch.Tensor          # (B,) bool
+    eos: torch.Tensor
+    failed: torch.Tensor
+    accept: torch.Tensor
+    done: torch.Tensor
+    pos: torch.Tensor                # (B,) long
+    draft_tokens: torch.Tensor       # () long
+    target_tokens: torch.Tensor      # () long
+    rewards: Optional[torch.Tensor]  # (B, n) float32
+    tilted: Optional[torch.Tensor]
+    logp_ratio: Optional[torch.Tensor]
+    host: Tuple[torch.Tensor, Optional[torch.Tensor]] = ()
+    ready: Optional["torch.cuda.Event"] = None
+
+
+# the ticket's fields as packed into its two host buffers, in order
+_INT_FIELDS = ("chosen", "done_prev", "eos", "failed", "accept", "done",
+               "pos", "draft_tokens", "target_tokens")
+_BOOL_FIELDS = ("done_prev", "eos", "failed", "accept", "done")
+_FLOAT_FIELDS = ("rewards", "tilted", "logp_ratio")
+
+
+def _to_host(buf: torch.Tensor) -> torch.Tensor:
+    """Queue one copy of ``buf`` into host memory of its own: pinned, and
+    ordered on the current stream, for a CUDA tensor (the caller records
+    the event that marks its end); a CPU tensor is returned as it is."""
+    if buf.device.type == "cpu":
+        return buf
+    host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+    host.copy_(buf, non_blocking=True)
+    return host
 
 
 @dataclass
@@ -240,6 +309,7 @@ class GSIServingEngine:
         # every step: page assignment reads these, not the device state
         self._known_pos = np.zeros((0,), np.int64)
         self._known_done = np.zeros((0,), bool)
+        self._inflight_steps = 0      # dispatched but not yet materialized
 
     def _prefix_supported(self) -> bool:
         """Sharing is exact iff every layer of all three models keeps its
@@ -271,6 +341,7 @@ class GSIServingEngine:
         }
         self._known_pos = np.zeros((batch,), np.int64)
         self._known_done = np.ones((batch,), bool)
+        self._inflight_steps = 0
         if not self.paged:
             state["caches"] = self._fresh_caches(batch)
             return state
@@ -299,6 +370,34 @@ class GSIServingEngine:
         state["scratch"] = torch.as_tensor(scratch, device=dev)
         self._gen += 1
         state["gen"] = self._gen
+        return state
+
+    def init_state(self, prompts: np.ndarray):
+        """prompts: (B, Lp) PAD-padded token array (the fixed-batch API).
+
+        All-PAD rows (padding a partial batch up to capacity) start done,
+        so they never decode or hold up ``run``'s all-done early exit.
+        """
+        prompts = np.asarray(prompts)
+        B = prompts.shape[0]
+        dev = self.device
+        state = self.fresh_state(B)
+        state["pending"] = torch.as_tensor(prompts[:, 0], dtype=torch.long,
+                                           device=dev)
+        done = (prompts == PAD).all(axis=1)
+        state["done"] = torch.as_tensor(done, device=dev)
+        lengths = (prompts != PAD).sum(axis=1)
+        self._known_done = done.copy()
+        if self.paged:
+            for b in range(B):
+                if lengths[b]:
+                    self.pager.claim(b, self.blocks_needed(
+                        int(lengths[b]), self.gcfg.max_steps))
+            state = self._assign_pages(state, np.maximum(lengths - 1, 0))
+        if prompts.shape[1] > 1:
+            state = self._commit(state, torch.as_tensor(
+                prompts[:, 1:], dtype=torch.long, device=dev))
+        self._known_pos = np.maximum(lengths - 1, 0).astype(np.int64)
         return state
 
     def _check_gen(self, state):
@@ -462,16 +561,19 @@ class GSIServingEngine:
 
     def _assign_pages(self, state, ahead):
         """Lazily assign pages so every live slot's table covers the blocks
-        the next step may write (up to ``pos + ahead``), from the host-side
-        ``pos``/``done`` mirrors; capped at the slot's reservation."""
+        the next step may write (up to ``pos + ahead``, ``ahead`` a scalar
+        or one per slot), from the host-side ``pos``/``done`` mirrors, so
+        a dispatch never waits on the device; capped at the slot's
+        reservation."""
         state = self._flush_released(state)
         pos, done = self._known_pos, self._known_done
+        ahead = np.broadcast_to(np.asarray(ahead), pos.shape)
         wants = {}
         for slot in list(self.pager.assigned):
             if done[slot] and self.pager.blocks_assigned(slot):
                 continue          # pos is frozen; blocks already cover it
             wants[slot] = min(self.nblk, self.pager.max_blocks(slot),
-                              pages_for(int(pos[slot]) + int(ahead) + 1,
+                              pages_for(int(pos[slot]) + int(ahead[slot]) + 1,
                                         self.page_size))
         return self._ensure_blocks(state, wants)
 
@@ -631,7 +733,8 @@ class GSIServingEngine:
     def _decode_core(self, state, gen, gen_target):
         """One engine step: draft phase, the host-checked fallback target
         phase (iff not every row accepted), commit, and the EOS / B.2 done
-        fold.  Returns ``(new_state, outcome)`` with device tensors."""
+        fold.  Returns ``(new_state, StepTicket)`` with device tensors and
+        no host buffers yet."""
         g = self.gcfg
         zero = torch.zeros((), dtype=torch.long, device=self.device)
         rewards = tilted = ratio = None
@@ -664,16 +767,84 @@ class GSIServingEngine:
         eos = (chosen == g.eos_token_id).any(dim=1)
         new_done = done_prev | eos | (failed & ~done_prev)
         new_state["done"] = new_done
-        outcome = dict(chosen=chosen, done_prev=done_prev, eos=eos,
-                       failed=failed, accept=accept, done=new_done,
-                       pos=new_state["pos"], draft_tokens=draft_count,
-                       target_tokens=target_count, rewards=rewards,
-                       tilted=tilted, logp_ratio=ratio)
-        return new_state, outcome
+        ticket = StepTicket(
+            chosen=chosen, done_prev=done_prev, eos=eos, failed=failed,
+            accept=accept, done=new_done, pos=new_state["pos"],
+            draft_tokens=draft_count, target_tokens=target_count,
+            rewards=rewards, tilted=tilted, logp_ratio=ratio)
+        return new_state, ticket
+
+    def dispatch_decode(self, state, gen, gen_target=None):
+        """Enqueue one engine step; returns ``(state, StepTicket)``.
+
+        Page assignment reads the host-side position mirrors, with one
+        ``max_step_tokens`` of look-ahead per dispatched, unmaterialized
+        step.  The step's outcome is packed into two buffers whose copies
+        into the ticket's host memory are queued behind the step, followed
+        by one CUDA event; nothing is fetched.  The call does wait once:
+        the host reads ``accept.all()`` to decide the fallback, so it
+        returns only after the draft phase has run on the device.  Pair
+        with :meth:`materialize`; ``step_decode`` is the synchronous
+        composition of the two.  ``gen`` draws the draft phase's noise,
+        ``gen_target`` (default ``gen``) the fallback target phase's.
+        """
+        if gen_target is None:
+            gen_target = gen
+        if self.paged:
+            self._check_gen(state)
+            ahead = (self._inflight_steps + 1) * self.gcfg.max_step_tokens
+            state = self._assign_pages(state, ahead)
+        new_state, ticket = self._decode_core(state, gen, gen_target)
+        ints = torch.cat([getattr(ticket, f).reshape(-1).long()
+                          for f in _INT_FIELDS])
+        floats = [getattr(ticket, f).reshape(-1).float()
+                  for f in _FLOAT_FIELDS if getattr(ticket, f) is not None]
+        host = (_to_host(ints),
+                _to_host(torch.cat(floats)) if floats else None)
+        ready = None
+        if ints.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
+        self._inflight_steps += 1
+        return new_state, ticket._replace(host=host, ready=ready)
+
+    def materialize(self, ticket: StepTicket) -> StepResult:
+        """The host copy of a dispatched step's outcome, as a StepResult.
+
+        Waits on the ticket's event (blocking only until the step and its
+        two copies have run on the device), unpacks the ticket's own host
+        buffers, and refreshes the host-side ``pos``/``done`` mirrors the
+        next dispatch assigns pages from.  Stats folding is split out
+        (:meth:`fold_step_stats`) so a pipelined scheduler can defer it.
+        """
+        if ticket.ready is not None:
+            ticket.ready.synchronize()
+        ints, floats = (h if h is None else h.numpy() for h in ticket.host)
+        B, L = ticket.chosen.shape
+        kw = {"chosen": ints[:B * L].reshape(B, L)}
+        at = B * L
+        for f in _BOOL_FIELDS:
+            kw[f] = ints[at:at + B].astype(bool)
+            at += B
+        kw["pos"] = ints[at:at + B]
+        kw["draft_tokens"] = int(ints[at + B])
+        kw["target_tokens"] = int(ints[at + B + 1])
+        at = 0
+        for f in _FLOAT_FIELDS:
+            t = getattr(ticket, f)
+            kw[f] = None
+            if t is not None:
+                kw[f] = floats[at:at + t.numel()].reshape(t.shape)
+                at += t.numel()
+        res = StepResult(**kw)
+        self._known_pos = res.pos.astype(np.int64)
+        self._known_done = res.done.copy()
+        self._inflight_steps = max(0, self._inflight_steps - 1)
+        return res
 
     def fold_step_stats(self, res: StepResult, stats: EngineStats,
                         collect_stats: bool = False) -> None:
-        """Fold one step's outcome into ``stats``."""
+        """Fold one materialized step's outcome into ``stats``."""
         if self.mode == "sbon_b":
             stats.bump(steps=1, target_tokens=res.target_tokens)
             return
@@ -695,24 +866,41 @@ class GSIServingEngine:
 
         ``gen`` (a ``torch.Generator`` on the engine's device) draws the
         draft phase's noise; ``gen_target`` (default ``gen``) the fallback
-        target phase's.  Returns ``(state, StepResult)``.
+        target phase's.  Returns ``(state, StepResult)``.  This is
+        ``dispatch_decode`` + ``materialize`` back to back: the lock-step
+        and the pipelined scheduler run the same step.
         """
-        if gen_target is None:
-            gen_target = gen
-        if self.paged:
-            self._check_gen(state)
-            state = self._assign_pages(state, self.gcfg.max_step_tokens)
-        new_state, out = self._decode_core(state, gen, gen_target)
-        host = {k: (None if v is None else v.cpu().numpy())
-                for k, v in out.items()}
-        host["draft_tokens"] = int(host["draft_tokens"])
-        host["target_tokens"] = int(host["target_tokens"])
-        res = StepResult(**host)
-        self._known_pos = res.pos.astype(np.int64)
-        self._known_done = res.done.copy()
+        state, ticket = self.dispatch_decode(state, gen, gen_target)
+        res = self.materialize(ticket)
         if stats is not None:
             self.fold_step_stats(res, stats, collect_stats)
-        return new_state, res
+        return state, res
+
+    def run(self, prompts: np.ndarray, gen, *, collect_stats: bool = True):
+        """Fixed-batch run to completion: generate until EOS/max_steps.
+
+        ``gen`` is a ``torch.Generator`` on the engine's device; every step
+        draws its noise from it in order.  Returns (responses, stats);
+        responses is a list of B lists of step-token arrays.  The
+        continuous-batching path lives in ``serving.scheduler``.
+        """
+        prompts = np.asarray(prompts)
+        B = prompts.shape[0]
+        state = self.init_state(prompts)
+        stats = EngineStats()
+        responses = [[] for _ in range(B)]
+        res = None
+        for _ in range(self.gcfg.max_steps):
+            state, res = self.step_decode(state, gen, stats=stats,
+                                          collect_stats=collect_stats)
+            for b in range(B):
+                if not res.done_prev[b]:
+                    toks = res.chosen[b]
+                    responses[b].append(toks[toks != PAD])
+            if res.done.all():
+                break
+        stats.requests_finished = 0 if res is None else int(res.done.sum())
+        return responses, stats
 
     def admit(self, state, admit_mask: np.ndarray, prompts: np.ndarray,
               starts=None, live=None):

@@ -1,6 +1,6 @@
 """Continuous-batching request scheduler for the GSI serving engine.
 
-A port of ``repro.serving.scheduler`` in its synchronous mode.  The engine
+A port of ``repro.serving.scheduler``, lock-step and pipelined.  The engine
 decodes a fixed-capacity batch; the scheduler keeps it full.  Requests wait
 in an arrival queue, admission maps them onto free slots (prompt prefill
 into the vacated row via the engine's masked ``admit``), and every engine
@@ -16,9 +16,21 @@ pages, they are published too (``_publish_decode``), so later requests that
 share a trajectory splice it.
 
 ``continuous=False`` degrades to gang scheduling (admit only into an empty
-pool).  Not ported yet, and raising: ``sync=False`` (the pipelined loop),
-``chunk_tokens`` (chunked prefill), ``cache_aware`` ordering, priorities
-and preemption, deadlines and token streams.
+pool).
+
+``sync=False`` runs the two-stage pipeline: one step ticket stays in
+flight (``GSIServingEngine.dispatch_decode``), and the host harvests the
+previous step while it runs.  Each call materializes the in-flight ticket,
+retires it (finish reasons, slot and page release: release is deferred
+until the freeing step's tokens are on the host), admits, then dispatches
+the next step; the retired step's heavy harvest (token slicing, response
+assembly, stats) runs under that next step.  Admission sees the same free
+slots and pages, and the generator the same draws, as the lock-step loop,
+so both produce the same tokens.
+
+Not ported yet, and raising: ``chunk_tokens`` (chunked prefill),
+``cache_aware`` ordering, priorities and preemption, deadlines and token
+streams.
 """
 from __future__ import annotations
 
@@ -30,7 +42,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.serving.gsi_engine import EngineStats, GSIServingEngine
+from repro_torch.serving.gsi_engine import (EngineStats, GSIServingEngine,
+                                            StepResult, StepTicket)
 from repro_torch.serving.slots import PAD, SlotPool, pack_prompts
 
 
@@ -74,17 +87,51 @@ class Response:
         return self.finished_at - self.arrival_time
 
 
+@dataclass
+class _InflightStep:
+    """A dispatched, unmaterialized engine step (async pipeline).
+
+    ``bound`` snapshots slot -> partial :class:`Response` at dispatch
+    time, so the harvest attributes the step's rows to the requests that
+    occupied the slots, even after the slots are released and re-admitted.
+    """
+
+    ticket: StepTicket
+    bound: Dict[int, Response]
+
+
+@dataclass
+class _RetiredStep:
+    """A materialized step awaiting its deferred (overlapped) harvest.
+
+    ``res`` is host numpy (the ticket was materialized before any of its
+    slots could be released); ``finished`` carries the finish decisions,
+    (slot, response, reason, decided_at), made at release time.
+    """
+
+    res: StepResult
+    bound: Dict[int, Response]
+    finished: List[Tuple[int, Response, str, float]]
+
+
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to repro_torch yet")
 
 
 class GSIScheduler:
-    """Drives ``GSIServingEngine.step_decode`` over a slot pool.
+    """Drives ``GSIServingEngine`` steps over a slot pool.
 
     capacity:      number of slots == engine batch size.
     continuous:    admit into freed slots mid-flight (True) or only into an
                    empty pool (False, gang discipline).
     collect_stats: forward per-step reward/ratio arrays into ``stats``.
+    sync:          True (default) runs the lock-step loop: every ``step``
+                   dispatches one engine step and waits for its results.
+                   False runs the two-stage pipeline: one ticket stays in
+                   flight and the previous step's harvest overlaps it
+                   (``step`` then returns the responses finalized this
+                   call, which lag the decode by one step until the
+                   pipeline drains).  Tokens are identical either way.
     """
 
     def __init__(self, engine: GSIServingEngine, *, capacity: int,
@@ -93,8 +140,6 @@ class GSIScheduler:
                  sync: bool = True, chunk_tokens: int = 0):
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
-        if not sync:
-            raise _not_ported("the pipelined scheduler (sync=False)")
         if chunk_tokens:
             raise _not_ported("chunked prefill (chunk_tokens)")
         if cache_aware:
@@ -103,25 +148,47 @@ class GSIScheduler:
         self.capacity = capacity
         self.continuous = continuous
         self.collect_stats = collect_stats
-        self.sync = True
-        self.pool = SlotPool(capacity)
+        self.sync = bool(sync)
+        self._pad = int(prompt_pad_len)
+        self._seq = 0
         self.queue: deque = deque()
-        self.state = engine.fresh_state(capacity)
+        # idle handling: woken by submit(), waits out exact arrival gaps
+        self._wake = threading.Condition()
+        self.fresh_state()
+
+    def fresh_state(self) -> None:
+        """Reset for a new serving phase (back-to-back runs).
+
+        Rebuilds the engine state (for a paged engine also the page pool
+        and radix index) and resets all scheduler bookkeeping with it:
+        queue, slot pool, responses, the pipeline and the counters
+        ``prefix_stats()`` and ``pipeline_stats()`` read.
+        """
+        cap = self.capacity
+        self.state = self.engine.fresh_state(cap)
+        self.pool = SlotPool(cap)
+        self.queue.clear()
         self.stats = EngineStats()
         self.responses: Dict[str, Response] = {}
         self.engine_steps = 0
         self._partial: Dict[int, Response] = {}      # slot -> in-flight
-        self._steps_taken = np.zeros((capacity,), np.int64)
-        self._budget = np.zeros((capacity,), np.int64)
-        self._pad = int(prompt_pad_len)
-        self._seq = 0
+        self._steps_taken = np.zeros((cap,), np.int64)
+        self._budget = np.zeros((cap,), np.int64)
         self._t0: Optional[float] = None
         # decode-time page publication: each slot's committed context and
         # how many of its full pages are already in the radix index
         self._ctx: Dict[int, np.ndarray] = {}
         self._pub_full: Dict[int, int] = {}
         self._ids: set = set()
-        self._wake = threading.Condition()
+        # async pipeline state: at most one dispatched, unmaterialized
+        # ticket plus one materialized, unharvested step
+        self._inflight: Optional[_InflightStep] = None
+        self._retired: Optional[_RetiredStep] = None
+        # host/device overlap accounting (pipeline_stats)
+        self._overlap_host_s = 0.0       # host work under an in-flight step
+        self._serial_host_s = 0.0        # host work with no step in flight
+        self._materialize_wait_s = 0.0   # blocked waiting on device results
+        self._dispatch_s = 0.0           # enqueueing steps
 
     # ------------------------------------------------------------------
     # Submission / admission control
@@ -295,12 +362,27 @@ class GSIScheduler:
     # Stepping
     # ------------------------------------------------------------------
     def step(self, gen, gen_target=None) -> List[Response]:
-        """Admit ready requests, run one engine step, harvest and free
-        finished slots; returns the responses finished this step."""
-        return self._step_sync(gen, gen_target)
+        """Admit ready requests, run one engine decode step, harvest and
+        free finished slots.
+
+        ``sync=True``: dispatches and materializes one step, returning the
+        responses finished *this* step.  ``sync=False``: pumps the pipeline
+        (harvest, materialize, retire, admit) and dispatches the next step
+        without waiting for it; the returned responses are the ones
+        finalized this call, which lag the decode by one step until the
+        pipeline drains (``flush``).
+        """
+        if self.sync:
+            return self._step_sync(gen, gen_target)
+        finished = self._pump(self._now())
+        if self.pool.num_live:
+            self._dispatch(gen, gen_target)
+        else:
+            finished += self.flush()
+        return finished
 
     def _step_sync(self, gen, gen_target=None) -> List[Response]:
-        """The lock-step path: one engine step, harvested on the host."""
+        """The lock-step path: one dispatched and materialized step."""
         now = self._now()
         self._admit_ready(now)
         if self.pool.num_live == 0:
@@ -317,36 +399,219 @@ class GSIScheduler:
             resp = self._partial[slot]
             toks = res.chosen[slot]
             kept = toks[toks != PAD]
-            resp.steps.append(kept)
-            resp.engine_steps += 1
-            if kept.size and resp.first_token_at is None:
-                resp.first_token_at = self._now()
+            self._emit_step(resp, kept, self._now())
             # publish the pages this step filled before a release below
             # could drop the slot's page references
             self._publish_decode(slot, kept)
             self._steps_taken[slot] += 1
-            reason = ""
-            if res.eos[slot]:
-                reason = "eos"
-            elif res.failed[slot]:
-                reason = "low_reward"
-            elif self._steps_taken[slot] >= self._budget[slot]:
-                reason = "max_steps"
-                force_done[slot] = True
+            reason = self._finish_reason(slot, res)
             if reason:
-                self.pool.release(slot)
-                self.engine.release_slot(slot)
-                del self._partial[slot]
-                self._ctx.pop(slot, None)
-                self._pub_full.pop(slot, None)
-                resp.finish_reason = reason
-                resp.finished_at = self._now()
-                self.responses[resp.request_id] = resp
-                self.stats.bump(requests_finished=1)
+                force_done[slot] = reason == "max_steps"
+                self._release(slot)
+                self._finalize(resp, reason, self._now())
                 finished.append(resp)
         self.state = self.engine.force_done(self.state, force_done)
         return finished
 
+    def _finish_reason(self, slot: int, res: StepResult) -> str:
+        """Why ``slot`` finished at step ``res`` ("" if it did not)."""
+        if res.eos[slot]:
+            return "eos"
+        if res.failed[slot]:
+            return "low_reward"
+        if self._steps_taken[slot] >= self._budget[slot]:
+            return "max_steps"
+        return ""
+
+    def _release(self, slot: int) -> None:
+        """Free a finished slot and its pages (admission may reuse them)."""
+        self.pool.release(slot)
+        self.engine.release_slot(slot)
+        del self._partial[slot]
+        self._ctx.pop(slot, None)
+        self._pub_full.pop(slot, None)
+
+    def _emit_step(self, resp: Response, toks: np.ndarray,
+                   now: float) -> None:
+        """Append one harvested step's tokens to ``resp``."""
+        resp.steps.append(toks)
+        resp.engine_steps += 1
+        if toks.size and resp.first_token_at is None:
+            resp.first_token_at = now
+
+    def _finalize(self, resp: Response, reason: str, at: float) -> None:
+        """Stamp a finished response and record it."""
+        resp.finish_reason = reason
+        resp.finished_at = at
+        self.responses[resp.request_id] = resp
+        self.stats.bump(requests_finished=1)
+
+    # ------------------------------------------------------------------
+    # Async pipeline (sync=False)
+    # ------------------------------------------------------------------
+    @property
+    def has_pending(self) -> bool:
+        """True while the pipeline holds an unharvested step."""
+        return self._inflight is not None or self._retired is not None
+
+    def _pump(self, now: float) -> List[Response]:
+        """Advance the pipeline up to (not including) the next dispatch.
+
+        1. harvest the step retired last call (token slicing, response
+           finalization, stats) while the in-flight step runs on the
+           device: the overlapped host work the pipeline exists for;
+        2. materialize the in-flight ticket, the only point where the
+           host waits on the device;
+        3. retire it: finish reasons, slot and page release (deferred
+           exactly one step, the final tokens already in host memory);
+        4. admit, seeing the free slots and pages the lock-step loop sees
+           before this engine step.
+        """
+        finished: List[Response] = []
+        t0 = time.perf_counter()
+        overlapped = self._inflight is not None
+        if self._retired is not None:
+            retired, self._retired = self._retired, None
+            finished = self._harvest(retired)
+        t1 = time.perf_counter()
+        if overlapped:
+            self._overlap_host_s += t1 - t0
+        else:
+            self._serial_host_s += t1 - t0
+        if self._inflight is not None:
+            pend, self._inflight = self._inflight, None
+            res = self.engine.materialize(pend.ticket)
+            t2 = time.perf_counter()
+            self._materialize_wait_s += t2 - t1
+            self._retire(pend, res)
+            self._admit_ready(now)
+            self._serial_host_s += time.perf_counter() - t2
+        else:
+            self._admit_ready(now)
+            self._serial_host_s += time.perf_counter() - t1
+        return finished
+
+    def _retire(self, pend: _InflightStep, res: StepResult) -> None:
+        """Decide finishes for a just-materialized step and free slots.
+
+        The cheap, order-critical part of the harvest: decode-page
+        publication, budget counting, finish reasons, slot and page
+        release and the budget force-done, all that admission parity with
+        the lock-step loop depends on.  The rest waits in
+        ``self._retired`` for ``_harvest``, which must have taken the
+        previous retired step already.
+        """
+        assert self._retired is None, "a retired step was not harvested"
+        now = self._now()
+        force_done = np.zeros((self.capacity,), bool)
+        finished: List[Tuple[int, Response, str, float]] = []
+        for slot, resp in pend.bound.items():
+            if res.done_prev[slot]:
+                continue
+            toks = res.chosen[slot]
+            # commit-then-publish, before the release, as the lock-step
+            # loop does
+            self._publish_decode(slot, toks[toks != PAD])
+            self._steps_taken[slot] += 1
+            reason = self._finish_reason(slot, res)
+            if reason:
+                force_done[slot] = reason == "max_steps"
+                self._release(slot)
+                finished.append((slot, resp, reason, now))
+        self.state = self.engine.force_done(self.state, force_done)
+        self._retired = _RetiredStep(res=res, bound=pend.bound,
+                                     finished=finished)
+
+    def _harvest(self, retired: _RetiredStep) -> List[Response]:
+        """Heavy harvest of a retired step (runs under the next step).
+
+        Appends every bound slot's step tokens to its partial response,
+        finalizes the responses whose finish reason fired, and folds the
+        step into ``stats``: host numpy only, on data materialized before
+        any of these slots could be reused.
+        """
+        res = retired.res
+        now = self._now()
+        for slot, resp in retired.bound.items():
+            if res.done_prev[slot]:
+                continue
+            toks = res.chosen[slot]
+            self._emit_step(resp, toks[toks != PAD], now)
+        done_now: List[Response] = []
+        for _, resp, reason, _ in retired.finished:
+            # finalized at harvest time, when its tokens are visible
+            self._finalize(resp, reason, now)
+            done_now.append(resp)
+        self.engine.fold_step_stats(res, self.stats, self.collect_stats)
+        return done_now
+
+    def _dispatch(self, gen, gen_target=None) -> None:
+        """Dispatch the next engine step and leave its ticket in flight.
+
+        The caches are written in place, so a step may be dispatched only
+        after the previous one was materialized."""
+        if self._inflight is not None:
+            raise RuntimeError("dispatch with a step still in flight: "
+                               "materialize it first (_pump or flush)")
+        t0 = time.perf_counter()
+        self.state, ticket = self.engine.dispatch_decode(
+            self.state, gen, gen_target)
+        self.engine_steps += 1
+        self._inflight = _InflightStep(ticket=ticket,
+                                       bound=dict(self._partial))
+        self._dispatch_s += time.perf_counter() - t0
+
+    def flush(self) -> List[Response]:
+        """Drain the pipeline without dispatching: harvest the retired
+        step, materialize and retire the in-flight ticket (if any), and
+        harvest it.  Returns the responses finalized by the drain, in
+        step order."""
+        finished: List[Response] = []
+        if self._inflight is not None:
+            if self._retired is not None:
+                # the previous step first: retiring the in-flight one
+                # would otherwise replace it, unharvested
+                retired, self._retired = self._retired, None
+                t0 = time.perf_counter()
+                finished = self._harvest(retired)
+                self._overlap_host_s += time.perf_counter() - t0
+            pend, self._inflight = self._inflight, None
+            t0 = time.perf_counter()
+            res = self.engine.materialize(pend.ticket)
+            self._materialize_wait_s += time.perf_counter() - t0
+            self._retire(pend, res)
+        if self._retired is not None:
+            retired, self._retired = self._retired, None
+            t0 = time.perf_counter()
+            finished += self._harvest(retired)
+            self._serial_host_s += time.perf_counter() - t0
+        return finished
+
+    def pipeline_stats(self) -> Dict[str, float]:
+        """Host/device overlap accounting for the async pipeline.
+
+        ``overlap_fraction`` is the share of host bookkeeping time
+        (harvest and admission) that ran while an engine step was in
+        flight; 0.0 for the lock-step loop.  ``materialize_wait_s`` is the
+        time the host spent blocked on device results.  ``dispatch_s`` is
+        reported apart: it is the time spent enqueueing steps, and it
+        includes the host's wait for each draft phase, whose ``accept``
+        decides the fallback on the host.
+        """
+        total = self._overlap_host_s + self._serial_host_s
+        return {
+            "sync": self.sync,
+            "overlap_host_s": self._overlap_host_s,
+            "serial_host_s": self._serial_host_s,
+            "materialize_wait_s": self._materialize_wait_s,
+            "dispatch_s": self._dispatch_s,
+            "overlap_fraction":
+                self._overlap_host_s / total if total > 0 else 0.0,
+        }
+
+    # ------------------------------------------------------------------
+    # Run loops
+    # ------------------------------------------------------------------
     def _wait_next_arrival(self) -> None:
         """Idle until the head queued request arrives (or a submit wakes
         the scheduler)."""
@@ -359,12 +624,31 @@ class GSIScheduler:
         """Drain the queue and all live slots; returns id -> Response.
 
         ``gen`` is a ``torch.Generator`` on the engine's device; every
-        engine step draws its noise from it in order.
+        dispatched engine step draws its noise from it in order, in both
+        loops, so they draw the same numbers.
         """
         self._t0 = time.perf_counter()
+        if not self.sync:
+            return self._run_async(gen)
         while self.queue or self.pool.num_live:
             if self.pool.num_live == 0 and not self._ready(self._now()):
                 self._wait_next_arrival()
                 continue
             self._step_sync(gen)
+        return dict(self.responses)
+
+    def _run_async(self, gen) -> Dict[str, Response]:
+        """The pipelined drain: the generator is drawn from only inside a
+        dispatch, never on a drain-only iteration."""
+        while self.queue or self.pool.num_live or self.has_pending:
+            now = self._now()
+            if (self.pool.num_live == 0 and not self.has_pending
+                    and not self._ready(now)):
+                self._wait_next_arrival()
+                continue
+            self._pump(now)
+            if self.pool.num_live:
+                self._dispatch(gen)
+            else:
+                self.flush()
         return dict(self.responses)

@@ -731,3 +731,85 @@ def test_rwkv_model_runs_the_scan_per_layer(cuda_device):
         w = w[..., :cfg.vocab_size]
         err = (g[..., :cfg.vocab_size].cpu() - w).abs().max().item()
         assert err <= 1e-4 * max(w.abs().max().item(), 1.0), err
+
+
+def toy_engine(device, **kw):
+    """The toy fp32 triple with seeded random weights, paged, on ``device``
+    (sampling at temperature 0.7)."""
+    from repro_torch.config import GSIConfig
+    from repro_torch.launch import serve
+    g = GSIConfig(n=2, max_step_tokens=5, max_steps=3, beta=4.0,
+                  min_step_reward=-1.0)
+    return serve.build_engine(serve.toy_triple(vocab=64), g, seed=0,
+                              device=device, max_seq=96, paged=True,
+                              page_size=8, **kw)
+
+
+@pytest.mark.cuda
+def test_async_equals_sync_on_the_card(cuda_device):
+    """The pipelined scheduler commits the lock-step one's tokens on the
+    card at temperature > 0, with the prefix cache."""
+    from repro_torch.serving import GSIScheduler
+    pre = [5 + i % 24 for i in range(17)]
+    prompts = [np.asarray(pre + [33 + i, 34, 4], np.int32) for i in range(5)]
+    runs = []
+    for sync in (True, False):
+        sched = GSIScheduler(toy_engine(cuda_device), capacity=2, sync=sync)
+        ids = [sched.submit(p, max_steps=1 + i % 3)
+               for i, p in enumerate(prompts)]
+        out = sched.run(torch.Generator(device=cuda_device).manual_seed(4))
+        runs.append(({r: (out[r].tokens.tolist(), out[r].finish_reason)
+                      for r in ids}, sched.engine_steps,
+                     sched.prefix_stats(), sched.stats.accepted,
+                     sched.stats.decisions))
+        if not sync:
+            assert sched.pipeline_stats()["overlap_host_s"] > 0
+    assert runs[1] == runs[0]
+    assert runs[0][2]["hits"] > 0
+
+
+@pytest.mark.cuda
+def test_step_result_outlives_the_next_step(cuda_device):
+    """A StepResult's arrays lie in host memory of its own ticket: step
+    k+1, dispatched and materialized after step k, leaves them as they
+    were (a reused pinned buffer would show step k+1's positions)."""
+    eng = toy_engine(cuda_device)
+    prompts = np.asarray([[5, 6, 7, 8], [9, 10, 4, 0]], np.int32)
+    state = eng.admit(eng.fresh_state(2), np.ones(2, bool), prompts)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    state, ticket = eng.dispatch_decode(state, gen)
+    res = eng.materialize(ticket)
+    kept = [None if a is None else np.array(a, copy=True) for a in res]
+    assert ticket.host[0].is_pinned() and ticket.host[1].is_pinned()
+    state, ticket2 = eng.dispatch_decode(state, gen)
+    res2 = eng.materialize(ticket2)
+    assert not np.array_equal(res2.pos, res.pos)
+    for a, b in zip(res, kept):
+        assert np.array_equal(a, b) if b is not None else a is None
+    np.testing.assert_array_equal(res.chosen, ticket.chosen.cpu().numpy())
+    np.testing.assert_array_equal(res.pos, ticket.pos.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_materialize_copies_each_buffer_to_the_host_once(cuda_device,
+                                                         monkeypatch):
+    """One device-to-host copy per packed buffer a step: the int64 one and
+    the float32 one (rewards, tilted rewards and log-ratios in gsi mode)."""
+    from repro_torch.serving import gsi_engine
+    eng = toy_engine(cuda_device)
+    copies = []
+    real = gsi_engine._to_host
+
+    def counted(buf):
+        copies.append((buf.device.type, buf.dtype))
+        return real(buf)
+
+    monkeypatch.setattr(gsi_engine, "_to_host", counted)
+    prompts = np.asarray([[5, 6, 7, 8], [9, 10, 4, 0]], np.int32)
+    state = eng.admit(eng.fresh_state(2), np.ones(2, bool), prompts)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for step in range(1, 3):
+        state, res = eng.step_decode(state, gen)
+        assert copies == [("cuda", torch.int64),
+                          ("cuda", torch.float32)] * step
+    assert res.rewards.shape == res.tilted.shape == (2, 2)

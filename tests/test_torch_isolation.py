@@ -111,9 +111,12 @@ def test_unported_options_raise():
                  lambda: eng.load_cache(None, {})):
         with pytest.raises(NotImplementedError):
             call()
-    for kw in ({"sync": False}, {"chunk_tokens": 8}, {"cache_aware": True}):
+    for kw in ({"chunk_tokens": 8}, {"cache_aware": True}):
         with pytest.raises(NotImplementedError):
             GSIScheduler(eng, capacity=1, **kw)
+    # the pipelined loop is ported
+    assert GSIScheduler(eng, capacity=1, sync=False).pipeline_stats()[
+        "sync"] is False
     sched = GSIScheduler(eng, capacity=1)
     for kw in ({"priority": 1}, {"deadline_s": 1.0}, {"stream": print}):
         with pytest.raises(NotImplementedError):
