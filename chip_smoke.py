@@ -24,7 +24,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    attention (target and draft heads, bf16 through the TMA/wgmma kernel
    and fp32; bf16 at the toy head dims 40 and 16 through the mma.sync
    kernel, G = 7 and 1; causal with no window and with one shorter than
-   every tile, S = 1000) and the WKV6 scan (rwkv6-3b's heads at its decode,
+   every tile, S = 1000), flash attention's backward kernel (the draft's
+   and the target's heads in bf16 at the training shape B = 4, S = 512;
+   the toy heads hd 16 and 40 in fp32, causal and with a window shorter
+   than every tile; two calls bitwise equal) and the WKV6 scan (rwkv6-3b's
+   heads at its decode,
    shared-scoring and full-sequence shapes in bf16, and a toy hd = 32 in
    fp32; spread decays and a non-zero initial state; then decays at the
    model's clamp ends and mixed, B = H = 1 at T = 4096 (32 segments), the
@@ -47,7 +51,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    (``pipeline_stats``), (b) a short run whose threshold no tilted reward
    can reach, so the target fallback must run, and (c) 5 requests over
    int8 pages with shared scoring and the draft's weights rounded through
-   int8.  Then run
+   int8, at a threshold among its selected tilted rewards, so that it too
+   both accepts and falls back (both counted and required).  Then run
    score-prm, at full depth: the sequences (a) finished go through
    target.prefill, target.score, draft.score and PRM.reward_at_end, and
    each result is held against the decode path (teacher-forced paged
@@ -81,11 +86,28 @@ Phases, each printing its own lines; any failure exits non-zero:
    matching the CPU's.
 5. profile — one engine step of (a) (at threshold 0.5, as it was profiled
    before it had its own threshold) and of (c), then two consecutive
-   pipelined dispatches of (a)'s configuration (after the first, the
+   pipelined dispatches of (a)'s configuration (these three with the
+   Qwen2.5-Math models cut to ``PROFILE_LAYERS`` layers, said on a
+   ``reduced:`` line) (after the first, the
    window pump, dispatch, pump), one score-prm batch and one engine step of
    gsi-rwkv-shared, under ``torch.profiler`` (device activity only; each
    with the device's busy and idle share); a paged kernel's row counts its
    split and combine kernels together.
+
+6. training — every attention layer's forward and backward through the
+   flash kernels (the FlashAttention autograd Function): (t1) the
+   Qwen2.5-Math-1.5B draft at full width and depth, bf16 weights and fp32
+   AdamW state, B = 4, S = 512, a few steps on one fixed ``lm_batches``
+   batch; (t2) ``prm_loss`` on the PRM-7B at full width, cut to 4 layers
+   (said on a ``reduced:`` line); each with its launch counters zeroed
+   just before and read just after (flash forward and backward launches =
+   layers x steps, no other kernel), finite and falling losses, step time
+   and tokens/s; (t3) the toy triple trained for 3 steps on the card and
+   on the CPU from the same weights and batches, losses and parameters
+   within tolerance; (t4) the serving CLI's ``--train-steps`` path:
+   ``train_triple`` on the card, then GSI serving of synthetic problems,
+   with falling losses, accuracy and an accept rate strictly between 0
+   and 1.
 
 The line before the last is ``{"kernels": [...]}``: every ported kernel
 with its largest error in phase 3, its timings and its launch count from the
@@ -161,6 +183,25 @@ RWKV_THRESHOLD = -0.29
 # threshold lies among them, so the run commits accepted draft candidates
 # over paged caches and falls back to the target
 QWEN_THRESHOLD = -9.5
+# run gsi-int8-shared: the same full-width Qwen2.5-Math models over int8
+# pages with shared scoring and the draft's weights rounded through int8;
+# its draft and target disagree as run gsi's do, so its selected tilted
+# rewards lie near -10 too (accept rate 0.000 at threshold 0.5 in both of
+# an earlier PR's chip runs); QWEN_THRESHOLD, taken over, lies among them,
+# so the run commits accepted draft candidates over int8 pages and falls
+# back to the target
+QWEN_INT8_THRESHOLD = QWEN_THRESHOLD
+# phase 5 profiles the Qwen engine steps at this depth (the profiler's
+# processing grows with the launches; at 28 layers the three profiles
+# took 313 s of a chip run)
+PROFILE_LAYERS = 14
+# flash attention's backward kernel against its plain version.  fp32: both
+# sides in fp32, summation orders differ: 1e-5 of the gradient's scale.
+# bf16: the kernel rounds P and dS to bf16 before their products (2^-9
+# relative each, summed over hundreds of keys) where the plain version
+# keeps them in fp32, and both round dq, dk, dv to bf16 (half an ulp,
+# 2^-9): 2e-2 of the gradient's scale (0.5% seen at S = 512)
+BWD_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}
 
 
 T0 = time.perf_counter()
@@ -871,6 +912,112 @@ def phase_kernels_flash(torch):
             "bound_by": bound_by, "library_ms": library_ms}
 
 
+def bound_flash_bwd(q, k, window):
+    """Least time for one causal backward call: five products of 2 * hd
+    flops per live (query head, key) pair (2.5 times the forward's count)
+    at the tensor-core (bf16) or CUDA-core (fp32) rate, against q, k, v,
+    the output and its gradient read once and dq, dk, dv written once at
+    the HBM rate."""
+    B, S, H, hd = q.shape
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    ops = 5 * 2 * B * H * hd * pairs
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = ops / PEAK_OPS[str(q.dtype)]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def flash_bwd_case(torch, *, B, S, H, KV, hd, dtype, window, seed):
+    """q, k, v and dO N(0, 1) in ``dtype``, and the forward's output (the
+    plain version's, so both backwards see the same O)."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    q, k, v = flash_case(torch, B=B, S=S, H=H, KV=KV, hd=hd, dtype=dtype,
+                         seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    return q, k, v, flash_attention_plain(q, k, v, window=window), dout
+
+
+def phase_kernels_flash_bwd(torch):
+    print("== phase 3: flash_attention_bwd vs its plain version", flush=True)
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain)
+    # the training shapes: the draft's and the target/PRM's heads in bf16
+    # at B = 4, S = 512 (hd 128, mma.sync on the tensor cores); the toy
+    # triple's fp32 heads (hd 16 and 40, G = 2, CUDA cores), causal and
+    # with window 8, shorter than every 32-query and 64-key tile, so late
+    # rows' first tiles are wholly masked
+    cases = [("draft", 12, 2, 128, torch.bfloat16, 0, 512),
+             ("target", 28, 4, 128, torch.bfloat16, 0, 512)]
+    cases += [(f"toy hd={hd}", 4, 2, hd, torch.float32, w, 200)
+              for hd in (16, 40) for w in (0, 8)]
+    max_err = 0.0
+    for tag, H, KV, hd, dtype, window, S in cases:
+        args = flash_bwd_case(torch, B=4, S=S, H=H, KV=KV, hd=hd,
+                              dtype=dtype, window=window, seed=H + hd + window)
+        got = flash_attention_bwd_cuda(*args, window=window)
+        again = flash_attention_bwd_cuda(*args, window=window)
+        want = flash_attention_bwd_plain(*args, window=window)
+        torch.cuda.synchronize()
+        tol = BWD_TOL[str(dtype)]
+        errs = []
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            check(g.dtype == dtype and g.shape == w.shape
+                  and bool(torch.isfinite(g).all()),
+                  f"flash_attention_bwd {tag}: bad {name}")
+            err = (g.float() - w.float()).abs().max().item()
+            scale = max(w.float().abs().max().item(), 1.0)
+            check(err <= tol * scale, f"flash_attention_bwd {tag} {name}: "
+                  f"error {err} > {tol} x {scale}")
+            errs.append(f"{name} {err:.3e} (scale {scale:.2f})")
+            max_err = max(max_err, err)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"flash_attention_bwd {tag} B=4 S={S} H={H} KV={KV} hd={hd} "
+              f"{str(dtype)[6:]} causal window={window}: max_abs_err "
+              f"{', '.join(errs)} (tol {tol:.0e} x scale); two calls "
+              f"bitwise equal: {same}", flush=True)
+        check(same, f"flash_attention_bwd {tag}: two calls differ")
+        del args, got, again, want
+
+    # timing at the target's training shape (B = 4, S = 512, bf16)
+    sets = [flash_bwd_case(torch, B=4, S=512, H=28, KV=4, hd=128,
+                           dtype=torch.bfloat16, window=0, seed=400 + i)
+            for i in range(2)]                  # 50 MB each
+    ms, ms_host = time_ms(torch, lambda *a: flash_attention_bwd_cuda(*a),
+                          sets, iters=10)
+    plain_ms, _ = time_ms(torch, lambda *a: flash_attention_bwd_plain(*a),
+                          sets, iters=2)
+    lib_sets = []
+    for q, k, v, _, dout in sets:
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        lib_sets.append((out, qt, kt, vt, dout.transpose(1, 2).contiguous()))
+    library_ms, library_host = time_ms(
+        torch, lambda o, a, b, c, d: torch.autograd.grad(
+            o, (a, b, c), d, retain_graph=True), lib_sets, iters=10)
+    bound_ms, bound_by = bound_flash_bwd(sets[0][0], sets[0][1], 0)
+    print(f"flash_attention_bwd timing (B=4 S=512 H=28 KV=4 hd=128 bf16 "
+          f"causal), device-only ms per call: kernel {ms:.4f}, bound "
+          f"{bound_ms:.4f} ({bound_by}), plain {plain_ms:.4f}, library "
+          f"(the backward of scaled_dot_product_attention is_causal "
+          f"enable_gqa, (B,H,S,hd), alone) {library_ms:.4f}; back to back "
+          f"from the host: kernel {ms_host:.4f}, library {library_host:.4f}",
+          flush=True)
+    del sets, lib_sets
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/attention.py:57 (no Pallas "
+                        "kernel: the reference's training differentiates "
+                        "this einsum attention through XLA)",
+            "launches": 0, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
 # the decays' ends under models/rwkv.py:_decay's clamp of log(-log w) to
 # [-8, 4]: exp(-e^4), about 1.8e-24 a step, and exp(-e^-8), about 0.99966
 FAST_DECAY, SLOW_DECAY = math.exp(-math.exp(4.0)), math.exp(-math.exp(-8.0))
@@ -1102,7 +1249,8 @@ def instrument(torch, model, tag, acc):
 
 def counters(torch):
     """The launch-counting wrapper of every kernel, by kernel name."""
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
     from repro_torch.kernels.logprob_gather import logprob_gather_cuda
     from repro_torch.kernels.paged_attention import (
         paged_attention_cuda, paged_attention_quant_cuda)
@@ -1111,6 +1259,7 @@ def counters(torch):
             "paged_attention_quant": paged_attention_quant_cuda,
             "logprob_gather": logprob_gather_cuda,
             "flash_attention": flash_attention_cuda,
+            "flash_attention_bwd": flash_attention_bwd_cuda,
             "rwkv6_scan": rwkv6_scan_cuda}
 
 
@@ -1305,9 +1454,10 @@ def phase_main(torch, layers):
             ("gsi-forced-fallback", cfgs, cut,
              dataclasses.replace(gcfg, threshold_u=1e9, max_steps=2), 2, 1,
              {}),
-            ("gsi-int8-shared", full, params, gcfg, 5, 2,
-             {"kv_dtype": "int8", "shared_scoring": True,
-              "quantize_draft": True})]
+            ("gsi-int8-shared", full, params,
+             dataclasses.replace(gcfg, threshold_u=QWEN_INT8_THRESHOLD), 5,
+             2, {"kv_dtype": "int8", "shared_scoring": True,
+                 "quantize_draft": True})]
     acc, results = {}, {}
     torch.cuda.reset_peak_memory_stats()
     for name, c3, p3, g, count, seed, kw in runs:
@@ -1337,19 +1487,25 @@ def phase_main(torch, layers):
           f"gsi-int8-shared: launches {got}; want paged_attention_quant = "
           f"layers x paged decode_step calls = {want}, logprob_gather = 2 x"
           f" draft phases = {2 * q['draft_phases']}, no other kernel")
-    stats = results["gsi"]["stats"]
-    tilted = torch.cat([torch.as_tensor(t).flatten()
-                        for t in stats.tilted_rewards])
-    print(f"run gsi: threshold {QWEN_THRESHOLD}; decisions "
-          f"{stats.decisions}: accepted {stats.accepted} (a draft candidate "
-          f"committed over paged caches), rejected "
-          f"{stats.decisions - stats.accepted} (target fallback); selected "
-          f"tilted rewards in [{tilted.min().item():.4f}, "
-          f"{tilted.max().item():.4f}], median "
-          f"{tilted.median().item():.4f}", flush=True)
-    check(bool(layers) or 0 < stats.accepted < stats.decisions,
-          f"gsi: {stats.accepted} of {stats.decisions} decisions accepted; "
-          f"the run must take both the accept and the fallback branch")
+    for name, threshold, pages in (
+            ("gsi", QWEN_THRESHOLD, "bf16"),
+            ("gsi-int8-shared", QWEN_INT8_THRESHOLD, "int8")):
+        stats = results[name]["stats"]
+        tilted = torch.cat([torch.as_tensor(t).flatten()
+                            for t in stats.tilted_rewards])
+        print(f"run {name}: threshold {threshold}; decisions "
+              f"{stats.decisions}: accepted {stats.accepted} (a draft "
+              f"candidate committed over {pages} pages), rejected "
+              f"{stats.decisions - stats.accepted} (target fallback); "
+              f"selected tilted rewards in [{tilted.min().item():.4f}, "
+              f"{tilted.max().item():.4f}], median "
+              f"{tilted.median().item():.4f}", flush=True)
+        # run gsi may be cut in depth (--layers); run gsi-int8-shared never
+        check((bool(layers) and name == "gsi")
+              or 0 < stats.accepted < stats.decisions,
+              f"{name}: {stats.accepted} of {stats.decisions} decisions "
+              f"accepted; the run must take both the accept and the "
+              f"fallback branch")
     check_pipelined(results["gsi"], results["gsi-async"])
     fallback = results["gsi-forced-fallback"]
     check(fallback["target_tokens"] > 0 and fallback["accept_rate"] == 0.0,
@@ -1383,10 +1539,22 @@ def phase_main(torch, layers):
           f"{got['logprob_gather']} + score-prm {scored['logprob_gather']}",
           flush=True)
     elapsed("run score-prm")
-    phase_profile(torch, [("gsi", cfgs, cut, {}),
-                          ("gsi-int8-shared", full, params, runs[3][6])],
-                  gcfg)
-    phase_profile_pipelined(torch, cfgs, cut, gcfg)
+    # the profiler's processing costs about as much as the step itself,
+    # per launch: the three Qwen engine-step profiles run at
+    # PROFILE_LAYERS layers so that the script keeps well inside its time
+    depth = min(PROFILE_LAYERS, min(c.num_layers for c in cfgs))
+    prof_cfgs = serve.build_triple("qwen2.5-math", layers=depth)
+    prof_params = [{k: p[k] for k in param_specs(c)}
+                   for p, c in zip(params, prof_cfgs)]
+    print(f"reduced: phase 5's engine-step profiles of runs gsi, "
+          f"gsi-int8-shared and gsi-async cut to {depth} layers in all "
+          f"three models (published {full[0].num_layers}); widths "
+          f"unchanged; the score-prm batch profiled at full depth",
+          flush=True)
+    phase_profile(torch, [("gsi", prof_cfgs, prof_params, {}),
+                          ("gsi-int8-shared", prof_cfgs, prof_params,
+                           runs[3][6])], gcfg)
+    phase_profile_pipelined(torch, prof_cfgs, prof_params, gcfg)
     phase_profile_scoring(torch, full, params, results["gsi"])
     del params, cut
     torch.cuda.empty_cache()
@@ -2058,6 +2226,213 @@ def phase_agreement_rwkv(torch):
               f"toy RWKV {cfg.name}: the scan did not run in every layer")
 
 
+# phase 6, training: steps of (t1) and (t2), each on one fixed batch, and
+# their peak learning rates.  Adam's first steps move every weight by
+# about the rate: at 1e-3 the 2B-parameter PRM's rewards saturated in one
+# step (loss 0.84 -> 5.7 in a chip run) and the draft's loss rose before
+# it fell.  bf16 weights of std ~0.02 move only by steps above half an
+# ulp (~6e-5): t1 takes 1e-4; t2's uniform random labels leave nothing
+# to learn but their mean, so it takes 1e-5 (the zero-initialised head
+# bias and the smallest weights move)
+TRAIN_STEPS = 4
+T1_LR, T2_LR = 1e-4, 1e-5
+# (t4): the toy triple trained as the serving CLI's --train-steps does
+TOY_TRAIN_STEPS = 300
+# (t4) serves its trained toy triple at the reference CLI's threshold
+TOY_SERVE_THRESHOLD = 0.5
+
+
+def train_run(torch, tag, cfg, batch, *, lr, prm=False, seed=0):
+    """``TRAIN_STEPS`` steps of a fresh :class:`Trainer` (seeded random
+    bf16 weights, fp32 AdamW state, peak rate ``lr``, warmup 1) on one
+    fixed batch, with every
+    launch counter zeroed just before and read just after; prints the
+    losses, the step time and the memory, checks the losses are finite and
+    fall, and returns the launches."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.train import Trainer
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, TrainConfig(learning_rate=lr, warmup_steps=1,
+                                  total_steps=TRAIN_STEPS, seed=seed),
+                 prm=prm, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tr.params.values())
+    print(f"run {tag}: {cfg.name} layers={cfg.num_layers} d={cfg.d_model} "
+          f"heads={cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.head_dim} "
+          f"ffn={cfg.d_ff} vocab={cfg.vocab_size}: {n_params / 1e9:.3f}B "
+          f"{cfg.param_dtype} parameters and fp32 AdamW state, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    wrappers = counters(torch)
+    for fn in wrappers.values():
+        fn.launches = 0
+    losses, secs = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        m = tr.step(batch)
+        losses.append(float(m["loss"]))          # synchronizes the device
+        secs.append(time.perf_counter() - t0)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    B, S = batch["tokens"].shape
+    tokens = B * (S - 1)
+    step_s = sum(secs[1:]) / (len(secs) - 1)
+    print(f"run {tag}: B={B} S={S} losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; grad norm "
+          f"{float(m['grad_norm']):.4f}; step seconds "
+          f"{', '.join(f'{x:.4f}' for x in secs)} (first includes its "
+          f"warm-up); steady step {step_s:.4f} s, {tokens / step_s:.1f} "
+          f"tokens/s (training); max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; kernel "
+          f"launches {launches}", flush=True)
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"{tag}: losses {losses} not finite and falling")
+    want = cfg.num_layers * TRAIN_STEPS
+    check(only(launches, flash_attention=want, flash_attention_bwd=want),
+          f"{tag}: launches {launches}; want flash_attention = "
+          f"flash_attention_bwd = layers x steps = {want}, no other kernel")
+    del tr, m
+    torch.cuda.empty_cache()
+    return launches
+
+
+def toy_train_agreement(torch):
+    """(t3) The toy fp32 triple trained for 3 steps on the card and on the
+    CPU from the same weights and batches: losses within TOY_RTOL of their
+    scale, parameters too, plus 5% of the summed learning rates (Adam's
+    m / sqrt(v) turns rounding differences in near-zero gradients into
+    step-sized ones)."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.data import SyntheticReasoningTask
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    from repro_torch.launch import serve
+    from repro_torch.models import random_params
+    from repro_torch.train import Trainer
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=20, total_steps=600)
+    for i, cfg in enumerate(serve.toy_triple()):
+        prm = bool(cfg.reward_head)
+        task = SyntheticReasoningTask(seed=40 + i)
+        batches = [task.prm_batch(32, 64) if prm else task.lm_batch(32, 64)
+                   for _ in range(3)]
+        params = random_params(cfg, 50 + i, "cpu")
+        before = flash_attention_bwd_cuda.launches
+        runs = []
+        for dev in ("cuda", "cpu"):
+            tr = Trainer(cfg, tcfg, prm=prm, params=params, device=dev)
+            hist = tr.fit(iter(batches), 3, log_every=1)
+            runs.append(([h["loss"] for h in hist], tr.params))
+        (card_l, card_p), (cpu_l, cpu_p) = runs
+        check(flash_attention_bwd_cuda.launches - before
+              == 3 * cfg.num_layers, f"toy {cfg.name}: the backward kernel "
+              f"did not run once per layer and step")
+        loss_err = max(abs(a - b) for a, b in zip(card_l, cpu_l))
+        loss_scale = max(max(abs(x) for x in cpu_l), 1.0)
+        slack = 0.05 * sum(float(tr.opt.lr_fn(n)) for n in (1, 2, 3))
+        worst = 0.0
+        for k, p in cpu_p.items():
+            err = (card_p[k].detach().cpu() - p.detach()).abs().max().item()
+            scale = max(p.detach().abs().max().item(), 1.0)
+            worst = max(worst, err / (TOY_RTOL * scale + slack))
+        print(f"run t3 {cfg.name} ({'prm_loss' if prm else 'lm_loss'}), "
+              f"card vs CPU over 3 steps: losses "
+              f"{', '.join(f'{x:.6f}' for x in card_l)} vs "
+              f"{', '.join(f'{x:.6f}' for x in cpu_l)}, max error "
+              f"{loss_err:.3e} (tol {TOY_RTOL:.0e} x {loss_scale:.2f}); "
+              f"parameters at {worst:.3f} of their tolerance", flush=True)
+        check(loss_err <= TOY_RTOL * loss_scale,
+              f"t3 {cfg.name}: card and CPU losses differ")
+        check(worst <= 1.0, f"t3 {cfg.name}: card and CPU parameters "
+              f"differ")
+
+
+def toy_train_serve(torch):
+    """(t4) The serving CLI's --train-steps path on the card: the toy
+    triple trained on the synthetic task by ``train_triple``, then GSI
+    serving of task problems through the scheduler (the reference CLI's
+    task settings)."""
+    import numpy as np
+    from repro_torch.config import GSIConfig
+    from repro_torch.data import SyntheticReasoningTask
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    from repro_torch.launch import serve
+    from repro_torch.serving import GSIServingEngine
+    task = SyntheticReasoningTask(seed=0)
+    cfgs = serve.toy_triple()
+    before = flash_attention_bwd_cuda.launches
+    t0 = time.perf_counter()
+    *params, hist = serve.train_triple(
+        task, *cfgs, steps_draft=TOY_TRAIN_STEPS // 2,
+        steps_target=TOY_TRAIN_STEPS, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    bwd = flash_attention_bwd_cuda.launches - before
+    want = sum(c.num_layers * n for c, n in zip(
+        cfgs, (TOY_TRAIN_STEPS // 2, TOY_TRAIN_STEPS, TOY_TRAIN_STEPS)))
+    for cfg, h in zip(cfgs, hist):
+        print(f"run t4: trained {cfg.name} for {h[-1]['step'] + 1} steps: "
+              f"loss {h[0]['loss']:.4f} -> {h[-1]['loss']:.4f}", flush=True)
+        check(h[-1]["loss"] < h[0]["loss"], f"t4 {cfg.name}: loss did not "
+              f"fall")
+    print(f"run t4: training {train_s:.1f} s, flash_attention_bwd launches "
+          f"{bwd} (layers x steps {want})", flush=True)
+    check(bwd == want, f"t4: {bwd} backward launches, want {want}")
+    g = GSIConfig(n=4, beta=20.0, threshold_u=TOY_SERVE_THRESHOLD,
+                  max_step_tokens=8, max_steps=8)
+    engine = GSIServingEngine(*cfgs, *params, g, device="cuda", max_seq=128,
+                              paged=True, page_size=16)
+    problems = [task.sample_problem() for _ in range(16)]
+    res = serve.serve(engine, [np.asarray(p.prompt, np.int32)
+                               for p in problems], capacity=8, seed=1)
+    st = res["stats"]
+    acc = serve.accuracy(task, problems, res)
+    print(f"run t4: served {res['finished']}/{len(problems)} synthetic "
+          f"problems at threshold {TOY_SERVE_THRESHOLD}: accuracy "
+          f"{acc:.3f}, accept rate {res['accept_rate']:.3f} ({st.accepted} "
+          f"of {st.decisions} decisions), engine steps {res['steps']}, "
+          f"tokens/s {res['tokens_per_s']:.1f}", flush=True)
+    check(res["finished"] == len(problems), "t4: not every request finished")
+    check(0 < st.accepted < st.decisions, f"t4: {st.accepted} of "
+          f"{st.decisions} decisions accepted; the run must take both "
+          f"branches")
+
+
+def phase_train(torch):
+    """Phase 6: training at full width, the toy triple card against CPU,
+    and the serving CLI's train-then-serve path."""
+    print("== phase 6: training (the flash backward kernel in every "
+          "attention layer)", flush=True)
+    import numpy as np
+    from repro_torch.configs import qwen25_math
+    from repro_torch.data.lm import lm_batches
+    t0 = time.perf_counter()
+    dft = qwen25_math.DRAFT
+    batch = next(lm_batches(dft.vocab_size, 4, 512, seed=0))
+    t1 = train_run(torch, "t1", dft, batch, lr=T1_LR)
+    elapsed("run t1")
+    prm = dataclasses.replace(qwen25_math.PRM, num_layers=4)
+    print(f"reduced: run t2 cuts {prm.name} to {prm.num_layers} layers "
+          f"(published {qwen25_math.PRM.num_layers}): at full depth its "
+          f"AdamW state alone, about 7.6e9 parameters x 12 B (fp32 m and v,"
+          f" bf16 weight and gradient), is 91 GB, more than the card's "
+          f"80 GB; widths unchanged", flush=True)
+    rng = np.random.default_rng(1)
+    toks = next(lm_batches(prm.vocab_size, 4, 512, seed=1))["tokens"]
+    mask = np.zeros(toks.shape, np.float32)
+    mask[:, 15::16] = 1.0                         # step ends every 16 tokens
+    prm_batch = {"tokens": toks,
+                 "reward_labels": rng.uniform(0, 1, toks.shape).astype(
+                     np.float32),
+                 "reward_mask": mask}
+    t2 = train_run(torch, "t2", prm, prm_batch, lr=T2_LR, prm=True)
+    elapsed("run t2")
+    toy_train_agreement(torch)
+    elapsed("run t3")
+    toy_train_serve(torch)
+    elapsed("run t4")
+    print(f"phase 6 seconds: {time.perf_counter() - t0:.1f}", flush=True)
+    return {k: t1[k] + t2[k] for k in t1}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=0,
@@ -2080,7 +2455,7 @@ def main() -> int:
         phase_build()
         rows = [phase_kernels(torch), phase_kernels_quant(torch),
                 phase_kernels_logprob(torch), phase_kernels_flash(torch),
-                phase_kernels_rwkv(torch)]
+                phase_kernels_flash_bwd(torch), phase_kernels_rwkv(torch)]
         elapsed("phases 1-3")
         launches = phase_main(torch, args.layers)
         elapsed("the Qwen runs")
@@ -2088,11 +2463,18 @@ def main() -> int:
         elapsed("the RWKV runs")
         launches["rwkv6_scan"] = rwkv["rwkv6_scan"]
         launches["logprob_gather"] += rwkv["logprob_gather"]
-        for row in rows:
-            row["launches"] = launches[row["name"]]
         phase_agreement(torch)
         phase_agreement_full(torch)
         phase_agreement_rwkv(torch)
+        elapsed("phase 4b")
+        train = phase_train(torch)
+        launches["flash_attention"] += train["flash_attention"]
+        launches["flash_attention_bwd"] = train["flash_attention_bwd"]
+        print(f"flash_attention launches over its paths: score-prm "
+              f"{launches['flash_attention'] - train['flash_attention']} + "
+              f"training {train['flash_attention']}", flush=True)
+        for row in rows:
+            row["launches"] = launches[row["name"]]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

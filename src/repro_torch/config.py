@@ -2,8 +2,9 @@
 
 A copy of ``repro.config`` for the port (the port never imports ``repro``):
 :class:`ModelConfig` describes an architecture, :class:`GSIConfig` the GSI
-algorithm, and configs register themselves into ``CONFIG_REGISTRY`` when
-``repro_torch.configs`` is imported.  Field names and defaults match the
+algorithm, :class:`TrainConfig` the optimizer and its schedule, and configs
+register themselves into ``CONFIG_REGISTRY`` when ``repro_torch.configs`` is
+imported.  Field names and defaults match the
 reference, so a config built on either side describes the same model.
 """
 from __future__ import annotations
@@ -120,6 +121,20 @@ class GSIConfig:
     eos_token_id: int = 2
     min_step_reward: float = 0.1  # early-stop if all draft rewards below (B.2)
     use_rejection: bool = True  # False = "GSI w/o rejection" ablation
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    opt_state_dtype: str = "float32"  # bf16 for the 1T config (DESIGN §5)
+    seed: int = 0
 
 
 CONFIG_REGISTRY: dict = {}

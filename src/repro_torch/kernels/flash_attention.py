@@ -16,8 +16,19 @@ it.
   launches in ``flash_attention_cuda.launches``.  bf16 at head_dim 64 or
   128 (every Qwen2.5-Math layer) goes to the TMA/wgmma kernel; other bf16
   head dims to the ``mma.sync`` kernel and fp32 to the CUDA-core kernel,
-  chosen from dtype and shape before the launch.  It is forward-only: an
-  input that requires a gradient raises, since no backward kernel exists.
+  chosen from dtype and shape before the launch.  Called directly it is
+  forward-only: an input that requires a gradient raises.
+* :func:`flash_attention_bwd_plain` is the backward of the plain version
+  as the kernel computes it: the log-sum-exp recomputed, ``D = rowsum(dO *
+  O)``, ``dS = P * (dP - D)``, dK and dV summed over the query heads of a kv
+  group, P kept in fp32 (the forward's bf16 cast of P gets no gradient
+  path of its own).  :func:`flash_attention_bwd_cuda` launches
+  ``csrc/flash_attention_bwd.cu`` (three kernels, no atomics) and counts
+  its calls in ``flash_attention_bwd_cuda.launches``.
+* :class:`FlashAttention` binds the two as a ``torch.autograd.Function``:
+  the forward kernel on detached inputs, the backward kernel for the
+  gradients (the plain versions for CPU tensors).  ``ops.flash_attention``
+  goes through it whenever an input requires a gradient.
 """
 from __future__ import annotations
 
@@ -33,6 +44,18 @@ MAX_HEAD_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _live(Sq: int, Sk: int, causal, window: int, device):
+    """(Sq, Sk) bool: key kpos is live for query qpos."""
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    return mask
+
+
 def flash_attention_plain(q, k, v, *, causal=True, window: int = 0,
                           scale=None):
     """q: (B,Sq,H,hd); k/v: (B,Sk,KV,hd) -> (B,Sq,H,hd)."""
@@ -43,18 +66,41 @@ def flash_attention_plain(q, k, v, *, causal=True, window: int = 0,
         scale = hd ** -0.5
     qg = q.reshape(B, Sq, KV, G, hd)
     s = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * scale
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window:
-        mask &= kpos > qpos - window
-    s = torch.where(mask, s, NEG)
+    s = torch.where(_live(Sq, Sk, causal, window, q.device), s, NEG)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     dt = torch.promote_types(p.dtype, v.dtype)       # as jnp promotes
     out = torch.einsum("bkgqs,bskh->bqkgh", p.to(dt), v.to(dt))
     return out.reshape(B, Sq, H, hd)
+
+
+def flash_attention_bwd_plain(q, k, v, out, dout, *, causal=True,
+                              window: int = 0, scale=None):
+    """Gradients of :func:`flash_attention_plain` -> (dq, dk, dv) in the
+    dtypes of q, k and v, computed in fp32 as the backward kernel does.
+
+    ``out`` is the forward's output, ``dout`` its gradient (both
+    (B,Sq,H,hd)).  Masked scores are -1e30, so P = exp(s - lse) is exactly
+    0 there.
+    """
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    if scale is None:
+        scale = hd ** -0.5
+    qg = q.float().reshape(B, Sq, KV, G, hd)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, kf) * scale
+    s = torch.where(_live(Sq, Sk, causal, window, q.device), s, NEG)
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    do = dout.float().reshape(B, Sq, KV, G, hd)
+    delta = (do * out.float().reshape(B, Sq, KV, G, hd)).sum(-1)
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, do)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", do, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qg) * scale
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 HOPPER_HEAD_DIMS = (64, 128)   # bf16 head dims of the TMA/wgmma kernel
@@ -80,23 +126,13 @@ def uses_hopper_kernel(dtype, head_dim: int) -> bool:
     return dtype == torch.bfloat16 and head_dim in HOPPER_HEAD_DIMS
 
 
-def flash_attention_cuda(q, k, v, *, causal=True, window: int = 0,
-                         scale=None):
-    """Launch the CUDA kernel on the current stream; same contract as
-    :func:`flash_attention_plain`.  q, k and v are float32 or bfloat16 of
-    one dtype (made contiguous), ``H / KV <= 64``, head_dim a multiple of 8
-    up to 128, and every query row must have a live key.  Raises on
-    anything the kernel does not take, on an input that requires a
-    gradient, and on a failed launch."""
-    who = "flash_attention_cuda"
+def _check_inputs(who, q, k, v):
+    """Device, dtype and shape checks shared by both directions; returns
+    (B, Sq, Sk, H, KV, hd)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{who}: {name} must be on {q.device} (CUDA), "
                              f"got {t.device}")
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise RuntimeError(f"{who} is forward-only (no backward kernel): "
-                           f"call it under torch.no_grad() on tensors that "
-                           f"do not require a gradient")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError(f"{who} takes float32 or bfloat16 q/k/v of one "
@@ -109,22 +145,47 @@ def flash_attention_cuda(q, k, v, *, causal=True, window: int = 0,
     if k.shape[0] != B or hd_k != hd or KV == 0 or H % KV:
         raise ValueError(f"{who}: bad shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)}")
+    return B, Sq, Sk, H, KV, hd
+
+
+def _check_limits(who, B, Sq, Sk, H, KV, hd, window, device):
     if H // KV > MAX_GROUP or hd % 8 or not 0 < hd <= MAX_HEAD_DIM \
             or window < 0:
         raise ValueError(f"{who}: needs H/KV <= {MAX_GROUP}, head_dim a "
                          f"multiple of 8 up to {MAX_HEAD_DIM} and window "
                          f">= 0; got H/KV={H // KV}, head_dim={hd}, "
                          f"window={window}")
-    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     if B == 0 or Sq == 0:
-        return out
+        return
     # a query row with no live key would average V in the reference
     if Sk == 0 or (window and Sq >= Sk + window):
         raise ValueError(f"{who}: query rows without a live key (Sq={Sq}, "
                          f"Sk={Sk}, window={window})")
-    if q.device.index != torch.cuda.current_device():
-        raise ValueError(f"{who}: tensors on {q.device} but the current "
+    if device.index != torch.cuda.current_device():
+        raise ValueError(f"{who}: tensors on {device} but the current "
                          f"device is cuda:{torch.cuda.current_device()}")
+
+
+def flash_attention_cuda(q, k, v, *, causal=True, window: int = 0,
+                         scale=None):
+    """Launch the CUDA kernel on the current stream; same contract as
+    :func:`flash_attention_plain`.  q, k and v are float32 or bfloat16 of
+    one dtype (made contiguous), ``H / KV <= 64``, head_dim a multiple of 8
+    up to 128, and every query row must have a live key.  Raises on
+    anything the kernel does not take, on an input that requires a
+    gradient, and on a failed launch."""
+    who = "flash_attention_cuda"
+    B, Sq, Sk, H, KV, hd = _check_inputs(who, q, k, v)
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        raise RuntimeError(f"{who} is forward-only: call it under "
+                           f"torch.no_grad() on tensors that do not require "
+                           f"a gradient, or train through "
+                           f"ops.flash_attention (the FlashAttention "
+                           f"autograd Function)")
+    _check_limits(who, B, Sq, Sk, H, KV, hd, window, q.device)
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    if B == 0 or Sq == 0:
+        return out
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if any(t.data_ptr() % 16 for t in (q, k, v, out)):
         raise ValueError(f"{who}: tensors must be 16-byte aligned")
@@ -145,3 +206,79 @@ def flash_attention_cuda(q, k, v, *, causal=True, window: int = 0,
 
 
 flash_attention_cuda.launches = 0
+
+
+def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal=True,
+                             window: int = 0, scale=None):
+    """Launch the backward kernels on the current stream; same contract as
+    :func:`flash_attention_bwd_plain`, and the forward's limits.  All five
+    tensors are float32 or bfloat16 of one dtype (made contiguous).  Raises
+    on anything the kernels do not take and on a failed launch."""
+    who = "flash_attention_bwd_cuda"
+    B, Sq, Sk, H, KV, hd = _check_inputs(who, q, k, v)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.device != q.device or t.dtype != q.dtype \
+                or t.shape != q.shape:
+            raise ValueError(f"{who}: {name} must match q ({q.dtype}, "
+                             f"{tuple(q.shape)} on {q.device}), got "
+                             f"{t.dtype}, {tuple(t.shape)} on {t.device}")
+    _check_limits(who, B, Sq, Sk, H, KV, hd, window, q.device)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    if B == 0 or Sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
+    stats = torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
+    if any(t.data_ptr() % 16 for t in (q, k, v, out, dout, dq, dk, dv)):
+        raise ValueError(f"{who}: tensors must be 16-byte aligned")
+    lib = _library_bwd()
+    err = lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        stats[0].data_ptr(), stats[1].data_ptr(), B, Sq, Sk, H, KV, hd,
+        int(bool(causal)), int(window),
+        float(hd ** -0.5 if scale is None else scale), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0
+
+
+def _library_bwd():
+    lib = build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 \
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: the forward kernel and the backward
+    kernel on CUDA tensors, :func:`flash_attention_plain` and
+    :func:`flash_attention_bwd_plain` on CPU tensors.  Saves q, k, v and
+    the output; the backward recomputes P from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        q, k, v = q.detach(), k.detach(), v.detach()
+        fwd = flash_attention_cuda if q.is_cuda else flash_attention_plain
+        out = fwd(q, k, v, causal=causal, window=window, scale=scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.opts = {"causal": causal, "window": window, "scale": scale}
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        bwd = flash_attention_bwd_cuda if q.is_cuda \
+            else flash_attention_bwd_plain
+        dq, dk, dv = bwd(q, k, v, out, dout, **ctx.opts)
+        return dq, dk, dv, None, None, None

@@ -2,11 +2,16 @@
 
 A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor goes
 to the hand-written CUDA kernel, which launches or raises.  There is no
-switch that sends a CUDA tensor to the plain version.
+switch that sends a CUDA tensor to the plain version.  Flash attention on
+inputs that require a gradient goes through its autograd Function, whose
+backward is the backward kernel on a CUDA tensor.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+import torch
+
+from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                 flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.logprob_gather import (logprob_gather_cuda,
                                                 logprob_gather_plain)
@@ -21,7 +26,11 @@ from repro_torch.kernels.rwkv6_scan import (rwkv6_scan_cuda,
 
 
 def flash_attention(q, k, v, *, causal=True, window: int = 0, scale=None):
-    """q: (B,Sq,H,hd); k/v: (B,Sk,KV,hd) -> (B,Sq,H,hd)."""
+    """q: (B,Sq,H,hd); k/v: (B,Sk,KV,hd) -> (B,Sq,H,hd); differentiable
+    when an input requires a gradient."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, scale)
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                     scale=scale)

@@ -25,7 +25,20 @@ have ``rwkv6-3b``'s shape (the PRM adds the reward head), with seeds 0, 1
 and 2.  The repository registers only this one RWKV model, so the triple
 covers the RWKV serving path (the WKV6 scan kernel in every layer) and
 says nothing about GSI's speed-up: its draft costs what its target does.
-``toy`` is a small fp32 triple for a look on the CPU.
+``toy`` is a small fp32 triple.  With ``--train-steps N`` (``toy`` only)
+the CLI first trains it on the synthetic arithmetic task, as the
+reference's CLI does (:func:`train_triple`: the draft for N // 2 steps,
+the target and the PRM for N steps), then serves ``--requests`` task
+problems with the reference's task settings (steps of up to 8 tokens, up
+to 8 steps, early stop below a 0.1 reward) and prints each model's first
+and last loss and the accuracy next to the accept rate and tokens/s:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --config toy \
+        --train-steps 300 --requests 16 --capacity 8 --paged
+
+``qwen2.5-math`` and ``rwkv6-3b`` refuse ``--train-steps``: their triples
+serve seeded random weights at the published widths, and nothing here
+trains a 7B model to a useful accuracy.
 """
 from __future__ import annotations
 
@@ -36,11 +49,14 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.config import GSIConfig, ModelConfig, get_config
+from repro_torch.config import GSIConfig, ModelConfig, TrainConfig, \
+    get_config
 from repro_torch.configs import qwen25_math
+from repro_torch.data import SyntheticReasoningTask
 from repro_torch.device import resolve_device
 from repro_torch.models import random_params
 from repro_torch.serving import GSIScheduler, GSIServingEngine
+from repro_torch.train import Trainer
 
 
 def toy_triple(vocab: int = 16):
@@ -53,6 +69,38 @@ def toy_triple(vocab: int = 16):
                                  d_model=160, head_dim=40, d_ff=448)
     prm = dataclasses.replace(target, name="sx-prm", reward_head=True)
     return draft, target, prm
+
+
+def train_triple(task, draft_cfg, target_cfg, prm_cfg, *, steps_draft=200,
+                 steps_target=600, batch=32, seq=64, seed=0, device="cuda"):
+    """Train the triple on ``task`` as the reference does (the target
+    trained longer, so it is genuinely stronger than the draft): lr 1e-3,
+    warmup 20, a cosine decay over each model's own step count.
+
+    Returns the three parameter dicts (tensors on ``device``) and the three
+    trainers' loss histories (first and last step included).
+    """
+    tc = TrainConfig(learning_rate=1e-3, total_steps=steps_target,
+                     warmup_steps=20, seed=seed)
+    tr_s = Trainer(draft_cfg, dataclasses.replace(tc, total_steps=steps_draft),
+                   device=device)
+    tr_s.fit((task.lm_batch(batch, seq) for _ in iter(int, 1)), steps_draft)
+    tr_b = Trainer(target_cfg, tc, device=device)
+    tr_b.fit((task.lm_batch(batch, seq) for _ in iter(int, 1)), steps_target)
+    tr_p = Trainer(prm_cfg, tc, prm=True, device=device)
+    tr_p.fit((task.prm_batch(batch, seq) for _ in iter(int, 1)),
+             steps_target)
+    params = tuple({k: p.detach() for k, p in tr.params.items()}
+                   for tr in (tr_s, tr_b, tr_p))
+    return (*params, [tr.history for tr in (tr_s, tr_b, tr_p)])
+
+
+def accuracy(task, problems, res) -> float:
+    """Share of ``problems`` whose served response ends in the right total
+    (``res`` from :func:`serve`, one request per problem in order)."""
+    correct = sum(task.is_correct(prob, list(res["responses"][rid].tokens))
+                  for prob, rid in zip(problems, res["ids"]))
+    return correct / max(1, len(problems))
 
 
 def rwkv_triple():
@@ -179,25 +227,56 @@ def main(argv=None) -> None:
     ap.set_defaults(sync=False)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--train-steps", type=int, default=0,
+                    help="train the toy triple on the synthetic task for "
+                         "this many steps first, then serve task problems "
+                         "and report accuracy (toy only; 0 = random "
+                         "weights)")
     args = ap.parse_args(argv)
     if args.replicas > 1:
         raise NotImplementedError("--replicas > 1 is not ported yet")
     if args.tp > 1:
         raise NotImplementedError("--tp is not ported yet")
+    if args.train_steps and args.config != "toy":
+        raise ValueError(f"--train-steps trains the toy triple only: "
+                         f"--config {args.config} serves seeded random "
+                         f"weights at the published widths (no checkpoint "
+                         f"is in the repository, and the toy task cannot "
+                         f"train a 7B triple to a useful accuracy here)")
 
     cfgs = build_triple(args.config, layers=args.layers)
-    gcfg = GSIConfig(n=args.n, beta=args.beta, threshold_u=args.u,
-                     temperature=args.temperature,
-                     max_step_tokens=args.max_step_tokens,
-                     max_steps=args.max_steps, min_step_reward=0.0)
-    engine = build_engine(cfgs, gcfg, seed=args.seed, device=args.device,
-                          mode=args.method, max_seq=args.max_seq,
-                          paged=args.paged, page_size=args.page_size,
-                          kv_dtype=None if args.kv_dtype == "fp"
-                          else args.kv_dtype,
-                          quantize_draft=args.quantize_draft)
-    prompts = random_prompts(args.requests, seed=args.seed,
-                             vocab=cfgs[0].vocab_size, lo=24, hi=72)
+    engine_kw = dict(mode=args.method, max_seq=args.max_seq,
+                     paged=args.paged, page_size=args.page_size,
+                     kv_dtype=None if args.kv_dtype == "fp"
+                     else args.kv_dtype, quantize_draft=args.quantize_draft)
+    task = problems = None
+    if args.train_steps:
+        dev = resolve_device(args.device)
+        task = SyntheticReasoningTask(seed=args.seed)
+        print("training draft/target/PRM triple ...", flush=True)
+        *params, hist = train_triple(
+            task, *cfgs, steps_draft=args.train_steps // 2,
+            steps_target=args.train_steps, seed=args.seed, device=dev)
+        for cfg, h in zip(cfgs, hist):
+            print(f"trained {cfg.name}: {h[-1]['step'] + 1} steps, loss "
+                  f"{h[0]['loss']:.4f} -> {h[-1]['loss']:.4f}", flush=True)
+        # the reference CLI's task settings
+        gcfg = GSIConfig(n=args.n, beta=args.beta, threshold_u=args.u,
+                         temperature=args.temperature, max_step_tokens=8,
+                         max_steps=8)
+        engine = GSIServingEngine(*cfgs, *params, gcfg, device=dev,
+                                  **engine_kw)
+        problems = [task.sample_problem() for _ in range(args.requests)]
+        prompts = [np.asarray(p.prompt, np.int32) for p in problems]
+    else:
+        gcfg = GSIConfig(n=args.n, beta=args.beta, threshold_u=args.u,
+                         temperature=args.temperature,
+                         max_step_tokens=args.max_step_tokens,
+                         max_steps=args.max_steps, min_step_reward=0.0)
+        engine = build_engine(cfgs, gcfg, seed=args.seed, device=args.device,
+                              **engine_kw)
+        prompts = random_prompts(args.requests, seed=args.seed,
+                                 vocab=cfgs[0].vocab_size, lo=24, hi=72)
     res = serve(engine, prompts, capacity=args.capacity, seed=args.seed,
                 continuous=not args.gang, sync=args.sync)
     print(f"{args.config} ({cfgs[1].num_layers} layers) method={args.method}"
@@ -209,7 +288,9 @@ def main(argv=None) -> None:
           f"tokens/s={res['tokens_per_s']:.1f} "
           f"accept={res['accept_rate']:.2f} draft_tokens="
           f"{res['draft_tokens']} target_tokens={res['target_tokens']} "
-          f"({'sync' if args.sync else 'async'})")
+          f"({'sync' if args.sync else 'async'})"
+          + (f" accuracy={accuracy(task, problems, res):.3f}"
+             if task is not None else ""))
     if not args.sync:
         pipe = res["pipeline"]
         print(f"async pipeline: overlap_fraction="

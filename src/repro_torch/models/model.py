@@ -22,10 +22,14 @@ RWKV-6 (``ssm``) stacks:
 
 Every attention layer of the full-sequence passes goes through the flash
 kernel on a CUDA tensor, and every RWKV layer of every pass (decode steps
-included) through the WKV6 scan kernel.  They run under
-``torch.no_grad()``: the kernels have no backward yet, and training is a
-later slice.  Encoder ``source`` inputs raise (no cross-attention family
-is ported).
+included) through the WKV6 scan kernel.  A model built with
+``trainable=True`` holds parameters that require a gradient, and its
+``forward``, ``hidden`` and ``reward`` then build an autograd graph when
+grad mode is on (flash attention through its backward kernel on the card;
+the scan has no backward kernel yet, so an RWKV model trains on the CPU
+only).  The serving entry points (``prefill``, ``score``, ``decode_step``,
+``reward_from_hidden``) always run under ``torch.no_grad()``.  Encoder
+``source`` inputs raise (no cross-attention family is ported).
 
 Parameters keep the reference's per-weight layouts (``wq (d,H,hd)``,
 ``wo (H,hd,d)``, ...) under flat names such as ``layers.3.attn.wq`` or
@@ -90,8 +94,8 @@ def random_params(cfg: ModelConfig, seed: int, device) -> dict:
                        device)
 
 
-def _frozen(t) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+def _param(t, trainable: bool) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=trainable)
 
 
 class Block(nn.Module):
@@ -99,16 +103,16 @@ class Block(nn.Module):
     names (``attn.*`` and ``ffn.*``, or ``tm.*`` and ``cm.*``), a
     ``ParameterDict``; ``block["attn"]`` etc. for ``blocks.block_apply``."""
 
-    def __init__(self, kind: str, tensors: dict):
+    def __init__(self, kind: str, tensors: dict, trainable: bool = False):
         super().__init__()
         self.kind = kind
         groups: dict = {}
         for name, t in tensors.items():
             group, _, leaf = name.partition(".")
             if leaf:
-                groups.setdefault(group, {})[leaf] = _frozen(t)
+                groups.setdefault(group, {})[leaf] = _param(t, trainable)
             else:
-                setattr(self, name, _frozen(t))
+                setattr(self, name, _param(t, trainable))
         for group, leaves in groups.items():
             setattr(self, group, nn.ParameterDict(leaves))
 
@@ -118,9 +122,13 @@ class Block(nn.Module):
 
 class Model(nn.Module):
     """A decoder stack holding ``params`` (``{name: tensor}``, see
-    :func:`param_specs`); tensors already on ``device`` are not copied."""
+    :func:`param_specs`); tensors already on ``device`` are not copied.
+    ``trainable=True`` makes every parameter require a gradient;
+    ``dict(model.named_parameters())`` then has the names of
+    :func:`param_specs`."""
 
-    def __init__(self, cfg: ModelConfig, params: dict, *, device=None):
+    def __init__(self, cfg: ModelConfig, params: dict, *, device=None,
+                 trainable: bool = False):
         super().__init__()
         specs = param_specs(cfg)
         if set(params) != set(specs):
@@ -138,19 +146,19 @@ class Model(nn.Module):
         self.cfg = cfg
         self.kinds = [kind for kind, *_ in layer_slots(cfg)]
         self.embed = nn.ParameterDict(
-            {k[6:]: _frozen(v) for k, v in tensors.items()
+            {k[6:]: _param(v, trainable) for k, v in tensors.items()
              if k.startswith("embed.")})
-        self.final_ln = _frozen(tensors["final_ln"])
+        self.final_ln = _param(tensors["final_ln"], trainable)
         self.layers = nn.ModuleList()
         for i, kind in enumerate(self.kinds):
             pre = f"layers.{i}."
             self.layers.append(Block(kind, {
                 k[len(pre):]: v for k, v in tensors.items()
-                if k.startswith(pre)}))
+                if k.startswith(pre)}, trainable))
         if cfg.reward_head:
             self.reward_head = nn.ParameterDict(
-                {"w": _frozen(tensors["reward_head.w"]),
-                 "b": _frozen(tensors["reward_head.b"])})
+                {"w": _param(tensors["reward_head.w"], trainable),
+                 "b": _param(tensors["reward_head.b"], trainable)})
         self.register_buffer("rope_freqs", torch.as_tensor(
             rope_freqs(cfg.head_dim, cfg.rope_theta),
             device=self.final_ln.device), persistent=False)
@@ -183,14 +191,12 @@ class Model(nn.Module):
         positions = torch.arange(tokens.shape[1], device=x.device)
         return self._run_stack(x, positions=positions, **kw)
 
-    @torch.no_grad()
     def forward(self, tokens, *, source=None):
         """Training-shaped forward: (B,S) tokens -> (logits (B,S,V), 0.0)
         (no MoE family is ported, so the auxiliary loss is 0)."""
         x, _ = self._full_sequence(tokens, source, mode="train")
         return unembed(self.cfg, self.embed, x), 0.0
 
-    @torch.no_grad()
     def hidden(self, tokens, *, source=None):
         """Final hidden states (B,S,d), read by ``score`` and ``reward``."""
         return self._full_sequence(tokens, source, mode="train")[0]
@@ -220,13 +226,12 @@ class Model(nn.Module):
         w = emb["unembed"] if "unembed" in emb else emb["embedding"].T
         return ops.logprob_gather(h, w, tokens[:, 1:], self.cfg.vocab_size)
 
-    @torch.no_grad()
     def reward(self, tokens, *, source=None):
         """PRM: per-position reward in [0,1] -> (B,S)."""
         if not self.cfg.reward_head:
             raise ValueError(f"{self.cfg.name}: reward() needs "
                              f"cfg.reward_head")
-        return self.reward_from_hidden(self.hidden(tokens, source=source))
+        return self._reward_head(self.hidden(tokens, source=source))
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, positions, *,
@@ -256,6 +261,9 @@ class Model(nn.Module):
     @torch.no_grad()
     def reward_from_hidden(self, h):
         """PRM head on a hidden state (..., d) -> reward in [0,1]."""
+        return self._reward_head(h)
+
+    def _reward_head(self, h):
         rh = self.reward_head
         logit = (h.float() @ rh["w"].float())[..., 0] + rh["b"].float()
         return torch.sigmoid(logit)

@@ -1,2 +1,2 @@
 """Reward models of the port."""
-from repro_torch.rewards.prm import PRM  # noqa: F401
+from repro_torch.rewards.prm import PRM, OracleRewardModel  # noqa: F401

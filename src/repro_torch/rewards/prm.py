@@ -3,11 +3,12 @@
 A port of ``repro.rewards.prm.PRM`` (rewards in [0,1], like
 Qwen2.5-Math-PRM-7B in the paper).  Its rewards come from one full-sequence
 pass, so every attention layer runs the flash kernel on the card.
-``OracleRewardModel`` needs the synthetic task (``repro.data.synthetic``)
-and arrives with the training slice.
+``OracleRewardModel`` exposes the synthetic task's golden reward r*
+(:mod:`repro_torch.data.synthetic`) with the same interface, host-side.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
@@ -41,3 +42,17 @@ class PRM:
         r = self.reward_sequences(tokens, source=source)
         idx = torch.as_tensor(lengths, device=r.device).long().clamp(min=1) - 1
         return torch.gather(r, 1, idx[:, None])[:, 0]
+
+
+class OracleRewardModel:
+    """Golden reward r* for the synthetic reasoning task (host-side)."""
+
+    def __init__(self, task):
+        self.task = task
+
+    def reward(self, prob, step_tokens_so_far) -> float:
+        return self.task.golden_reward(prob, step_tokens_so_far)
+
+    def batch_reward(self, probs, steps_batch) -> np.ndarray:
+        return np.array([self.reward(p, s)
+                         for p, s in zip(probs, steps_batch)], np.float32)

@@ -12,8 +12,11 @@ and transposed; ragged tokens, depth and vocabulary strips), and
 full-sequence flash attention (fp32 and bf16; GQA groups 1, 2, 6, 7 and
 64; head_dim 16, 40, 64 and 128, bf16 at 64 and 128 through the TMA/wgmma
 kernel; windows shorter and longer than the key tile; ragged Sq and Sk,
-Sk > Sq non-causal), which refuses inputs that require a gradient, and
-the WKV6 scan
+Sk > Sq non-causal), which refuses inputs that require a gradient when
+called directly, and its backward kernel (fp32 and bf16; the same
+groups, head dims, windows and ragged shapes; bitwise deterministic;
+through the autograd Function of ``ops.flash_attention``; one toy train
+step on the card against the CPU), and the WKV6 scan
 (head dims 32 and 64; T = 1, 17 and 1000; bf16 and fp32 r/k/v; spread
 decays and a non-zero initial state; decays at the model's clamp ends and
 mixed; B = H = 1 at T = 4096, many segments; forced plans down to
@@ -450,18 +453,108 @@ def test_flash_hopper_kernel_matches_plain(cuda_device, hd, H, KV, causal,
 
 @pytest.mark.cuda
 def test_flash_kernel_refuses_gradients_and_rowless_windows(cuda_device):
+    """Called directly the forward wrapper refuses inputs that require a
+    gradient (``ops.flash_attention`` sends them through the autograd
+    Function instead, tested below)."""
     q, k, v = flash_case(0, B=1, Sq=16, Sk=16, H=2, KV=1, hd=16,
                          dtype=torch.float32, device=cuda_device)
     before = flash_attention_cuda.launches
     with pytest.raises(RuntimeError, match="forward-only"):
-        ops.flash_attention(q.requires_grad_(), k, v)
+        flash_attention_cuda(q.requires_grad_(), k, v)
     q = q.detach()
     with pytest.raises(RuntimeError, match="forward-only"):
-        ops.flash_attention(q, k, v.requires_grad_())
+        flash_attention_cuda(q, k, v.requires_grad_())
     # a query row with no live key (Sq >= Sk + window)
     with pytest.raises(ValueError):
         flash_attention_cuda(q, k[:, :4], v.detach()[:, :4], window=8)
     assert flash_attention_cuda.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       # P and dS rounded to bf16
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("causal,window,Sq,Sk", [
+    (True, 0, 300, 300), (True, 5, 300, 300), (True, 100, 300, 300),
+    (True, 0, 70, 130), (False, 33, 90, 90)])
+@pytest.mark.parametrize("H,KV,hd", [(14, 2, 128), (4, 4, 40), (4, 2, 16),
+                                     (64, 1, 8)])     # G = 7, 1, 2, 64
+def test_flash_backward_kernel_matches_plain(cuda_device, dtype, tol, causal,
+                                             window, Sq, Sk, H, KV, hd):
+    """dq, dk, dv against the plain backward, each to ``tol`` of its scale;
+    two calls bitwise equal (no atomics)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain)
+    q, k, v = flash_case(H + hd + window + Sk, B=2, Sq=Sq, Sk=Sk, H=H,
+                         KV=KV, hd=hd, dtype=dtype, device=cuda_device)
+    kw = dict(causal=causal, window=window)
+    out = flash_attention_plain(q, k, v, **kw)
+    dout = torch.randn(q.shape, device=cuda_device).to(dtype)
+    before = flash_attention_bwd_cuda.launches
+    got = flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
+    again = flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
+    want = flash_attention_bwd_plain(q, k, v, out, dout, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_cuda.launches == before + 2
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g, a)
+        scale = max(w.float().abs().max().item(), 1.0)
+        assert (g.float() - w.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+def test_flash_autograd_function_runs_both_kernels(cuda_device):
+    """``ops.flash_attention`` on inputs that require a gradient: the
+    forward kernel, then the backward kernel, never a plain version."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain)
+    q, k, v = (t.requires_grad_() for t in flash_case(
+        3, B=2, Sq=100, Sk=100, H=12, KV=2, hd=128, dtype=torch.bfloat16,
+        device=cuda_device))
+    before = (flash_attention_cuda.launches,
+              flash_attention_bwd_cuda.launches)
+    out = ops.flash_attention(q, k, v, window=9)
+    dout = torch.randn_like(out)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert (flash_attention_cuda.launches,
+            flash_attention_bwd_cuda.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    want = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                     out.detach(), dout, window=9)
+    for g, w in zip(grads, want):
+        scale = max(w.float().abs().max().item(), 1.0)
+        assert (g.float() - w.float()).abs().max().item() <= 2e-2 * scale
+
+
+@pytest.mark.cuda
+def test_toy_trainer_step_on_card_matches_cpu(cuda_device):
+    """One fp32 train step of the toy target on the card (flash forward and
+    backward kernels in every layer) against the same step on the CPU:
+    loss to 1e-4, parameters to 1e-4 of their scale plus 5% of the step's
+    learning rate (Adam's m / sqrt(v) of a near-zero gradient)."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.data import SyntheticReasoningTask
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    from repro_torch.launch import serve
+    from repro_torch.models import random_params
+    from repro_torch.train import Trainer
+    cfg = serve.toy_triple()[1]
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=4)
+    params = random_params(cfg, 3, "cpu")
+    batch = SyntheticReasoningTask(seed=2).lm_batch(16, 64)
+    before = flash_attention_bwd_cuda.launches
+    card = Trainer(cfg, tcfg, params=params, device=cuda_device)
+    cpu = Trainer(cfg, tcfg, params=params, device="cpu")
+    lc, lp = (float(tr.step(batch)["loss"]) for tr in (card, cpu))
+    assert flash_attention_bwd_cuda.launches == before + cfg.num_layers
+    assert abs(lc - lp) <= 1e-4 * max(abs(lp), 1.0)
+    slack = 0.05 * float(cpu.opt.lr_fn(1))
+    for name, p in cpu.params.items():
+        got = card.params[name].detach().cpu()
+        scale = max(p.detach().abs().max().item(), 1.0)
+        assert (got - p.detach()).abs().max().item() <= 1e-4 * scale + slack
 
 
 @pytest.mark.cuda

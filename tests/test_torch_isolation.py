@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no ``repro``, no silent CPU fallback.
 
 * An AST scan of ``src/repro_torch/**.py`` and ``chip_smoke.py`` finds no
-  import of ``jax`` or of ``repro`` / ``repro.*`` (``repro_torch`` is fine).
+  import of ``jax``, of ``repro`` / ``repro.*`` (``repro_torch`` is fine)
+  or of ``msgpack`` (which the card's machine does not have).
 * A subprocess in which ``import jax`` and ``import repro`` fail imports
   every module of the port.
 * The entry points default to ``device="cuda"`` and raise where CUDA is
@@ -18,7 +19,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 
 
 def _port_files():
