@@ -24,10 +24,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    attention (target and draft heads, bf16 through the TMA/wgmma kernel
    and fp32; bf16 at the toy head dims 40 and 16 through the mma.sync
    kernel, G = 7 and 1; causal with no window and with one shorter than
-   every tile, S = 1000), flash attention's backward kernel (the draft's
-   and the target's heads in bf16 at the training shape B = 4, S = 512;
-   the toy heads hd 16 and 40 in fp32, causal and with a window shorter
-   than every tile; two calls bitwise equal) and the WKV6 scan (rwkv6-3b's
+   every tile, S = 1000; the TMA/wgmma kernel asked for its log-sum-exp
+   gives the same output bits), flash attention's backward (bf16 through
+   the TMA/wgmma kernels from the forward kernel's log-sum-exp: the
+   draft's heads at S = 511, as run t1 trains them, at hd 128 and at hd 64
+   with a window shorter than every tile, and the target's at S = 512; the
+   toy heads hd 16 and 40 in fp32 through the older kernels, causal and
+   with a window shorter than every tile; each case's route printed and
+   checked; two calls bitwise equal; timed at both training shapes beside
+   SDPA's backward) and the WKV6 scan (rwkv6-3b's
    heads at its decode,
    shared-scoring and full-sequence shapes in bf16, and a toy hd = 32 in
    fp32; spread decays and a non-zero initial state; then decays at the
@@ -113,7 +118,8 @@ The line before the last is ``{"kernels": [...]}``: every ported kernel
 with its largest error in phase 3, its timings and its launch count from the
 phase-4 run(s) of its path (the gather's row also carries its fp32-h
 timings under ``fp32_h_*``, the paged rows their long-context timings
-under ``long_*`` and the wrapper's host time per call under ``host_ms``).
+under ``long_*`` and the wrapper's host time per call under ``host_ms``,
+the backward's row its draft-shape timings under ``draft_*``).
 The last line is ``{"ok": true, "device": {...}}``.  ``--layers`` cuts
 the depth of runs (a), (d) and (b) (never a width, never run (c),
 score-prm or the RWKV runs) and says so on a ``reduced:`` line.
@@ -199,8 +205,9 @@ PROFILE_LAYERS = 14
 # sides in fp32, summation orders differ: 1e-5 of the gradient's scale.
 # bf16: the kernel rounds P and dS to bf16 before their products (2^-9
 # relative each, summed over hundreds of keys) where the plain version
-# keeps them in fp32, and both round dq, dk, dv to bf16 (half an ulp,
-# 2^-9): 2e-2 of the gradient's scale (0.5% seen at S = 512)
+# keeps them in fp32 (the TMA/wgmma backward also forms dS from the bf16
+# P), and both round dq, dk, dv to bf16 (half an ulp, 2^-9): 2e-2 of the
+# gradient's scale (0.5% seen at S = 512)
 BWD_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}
 
 
@@ -845,7 +852,8 @@ def bound_flash(q, k, window):
 def phase_kernels_flash(torch):
     print("== phase 3: flash_attention vs its plain version", flush=True)
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+    from repro_torch.kernels.flash_attention import (LOG2E,
+                                                     flash_attention_cuda,
                                                      flash_attention_plain,
                                                      uses_hopper_kernel)
     max_err = 0.0
@@ -869,19 +877,39 @@ def phase_kernels_flash(torch):
             q, k, v = flash_case(torch, B=4, S=1000, H=H, KV=KV, hd=hd,
                                  dtype=dtype, seed=H + hd % 128 + window)
             got = flash_attention_cuda(q, k, v, window=window)
-            want = flash_attention_plain(q, k, v, window=window)
+            want, want_lse = flash_attention_plain(q, k, v, window=window,
+                                                   return_lse=True)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(got).all()),
                   f"flash {tag}: non-finite kernel output")
             err = (got.float() - want.float()).abs().max().item()
             tol = TOL[str(dtype)]
+            lse_text = ""
+            if uses_hopper_kernel(dtype, hd):
+                # asked for its log-sum-exp, the kernel's output is the same
+                # bits; the base-2 log-sum-exp within 1e-3 (natural units)
+                # of the plain one (fp32 sums of exp2 in another order)
+                with_lse, lse = flash_attention_cuda(q, k, v, window=window,
+                                                     return_lse=True)
+                torch.cuda.synchronize()
+                same = torch.equal(got, with_lse)
+                lse_err = (lse / LOG2E - want_lse).abs().max().item()
+                lse_text = (f"; with its log-sum-exp the output is bitwise "
+                            f"the same: {same}, lse max_abs_err="
+                            f"{lse_err:.3e} (tol 1e-3)")
+                check(same, f"flash_attention {tag} window {window}: the "
+                      f"output differs when the log-sum-exp is asked for")
+                check(lse_err <= 1e-3, f"flash_attention {tag} window "
+                      f"{window}: log-sum-exp error {lse_err} > 1e-3")
+                del with_lse, lse
             print(f"flash_attention {tag} B=4 S=1000 H={H} KV={KV} "
                   f"hd={hd} {str(dtype)[6:]} causal window={window}: "
-                  f"max_abs_err={err:.3e} (tol {tol:.0e})", flush=True)
+                  f"max_abs_err={err:.3e} (tol {tol:.0e}){lse_text}",
+                  flush=True)
             check(err <= tol, f"flash_attention {tag} hd={hd} {dtype} "
                   f"window {window}: error {err} > {tol}")
             max_err = max(max_err, err)
-            del q, k, v, got, want
+            del q, k, v, got, want, want_lse
 
     # timing at a scoring shape: B = 4, S = 1024, the target's heads, bf16
     H, KV = shapes["target"]
@@ -929,36 +957,98 @@ def bound_flash_bwd(q, k, window):
 
 
 def flash_bwd_case(torch, *, B, S, H, KV, hd, dtype, window, seed):
-    """q, k, v and dO N(0, 1) in ``dtype``, and the forward's output (the
-    plain version's, so both backwards see the same O)."""
-    from repro_torch.kernels.flash_attention import flash_attention_plain
+    """(q, k, v, out, dout) and the backward's keyword arguments: q, k, v
+    and dO N(0, 1) in ``dtype``; where the TMA/wgmma backward takes the
+    inputs, out and the base-2 log-sum-exp from the forward kernel (as a
+    train step passes them), else out from the plain forward.  Both
+    backwards see the same out."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_plain, uses_hopper_bwd_kernel)
     q, k, v = flash_case(torch, B=B, S=S, H=H, KV=KV, hd=hd, dtype=dtype,
                          seed=seed)
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-    return q, k, v, flash_attention_plain(q, k, v, window=window), dout
+    if uses_hopper_bwd_kernel(dtype, hd):
+        out, lse = flash_attention_cuda(q, k, v, window=window,
+                                        return_lse=True)
+        return (q, k, v, out, dout), {"lse": lse}
+    return (q, k, v, flash_attention_plain(q, k, v, window=window),
+            dout), {}
+
+
+def time_flash_bwd(torch, tag, S, H, KV):
+    """Device ms per call of the backward kernel, its plain version and
+    SDPA's backward at (B 4, S, H, KV, hd 128, bf16, causal), and the
+    bound; two input sets cycled (about 50 MB each at the target's
+    heads)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain)
+    cases = [flash_bwd_case(torch, B=4, S=S, H=H, KV=KV, hd=128,
+                            dtype=torch.bfloat16, window=0, seed=400 + i)
+             for i in range(2)]
+    sets = [(*args, i) for i, (args, _) in enumerate(cases)]
+    ms, ms_host = time_ms(torch, lambda q, k, v, o, d, i:
+                          flash_attention_bwd_cuda(q, k, v, o, d,
+                                                   **cases[i][1]),
+                          sets, iters=10)
+    plain_ms, _ = time_ms(torch, lambda *a: flash_attention_bwd_plain(*a),
+                          [args for args, _ in cases], iters=2)
+    lib_sets = []
+    for (q, k, v, _, dout), _ in cases:
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        lib_sets.append((out, qt, kt, vt, dout.transpose(1, 2).contiguous()))
+    library_ms, library_host = time_ms(
+        torch, lambda o, a, b, c, d: torch.autograd.grad(
+            o, (a, b, c), d, retain_graph=True), lib_sets, iters=10)
+    bound_ms, bound_by = bound_flash_bwd(cases[0][0][0], cases[0][0][1], 0)
+    print(f"flash_attention_bwd timing, {tag} (B=4 S={S} H={H} KV={KV} "
+          f"hd=128 bf16 causal), device-only ms per call: kernel {ms:.4f}, "
+          f"bound {bound_ms:.4f} ({bound_by}), plain {plain_ms:.4f}, "
+          f"library (the backward of scaled_dot_product_attention "
+          f"is_causal enable_gqa, (B,H,S,hd), alone) {library_ms:.4f}; "
+          f"back to back from the host: kernel {ms_host:.4f}, library "
+          f"{library_host:.4f}", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def phase_kernels_flash_bwd(torch):
     print("== phase 3: flash_attention_bwd vs its plain version", flush=True)
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_cuda, flash_attention_bwd_plain)
-    # the training shapes: the draft's and the target/PRM's heads in bf16
-    # at B = 4, S = 512 (hd 128, mma.sync on the tensor cores); the toy
-    # triple's fp32 heads (hd 16 and 40, G = 2, CUDA cores), causal and
-    # with window 8, shorter than every 32-query and 64-key tile, so late
-    # rows' first tiles are wholly masked
-    cases = [("draft", 12, 2, 128, torch.bfloat16, 0, 512),
-             ("target", 28, 4, 128, torch.bfloat16, 0, 512)]
+        bwd_split_plan, flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        uses_hopper_bwd_kernel)
+    # the training shapes: the draft's heads at S - 1 = 511 positions (what
+    # run t1 trains) and the target/PRM's at 512, bf16 hd 128 through the
+    # TMA/wgmma backward (the forward kernel's out and log-sum-exp); the
+    # draft's heads at hd 64 with a window of 8, shorter than every tile;
+    # the toy triple's fp32 heads (hd 16 and 40, G = 2, the CUDA-core
+    # kernels), causal and with window 8, shorter than every 32-query and
+    # 64-key tile, so late rows' first tiles are wholly masked
+    cases = [("draft", 12, 2, 128, torch.bfloat16, 0, 511),
+             ("target", 28, 4, 128, torch.bfloat16, 0, 512),
+             ("draft hd=64", 12, 2, 64, torch.bfloat16, 8, 511)]
     cases += [(f"toy hd={hd}", 4, 2, hd, torch.float32, w, 200)
               for hd in (16, 40) for w in (0, 8)]
     max_err = 0.0
     for tag, H, KV, hd, dtype, window, S in cases:
-        args = flash_bwd_case(torch, B=4, S=S, H=H, KV=KV, hd=hd,
-                              dtype=dtype, window=window, seed=H + hd + window)
-        got = flash_attention_bwd_cuda(*args, window=window)
-        again = flash_attention_bwd_cuda(*args, window=window)
+        hopper = uses_hopper_bwd_kernel(dtype, hd)
+        check(hopper == (dtype == torch.bfloat16),
+              f"flash_attention_bwd {tag}: unexpected kernel choice")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        route = ("TMA/wgmma (flash_attention_bwd_hopper.cu), plan (chunk, "
+                 f"runs) on {sms} SMs "
+                 f"{bwd_split_plan(4, S, S, H, KV, window=window, sms=sms)}"
+                 if hopper else "mma.sync / CUDA cores "
+                 "(flash_attention_bwd.cu)")
+        args, kw = flash_bwd_case(torch, B=4, S=S, H=H, KV=KV, hd=hd,
+                                  dtype=dtype, window=window,
+                                  seed=H + hd + window)
+        got = flash_attention_bwd_cuda(*args, window=window, **kw)
+        again = flash_attention_bwd_cuda(*args, window=window, **kw)
         want = flash_attention_bwd_plain(*args, window=window)
         torch.cuda.synchronize()
         tol = BWD_TOL[str(dtype)]
@@ -975,47 +1065,24 @@ def phase_kernels_flash_bwd(torch):
             max_err = max(max_err, err)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         print(f"flash_attention_bwd {tag} B=4 S={S} H={H} KV={KV} hd={hd} "
-              f"{str(dtype)[6:]} causal window={window}: max_abs_err "
-              f"{', '.join(errs)} (tol {tol:.0e} x scale); two calls "
-              f"bitwise equal: {same}", flush=True)
+              f"{str(dtype)[6:]} causal window={window}: route {route}; "
+              f"max_abs_err {', '.join(errs)} (tol {tol:.0e} x scale); two "
+              f"calls bitwise equal: {same}", flush=True)
         check(same, f"flash_attention_bwd {tag}: two calls differ")
-        del args, got, again, want
+        del args, kw, got, again, want
 
-    # timing at the target's training shape (B = 4, S = 512, bf16)
-    sets = [flash_bwd_case(torch, B=4, S=512, H=28, KV=4, hd=128,
-                           dtype=torch.bfloat16, window=0, seed=400 + i)
-            for i in range(2)]                  # 50 MB each
-    ms, ms_host = time_ms(torch, lambda *a: flash_attention_bwd_cuda(*a),
-                          sets, iters=10)
-    plain_ms, _ = time_ms(torch, lambda *a: flash_attention_bwd_plain(*a),
-                          sets, iters=2)
-    lib_sets = []
-    for q, k, v, _, dout in sets:
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                      for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
-        lib_sets.append((out, qt, kt, vt, dout.transpose(1, 2).contiguous()))
-    library_ms, library_host = time_ms(
-        torch, lambda o, a, b, c, d: torch.autograd.grad(
-            o, (a, b, c), d, retain_graph=True), lib_sets, iters=10)
-    bound_ms, bound_by = bound_flash_bwd(sets[0][0], sets[0][1], 0)
-    print(f"flash_attention_bwd timing (B=4 S=512 H=28 KV=4 hd=128 bf16 "
-          f"causal), device-only ms per call: kernel {ms:.4f}, bound "
-          f"{bound_ms:.4f} ({bound_by}), plain {plain_ms:.4f}, library "
-          f"(the backward of scaled_dot_product_attention is_causal "
-          f"enable_gqa, (B,H,S,hd), alone) {library_ms:.4f}; back to back "
-          f"from the host: kernel {ms_host:.4f}, library {library_host:.4f}",
-          flush=True)
-    del sets, lib_sets
+    # timing at both training shapes (B = 4, bf16, hd 128)
+    target = time_flash_bwd(torch, "target", 512, 28, 4)
+    draft = time_flash_bwd(torch, "draft", 511, 12, 2)
     return {"name": "flash_attention_bwd", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "source": "src/repro_torch/csrc/flash_attention_bwd_hopper.cu",
             "replaces": "src/repro/models/attention.py:57 (no Pallas "
                         "kernel: the reference's training differentiates "
                         "this einsum attention through XLA)",
-            "launches": 0, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "launches": 0, "max_abs_err": max_err, **target,
+            **{f"draft_{k}": v for k, v in draft.items()},
+            "other_source": "src/repro_torch/csrc/flash_attention_bwd.cu "
+                            "(fp32, bf16 head_dim 16 and 40)"}
 
 
 # the decays' ends under models/rwkv.py:_decay's clamp of log(-log w) to

@@ -60,9 +60,16 @@
 //   * The ragged Sq / Sk edges of the last two are masked in the kernel:
 //     rows past Sq are computed on zeros and never written, keys past Sk
 //     are staged as zeros and masked.  Nothing is padded in device memory.
+//   * Given a non-null `lse` (flash_attention_hopper_fwd only), the
+//     epilogue also writes each row's log-sum-exp, fp32 (B, H, Sq), in
+//     base 2: lse2 = m + log2(l) of the scores scaled by scale * log2(e),
+//     i.e. the natural log-sum-exp of the scaled scores times log2(e).
+//     The backward (flash_attention_bwd_hopper.cu) rebuilds P as
+//     exp2(s * scale * log2(e) - lse2) from it.  Serving and scoring pass
+//     null: the output's arithmetic is the same either way.
 // Not yet: a persistent grid (each block pays its own Q load and output
 // store outside the product loop), the softmax of one tile overlapped
-// with the next tile's QK^T inside a warpgroup, or a backward pass.
+// with the next tile's QK^T inside a warpgroup.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -470,6 +477,7 @@ constexpr int kHConsumers = 256;
 
 struct HArgs {
   void* out;
+  float* lse;                        // (B, H, Sq) log2-sum-exp, or null
   int Sq, Sk, H, G, qt, causal, window;
   float scale_log2;                  // softmax scale * log2(e)
 };
@@ -729,6 +737,15 @@ flash_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
     }
     const float inv0 = 1.f / fmaxf(l0, 1e-30f);
     const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+    if (a.lse != nullptr && tq == 0) {
+      // m is the row's max in the log2 domain, l its sum of exp2(s - m)
+      const int p0 = pw0 + r0 / a.G, p1 = pw0 + r1 / a.G;
+      const long hb = (long)b * a.H + (long)h * a.G;
+      if (r0 < rows && p0 < a.Sq)
+        a.lse[(hb + r0 % a.G) * a.Sq + p0] = m0 + log2f(l0);
+      if (r1 < rows && p1 < a.Sq)
+        a.lse[(hb + r1 % a.G) * a.Sq + p1] = m1 + log2f(l1);
+    }
     // stage the bf16 tile in this warpgroup's Q panels (its last product
     // has completed), 16-byte chunks XOR-swizzled by row so the quad's
     // 4-byte writes do not conflict, then store whole rows
@@ -758,12 +775,13 @@ flash_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
 
 template <int HD>
 cudaError_t launch_hopper(const void* q, const void* k, const void* v,
-                          void* out, int B, int Sq, int Sk, int H, int KV,
-                          int causal, int window, float scale,
+                          void* out, float* lse, int B, int Sq, int Sk,
+                          int H, int KV, int causal, int window, float scale,
                           cudaStream_t stream) {
   using P = HPlan<HD>;
   HArgs a;
   a.out = out;
+  a.lse = lse;
   a.Sq = Sq;
   a.Sk = Sk;
   a.H = H;
@@ -864,22 +882,26 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 }
 
 // bf16 q, k, v with head_dim 64 or 128 through the TMA/wgmma kernel; the
-// rest of the contract as flash_attention_fwd.  Returns the cudaError_t of
-// building the tensor maps and of the launch (0 = success).
+// rest of the contract as flash_attention_fwd.  `lse`, if not null, is a
+// float32 (B, H, Sq) buffer that receives each row's log-sum-exp in base 2
+// (the natural one times log2(e)).  Returns the cudaError_t of building
+// the tensor maps and of the launch (0 = success).
 extern "C" int flash_attention_hopper_fwd(const void* q, const void* k,
-                                          const void* v, void* out, int B,
-                                          int Sq, int Sk, int H, int KV,
-                                          int hd, int causal, int window,
-                                          float scale, void* stream) {
+                                          const void* v, void* out,
+                                          void* lse, int B, int Sq, int Sk,
+                                          int H, int KV, int hd, int causal,
+                                          int window, float scale,
+                                          void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 ||
       H / KV > kRows || window < 0 || B > 65535 || KV > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (hd == 128)
-    return (int)launch_hopper<128>(q, k, v, out, B, Sq, Sk, H, KV, causal,
+    return (int)launch_hopper<128>(q, k, v, out, l, B, Sq, Sk, H, KV, causal,
                                    window, scale, s);
   if (hd == 64)
-    return (int)launch_hopper<64>(q, k, v, out, B, Sq, Sk, H, KV, causal,
+    return (int)launch_hopper<64>(q, k, v, out, l, B, Sq, Sk, H, KV, causal,
                                   window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -52,8 +52,10 @@
 //   dQ, Q and dO for dK and dV) are staged a second time transposed.
 //   Rows past Sq or Sk are staged as zeros and never written; head_dim is
 //   zero-padded to a multiple of 16 in shared memory.
-// Not yet: wgmma and TMA, the log-sum-exp emitted by the forward, Q and dO
-// tiles shared by the G heads of a group in (b).
+// bf16 at head_dim 64 and 128 (every Qwen2.5-Math layer) no longer comes
+// here: flash_attention_bwd_hopper.cu (wgmma and TMA, the log-sum-exp the
+// forward saved, a key tile's heads spread over several blocks) takes it.
+// These kernels keep fp32 and the toy models' bf16 head dims 16 and 40.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

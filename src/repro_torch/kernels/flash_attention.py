@@ -18,21 +18,33 @@ it.
   head dims to the ``mma.sync`` kernel and fp32 to the CUDA-core kernel,
   chosen from dtype and shape before the launch.  Called directly it is
   forward-only: an input that requires a gradient raises.
+  With ``return_lse`` the TMA/wgmma kernel also returns each row's
+  log-sum-exp in base 2 (:data:`LOG2E` times the natural one), the unit
+  the Hopper backward uses.
 * :func:`flash_attention_bwd_plain` is the backward of the plain version
-  as the kernel computes it: the log-sum-exp recomputed, ``D = rowsum(dO *
-  O)``, ``dS = P * (dP - D)``, dK and dV summed over the query heads of a kv
-  group, P kept in fp32 (the forward's bf16 cast of P gets no gradient
-  path of its own).  :func:`flash_attention_bwd_cuda` launches
-  ``csrc/flash_attention_bwd.cu`` (three kernels, no atomics) and counts
-  its calls in ``flash_attention_bwd_cuda.launches``.
+  as the kernels compute it: the log-sum-exp (given, natural log, or
+  recomputed), ``D = rowsum(dO * O)``, ``dS = P * (dP - D)``, dK and dV
+  summed over the query heads of a kv group, P kept in fp32 (the forward's
+  bf16 cast of P gets no gradient path of its own).
+  :func:`flash_attention_bwd_cuda` launches, for bf16 at head_dim 64 or
+  128 (:func:`uses_hopper_bwd_kernel`), ``csrc/
+  flash_attention_bwd_hopper.cu`` (TMA/wgmma: dQ and D, then dK/dV over
+  the plan of :func:`bwd_split_plan`, then the split tiles' partials
+  summed in order) from the forward's
+  log-sum-exp, and otherwise ``csrc/flash_attention_bwd.cu`` (three
+  mma.sync / CUDA-core kernels that rebuild it); no atomics either way.
+  It counts its calls in ``flash_attention_bwd_cuda.launches``.
 * :class:`FlashAttention` binds the two as a ``torch.autograd.Function``:
-  the forward kernel on detached inputs, the backward kernel for the
-  gradients (the plain versions for CPU tensors).  ``ops.flash_attention``
-  goes through it whenever an input requires a gradient.
+  the forward kernel on detached inputs, saving the log-sum-exp where the
+  Hopper backward takes it, and the backward kernels for the gradients
+  (the plain versions, with the plain log-sum-exp, for CPU tensors).
+  ``ops.flash_attention`` goes through it whenever an input requires a
+  gradient.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -41,6 +53,15 @@ from repro_torch.kernels import build
 NEG = -1e30
 MAX_GROUP = 64        # query heads per kv head (the kernel's 64 query rows)
 MAX_HEAD_DIM = 128
+LOG2E = 1.4426950408889634
+# the Hopper backward's dK/dV blocks: 128 keys, swept in 64-query items;
+# the plan packs them into waves of one block per SM of the card, and sums
+# the runs of a split key tile from fp32 partials
+BWD_KEYS, BWD_QUERIES = 128, 64
+# a dK/dV block's own cost (its K/V load, start and epilogue) in items,
+# fitted to `tools/compare_flash_bwd.py --plans` on an H100: runs of one
+# item a block took twice as long as runs of nine
+BWD_BLOCK_COST = 4
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -57,8 +78,10 @@ def _live(Sq: int, Sk: int, causal, window: int, device):
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window: int = 0,
-                          scale=None):
-    """q: (B,Sq,H,hd); k/v: (B,Sk,KV,hd) -> (B,Sq,H,hd)."""
+                          scale=None, return_lse: bool = False):
+    """q: (B,Sq,H,hd); k/v: (B,Sk,KV,hd) -> (B,Sq,H,hd).  With
+    ``return_lse`` also the natural-log log-sum-exp of each row's masked
+    scaled scores, float32 (B, H, Sq)."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -70,16 +93,21 @@ def flash_attention_plain(q, k, v, *, causal=True, window: int = 0,
     p = torch.softmax(s, dim=-1).to(q.dtype)
     dt = torch.promote_types(p.dtype, v.dtype)       # as jnp promotes
     out = torch.einsum("bkgqs,bskh->bqkgh", p.to(dt), v.to(dt))
-    return out.reshape(B, Sq, H, hd)
+    out = out.reshape(B, Sq, H, hd)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+    return out
 
 
 def flash_attention_bwd_plain(q, k, v, out, dout, *, causal=True,
-                              window: int = 0, scale=None):
+                              window: int = 0, scale=None, lse=None):
     """Gradients of :func:`flash_attention_plain` -> (dq, dk, dv) in the
-    dtypes of q, k and v, computed in fp32 as the backward kernel does.
+    dtypes of q, k and v, computed in fp32 as the backward kernels do.
 
     ``out`` is the forward's output, ``dout`` its gradient (both
-    (B,Sq,H,hd)).  Masked scores are -1e30, so P = exp(s - lse) is exactly
+    (B,Sq,H,hd)); ``lse``, if given, the forward's natural-log log-sum-exp
+    (B, H, Sq) (``flash_attention_plain(..., return_lse=True)``), else it
+    is recomputed.  Masked scores are -1e30, so P = exp(s - lse) is exactly
     0 there.
     """
     B, Sq, H, hd = q.shape
@@ -91,7 +119,11 @@ def flash_attention_bwd_plain(q, k, v, out, dout, *, causal=True,
     kf, vf = k.float(), v.float()
     s = torch.einsum("bqkgh,bskh->bkgqs", qg, kf) * scale
     s = torch.where(_live(Sq, Sk, causal, window, q.device), s, NEG)
-    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    if lse is None:
+        lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    else:
+        lse = lse.float().reshape(B, KV, G, Sq, 1)
+    p = torch.exp(s - lse)
     do = dout.float().reshape(B, Sq, KV, G, hd)
     delta = (do * out.float().reshape(B, Sq, KV, G, hd)).sum(-1)
     dv = torch.einsum("bkgqs,bqkgh->bskh", p, do)
@@ -114,7 +146,7 @@ def _library():
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         hop = lib.flash_attention_hopper_fwd
-        hop.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+        hop.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
             + [ctypes.c_float, ctypes.c_void_p]
         hop.restype = ctypes.c_int
     return lib
@@ -124,6 +156,74 @@ def uses_hopper_kernel(dtype, head_dim: int) -> bool:
     """Whether :func:`flash_attention_cuda` sends these inputs to the
     TMA/wgmma kernel (else the ``mma.sync`` or CUDA-core one)."""
     return dtype == torch.bfloat16 and head_dim in HOPPER_HEAD_DIMS
+
+
+def uses_hopper_bwd_kernel(dtype, head_dim: int) -> bool:
+    """Whether :func:`flash_attention_bwd_cuda` sends these inputs to the
+    TMA/wgmma backward, which takes the forward's log-sum-exp (else the
+    ``mma.sync`` or CUDA-core kernels, which rebuild it)."""
+    return uses_hopper_kernel(dtype, head_dim)
+
+
+def bwd_split_plan(B: int, Sq: int, Sk: int, H: int, KV: int, *,
+                   causal=True, window: int = 0, sms: int):
+    """The Hopper backward's dK/dV plan on a card of ``sms`` SMs, a pure
+    function of its arguments: ``(chunk, tiles)``, ``tiles[t] = (jlo, n,
+    splits)`` for each key tile of :data:`BWD_KEYS` keys.
+
+    Query tiles ``jlo .. jlo + n - 1`` of :data:`BWD_QUERIES` positions hold
+    a live pair for some key of tile t; its ``N = G * n`` items (query head,
+    query tile), in that order, are cut into ``splits`` near-equal
+    contiguous runs of at most ``chunk`` items, one block each (run s takes
+    items ``s * N // splits`` to ``(s + 1) * N // splits``), for all (batch
+    row, kv head) pairs.  The runs' fp32 partials are summed in run order
+    by a second pass.  ``chunk`` minimises the waves of ``sms`` blocks
+    times the longest run plus :data:`BWD_BLOCK_COST` (the larger on a tie:
+    fewer partials).  The wrapper hands the kernels this plan as a table
+    (:func:`_plan_table`); they do not recompute it.
+    """
+    return _bwd_split_plan(B, Sq, Sk, H, KV, bool(causal), int(window),
+                           int(sms))
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_split_plan(B, Sq, Sk, H, KV, causal, window, sms):
+    G = H // KV
+    tiles = []
+    for t in range(-(-Sk // BWD_KEYS)):
+        k0, klast = t * BWD_KEYS, min((t + 1) * BWD_KEYS, Sk) - 1
+        qlo = k0 if causal else 0
+        qhi = min(Sq - 1, klast + window - 1) if window else Sq - 1
+        jlo = qlo // BWD_QUERIES
+        tiles.append((jlo, qhi // BWD_QUERIES - jlo + 1 if qlo <= qhi
+                      else 0))
+    items = [G * n for _, n in tiles]
+    best = None
+    for chunk in range(max(items + [1]), 0, -1):
+        runs = [max(1, -(-N // chunk)) for N in items]
+        longest = max(-(-N // r) for N, r in zip(items, runs))
+        cost = -(-B * KV * sum(runs) // sms) * (longest + BWD_BLOCK_COST)
+        if best is None or cost < best[0]:
+            best = cost, chunk
+    chunk = best[1]
+    return chunk, tuple((jlo, n, max(1, -(-N // chunk)))
+                        for (jlo, n), N in zip(tiles, items))
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_table(tiles, device):
+    """The plan's tiles as the kernels read them: int32 (tiles, 4) on
+    ``device``, row t = (jlo, n, splits, the tile's first block)."""
+    rows, slot0 = [], 0
+    for jlo, n, splits in tiles:
+        rows.append((jlo, n, splits, slot0))
+        slot0 += splits
+    return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_inputs(who, q, k, v):
@@ -167,12 +267,15 @@ def _check_limits(who, B, Sq, Sk, H, KV, hd, window, device):
 
 
 def flash_attention_cuda(q, k, v, *, causal=True, window: int = 0,
-                         scale=None):
+                         scale=None, return_lse: bool = False):
     """Launch the CUDA kernel on the current stream; same contract as
     :func:`flash_attention_plain`.  q, k and v are float32 or bfloat16 of
     one dtype (made contiguous), ``H / KV <= 64``, head_dim a multiple of 8
-    up to 128, and every query row must have a live key.  Raises on
-    anything the kernel does not take, on an input that requires a
+    up to 128, and every query row must have a live key.  With
+    ``return_lse`` (the TMA/wgmma route only, :func:`uses_hopper_kernel`)
+    also each row's log-sum-exp in base 2, float32 (B, H, Sq): the natural
+    one times :data:`LOG2E`, the unit the Hopper backward takes.  Raises
+    on anything the kernel does not take, on an input that requires a
     gradient, and on a failed launch."""
     who = "flash_attention_cuda"
     B, Sq, Sk, H, KV, hd = _check_inputs(who, q, k, v)
@@ -183,37 +286,51 @@ def flash_attention_cuda(q, k, v, *, causal=True, window: int = 0,
                            f"ops.flash_attention (the FlashAttention "
                            f"autograd Function)")
     _check_limits(who, B, Sq, Sk, H, KV, hd, window, q.device)
+    hopper = uses_hopper_kernel(q.dtype, hd)
+    if return_lse and not hopper:
+        raise ValueError(f"{who}: return_lse needs the TMA/wgmma route "
+                         f"(bfloat16, head_dim in {HOPPER_HEAD_DIMS}); got "
+                         f"{q.dtype}, head_dim {hd}")
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if B == 0 or Sq == 0:
-        return out
+        return (out, lse) if return_lse else out
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if any(t.data_ptr() % 16 for t in (q, k, v, out)):
         raise ValueError(f"{who}: tensors must be 16-byte aligned")
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-            Sk, H, KV, hd, int(bool(causal)), int(window),
+    args = (B, Sq, Sk, H, KV, hd, int(bool(causal)), int(window),
             float(hd ** -0.5 if scale is None else scale))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = _library()
-    if uses_hopper_kernel(q.dtype, hd):
-        err = lib.flash_attention_hopper_fwd(*args, stream)
+    if hopper:
+        err = lib.flash_attention_hopper_fwd(
+            *ptrs, None if lse is None else lse.data_ptr(), *args, stream)
     else:
-        err = lib.flash_attention_fwd(*args, _DTYPE_CODE[q.dtype], stream)
+        err = lib.flash_attention_fwd(*ptrs, *args, _DTYPE_CODE[q.dtype],
+                                      stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention_cuda.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_cuda.launches = 0
 
 
 def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal=True,
-                             window: int = 0, scale=None):
+                             window: int = 0, scale=None, lse=None):
     """Launch the backward kernels on the current stream; same contract as
     :func:`flash_attention_bwd_plain`, and the forward's limits.  All five
-    tensors are float32 or bfloat16 of one dtype (made contiguous).  Raises
-    on anything the kernels do not take and on a failed launch."""
+    tensors are float32 or bfloat16 of one dtype (made contiguous).
+
+    Where :func:`uses_hopper_bwd_kernel` holds, ``lse`` is required: the
+    base-2 log-sum-exp that ``flash_attention_cuda(..., return_lse=True)``
+    returned for this ``out``, and no QK^T sweep rebuilds it.  The other
+    kernels rebuild it and take no ``lse``.  Raises on anything the kernels
+    do not take and on a failed launch."""
     who = "flash_attention_bwd_cuda"
     B, Sq, Sk, H, KV, hd = _check_inputs(who, q, k, v)
     for name, t in (("out", out), ("dout", dout)):
@@ -223,23 +340,55 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal=True,
                              f"{tuple(q.shape)} on {q.device}), got "
                              f"{t.dtype}, {tuple(t.shape)} on {t.device}")
     _check_limits(who, B, Sq, Sk, H, KV, hd, window, q.device)
+    hopper = uses_hopper_bwd_kernel(q.dtype, hd)
+    if hopper and (lse is None or lse.shape != (B, H, Sq)
+                   or lse.dtype != torch.float32 or lse.device != q.device):
+        got = None if lse is None else (lse.dtype, tuple(lse.shape),
+                                        lse.device)
+        raise ValueError(f"{who}: the TMA/wgmma backward needs the "
+                         f"forward's base-2 log-sum-exp, float32 "
+                         f"{(B, H, Sq)} on {q.device} "
+                         f"(flash_attention_cuda(..., return_lse=True)); "
+                         f"got {got}")
+    if not hopper and lse is not None:
+        raise ValueError(f"{who}: the {q.dtype} head_dim {hd} kernels "
+                         f"rebuild the log-sum-exp and take none")
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     if B == 0 or Sq == 0:
         return dq, dk.zero_(), dv.zero_()
     q, k, v, out, dout = (t.contiguous() for t in (q, k, v, out, dout))
-    stats = torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
     if any(t.data_ptr() % 16 for t in (q, k, v, out, dout, dq, dk, dv)):
         raise ValueError(f"{who}: tensors must be 16-byte aligned")
-    lib = _library_bwd()
-    err = lib.flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        stats[0].data_ptr(), stats[1].data_ptr(), B, Sq, Sk, H, KV, hd,
-        int(bool(causal)), int(window),
-        float(hd ** -0.5 if scale is None else scale), _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+    scale = float(hd ** -0.5 if scale is None else scale)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if hopper:
+        _, tiles = bwd_split_plan(B, Sq, Sk, H, KV, causal=causal,
+                                  window=window, sms=_sm_count(q.device))
+        nslots = sum(splits for _, _, splits in tiles)
+        lse = lse.contiguous()
+        delta = torch.empty((B, H, Sq), dtype=torch.float32,
+                            device=q.device)
+        part = torch.empty(
+            (B * KV * nslots * 2 * BWD_KEYS * hd
+             if nslots > len(tiles) else 0,),
+            dtype=torch.float32, device=q.device)
+        err = _library_bwd_hopper().flash_attention_hopper_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), part.data_ptr(),
+            _plan_table(tiles, q.device).data_ptr(), B, Sq, Sk, H, KV, hd,
+            int(bool(causal)), int(window), scale, nslots, stream)
+    else:
+        stats = torch.empty((2, B, H, Sq), dtype=torch.float32,
+                            device=q.device)
+        err = _library_bwd().flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats[0].data_ptr(), stats[1].data_ptr(), B, Sq, Sk, H, KV, hd,
+            int(bool(causal)), int(window), scale, _DTYPE_CODE[q.dtype],
+            stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err}")
@@ -260,25 +409,44 @@ def _library_bwd():
     return lib
 
 
+def _library_bwd_hopper():
+    lib = build.load("flash_attention_bwd_hopper")
+    fn = lib.flash_attention_hopper_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 \
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention: the forward kernel and the backward
-    kernel on CUDA tensors, :func:`flash_attention_plain` and
-    :func:`flash_attention_bwd_plain` on CPU tensors.  Saves q, k, v and
-    the output; the backward recomputes P from them."""
+    kernels on CUDA tensors, :func:`flash_attention_plain` and
+    :func:`flash_attention_bwd_plain` on CPU tensors.  Saves q, k, v, the
+    output and the log-sum-exp (the forward kernel's base-2 one where the
+    Hopper backward takes it, the plain natural-log one on the CPU, none on
+    the other kernels, which rebuild it); the backward rebuilds P from
+    them."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
         q, k, v = q.detach(), k.detach(), v.detach()
-        fwd = flash_attention_cuda if q.is_cuda else flash_attention_plain
-        out = fwd(q, k, v, causal=causal, window=window, scale=scale)
-        ctx.save_for_backward(q, k, v, out)
-        ctx.opts = {"causal": causal, "window": window, "scale": scale}
+        opts = {"causal": causal, "window": window, "scale": scale}
+        if not q.is_cuda:
+            out, lse = flash_attention_plain(q, k, v, return_lse=True,
+                                             **opts)
+        elif uses_hopper_bwd_kernel(q.dtype, q.shape[-1]):
+            out, lse = flash_attention_cuda(q, k, v, return_lse=True, **opts)
+        else:
+            out, lse = flash_attention_cuda(q, k, v, **opts), None
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = opts
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         bwd = flash_attention_bwd_cuda if q.is_cuda \
             else flash_attention_bwd_plain
-        dq, dk, dv = bwd(q, k, v, out, dout, **ctx.opts)
+        dq, dk, dv = bwd(q, k, v, out, dout, lse=lse, **ctx.opts)
         return dq, dk, dv, None, None, None

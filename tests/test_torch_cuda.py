@@ -476,23 +476,39 @@ def test_flash_kernel_refuses_gradients_and_rowless_windows(cuda_device):
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("causal,window,Sq,Sk", [
     (True, 0, 300, 300), (True, 5, 300, 300), (True, 100, 300, 300),
-    (True, 0, 70, 130), (False, 33, 90, 90)])
+    (True, 0, 70, 130), (False, 33, 90, 90), (True, 0, 511, 511),
+    (True, 0, 512, 512), (True, 8, 511, 511), (True, 0, 300, 200),
+    (False, 0, 150, 333)])
 @pytest.mark.parametrize("H,KV,hd", [(14, 2, 128), (4, 4, 40), (4, 2, 16),
-                                     (64, 1, 8)])     # G = 7, 1, 2, 64
+                                     (64, 1, 8),      # G = 7, 1, 2, 64
+                                     (12, 2, 128), (28, 4, 128),
+                                     (12, 2, 64)])    # the training heads
 def test_flash_backward_kernel_matches_plain(cuda_device, dtype, tol, causal,
                                              window, Sq, Sk, H, KV, hd):
     """dq, dk, dv against the plain backward, each to ``tol`` of its scale;
-    two calls bitwise equal (no atomics)."""
+    two calls bitwise equal (no atomics).  bf16 at head_dim 64 and 128 takes
+    the TMA/wgmma backward from the forward kernel's log-sum-exp (the out
+    it returned with it); the rest the kernels that rebuild it.  S 511 and
+    512 are the training shapes (511 ragged against the 64-query items and
+    the 128-key tiles); window 8 is shorter than every tile; Sq 300 > Sk
+    200 causal, and Sq 150 < Sk 333 without the mask."""
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_cuda, flash_attention_bwd_plain)
+        flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        uses_hopper_bwd_kernel)
     q, k, v = flash_case(H + hd + window + Sk, B=2, Sq=Sq, Sk=Sk, H=H,
                          KV=KV, hd=hd, dtype=dtype, device=cuda_device)
     kw = dict(causal=causal, window=window)
-    out = flash_attention_plain(q, k, v, **kw)
+    hopper = uses_hopper_bwd_kernel(dtype, hd)
+    assert hopper == (dtype == torch.bfloat16 and hd in (64, 128))
+    if hopper:
+        out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        kw_cuda = dict(kw, lse=lse)
+    else:
+        out, kw_cuda = flash_attention_plain(q, k, v, **kw), kw
     dout = torch.randn(q.shape, device=cuda_device).to(dtype)
     before = flash_attention_bwd_cuda.launches
-    got = flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
-    again = flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
+    got = flash_attention_bwd_cuda(q, k, v, out, dout, **kw_cuda)
+    again = flash_attention_bwd_cuda(q, k, v, out, dout, **kw_cuda)
     want = flash_attention_bwd_plain(q, k, v, out, dout, **kw)
     torch.cuda.synchronize()
     assert flash_attention_bwd_cuda.launches == before + 2
@@ -501,6 +517,35 @@ def test_flash_backward_kernel_matches_plain(cuda_device, dtype, tol, causal,
         assert torch.equal(g, a)
         scale = max(w.float().abs().max().item(), 1.0)
         assert (g.float() - w.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("H,KV", [(28, 4), (12, 2), (4, 4)])  # G = 7, 6, 1
+@pytest.mark.parametrize("causal,window,Sq,Sk", [
+    (True, 0, 511, 511), (True, 8, 300, 300), (False, 0, 150, 333)])
+def test_flash_forward_lse_matches_plain(cuda_device, hd, H, KV, causal,
+                                         window, Sq, Sk):
+    """The TMA/wgmma forward asked for its log-sum-exp: the output bitwise
+    the same as without it, the base-2 log-sum-exp within 1e-3 (absolute,
+    in the natural unit) of the plain one over scores of a few units."""
+    from repro_torch.kernels.flash_attention import LOG2E
+    q, k, v = flash_case(H + hd + window + Sq, B=2, Sq=Sq, Sk=Sk, H=H,
+                         KV=KV, hd=hd, dtype=torch.bfloat16,
+                         device=cuda_device)
+    kw = dict(causal=causal, window=window)
+    before = flash_attention_cuda.launches
+    plain_out = flash_attention_cuda(q, k, v, **kw)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    _, want = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 2
+    assert torch.equal(out, plain_out)
+    assert lse.shape == (2, H, Sq) and lse.dtype == torch.float32
+    assert (lse / LOG2E - want).abs().max().item() <= 1e-3
+    with pytest.raises(ValueError, match="return_lse"):
+        flash_attention_cuda(q.float(), k.float(), v.float(),
+                             return_lse=True)
 
 
 @pytest.mark.cuda
@@ -526,6 +571,62 @@ def test_flash_autograd_function_runs_both_kernels(cuda_device):
     for g, w in zip(grads, want):
         scale = max(w.float().abs().max().item(), 1.0)
         assert (g.float() - w.float()).abs().max().item() <= 2e-2 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sms", [
+    10 ** 9,       # a run of one item a block: the most partials
+    33, 1])        # fewer, longer runs
+@pytest.mark.parametrize("H,KV,S,window", [(28, 4, 512, 0), (12, 2, 511, 8),
+                                           (12, 2, 300, 0)])
+def test_flash_backward_plans_match_plain(cuda_device, monkeypatch, sms, H,
+                                         KV, S, window):
+    """The TMA/wgmma backward under the dK/dV plans for other SM counts
+    (``_sm_count`` replaced): the partials of other runs summed by the
+    second pass, each within 2e-2 of the gradient's scale of the plain
+    backward, two calls bitwise equal."""
+    from repro_torch.kernels import flash_attention as fa
+    monkeypatch.setattr(fa, "_sm_count", lambda device: sms)
+    q, k, v = flash_case(H + S + window, B=2, Sq=S, Sk=S, H=H, KV=KV,
+                         hd=128, dtype=torch.bfloat16, device=cuda_device)
+    out, lse = flash_attention_cuda(q, k, v, window=window, return_lse=True)
+    dout = torch.randn(q.shape, device=cuda_device).to(torch.bfloat16)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, window=window,
+                                      lse=lse)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, dout, window=window,
+                                        lse=lse)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, dout, window=window)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        scale = max(w.float().abs().max().item(), 1.0)
+        assert (g.float() - w.float()).abs().max().item() <= 2e-2 * scale
+
+
+@pytest.mark.cuda
+def test_flash_backward_runs_on_a_new_thread(cuda_device):
+    """The TMA/wgmma backward launched first from a thread that has made
+    no CUDA call (as autograd's device threads may be): its tensor maps
+    must not be refused, and it gives the main thread's gradients."""
+    import threading
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    q, k, v = flash_case(5, B=2, Sq=100, Sk=100, H=12, KV=2, hd=128,
+                         dtype=torch.bfloat16, device=cuda_device)
+    out, lse = flash_attention_cuda(q, k, v, window=9, return_lse=True)
+    dout = torch.randn_like(out)
+    got = []
+
+    def run():
+        got.append(flash_attention_bwd_cuda(q, k, v, out, dout, window=9,
+                                            lse=lse))
+        torch.cuda.synchronize()
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    want = flash_attention_bwd_cuda(q, k, v, out, dout, window=9, lse=lse)
+    torch.cuda.synchronize()
+    assert len(got) == 1
+    assert all(torch.equal(g, w) for g, w in zip(got[0], want))
 
 
 @pytest.mark.cuda
