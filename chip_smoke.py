@@ -67,6 +67,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    quantized kernel and the vocab gather ran twice per draft phase; in
    score-prm the flash kernel ran once per layer of every full-sequence
    call and the gather once per score call, with no paged launch.
+   Then the SLO runs, at full width and ``SLO_LAYERS`` deep (said on a
+   ``reduced:`` line): five requests (r0 64 tokens, r1 48, r2 40 at
+   priority 1 with a deadline it cannot meet, r3 r0's first 32 tokens and
+   24 of its own, r4 40 at priority 1 with one it meets) on 2 slots over
+   bf16 pages with the prefix cache, n 4, temperature 0, no EOS and no
+   early stop, at a threshold between two of the requests' first-step
+   selected tilted rewards (one calibration step), each request with a
+   token stream: run gsi-slo (lock-step, prefill chunks of 16; r2 and r4
+   submitted once neither slot is free or mid-prefill, so r2 pauses a
+   live slot), gsi-slo-async (the same pipelined) and gsi-slo-oneshot
+   (whole prompts, all five at the start at priority 0).  Each request's
+   tokens and finish reason are identical in all three; the chunked runs
+   commit at most 16 prompt tokens a call, the one-shot run more, and the
+   chunked runs preempt and resume; every run accepts and falls back,
+   misses r2's deadline (counted as the responses say), hits the prefix
+   cache, reassembles every stream, conserves pages and launches the
+   paged kernel layers x paged decode_step calls times, nothing else.
+   TTFT and TPOT per priority class are printed.  Then the warm cache:
+   run gsi-slo-oneshot's radix cache saved to an ``.npz``, loaded into a
+   fresh engine (rows bitwise equal, pages conserved), and r0 served
+   alone for one step with a prefix hit and the same first step.
    Then, once the Qwen weights are freed, the full-width full-depth
    rwkv6-3b triple (bf16, seeded random weights, every decay_base
    overwritten so the WKV state carries): run gsi-rwkv-shared serves 4
@@ -197,10 +218,26 @@ QWEN_THRESHOLD = -9.5
 # so the run commits accepted draft candidates over int8 pages and falls
 # back to the target
 QWEN_INT8_THRESHOLD = QWEN_THRESHOLD
+# the SLO runs of phase 4 (gsi-slo, gsi-slo-async, gsi-slo-oneshot): the
+# chunked runs' per-step prefill budget; the deadlines of the priority-1
+# requests (r2's cannot be met, r4's is); the seed of the five prompts; r0's
+# step budget: the other requests take the GSI config's 3, but at 3 r0
+# (64 prompt tokens, prefilled in 4 steps) finishes before r1 (48 tokens,
+# prefilled in 3 more) decodes, so no step would find both slots decoding
+# and r2 would never have a victim; at 5 both decode after step 7 and r2
+# pauses r1 with 2 of its steps left
+SLO_CHUNK = 16
+SLO_MISS_S, SLO_MEET_S = 1e-3, 600.0
+SLO_PROMPT_SEED = 23
+SLO_R0_STEPS = 5
 # phase 5 profiles the Qwen engine steps at this depth (the profiler's
 # processing grows with the launches; at 28 layers the three profiles
 # took 313 s of a chip run)
 PROFILE_LAYERS = 14
+# depth of the SLO runs and the warm-cache check (0: the published 28): at
+# 28 layers they took 287 s of a chip run (H100 80GB HBM3, 700 W), which
+# would take the whole script past 800 s; widths are never cut
+SLO_LAYERS = PROFILE_LAYERS
 # flash attention's backward kernel against its plain version.  fp32: both
 # sides in fp32, summation orders differ: 1e-5 of the gradient's scale.
 # bf16: the kernel rounds P and dS to bf16 before their products (2^-9
@@ -212,6 +249,7 @@ BWD_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}
 
 
 T0 = time.perf_counter()
+CARD = "card not read"      # nvidia-smi's name and power limit (phase 1)
 
 
 class SmokeFailure(Exception):
@@ -439,6 +477,8 @@ def phase_device(torch):
         check=True, timeout=60).stdout.strip().splitlines()
     check(smi, "nvidia-smi printed nothing")
     print(smi[0], flush=True)
+    global CARD
+    CARD = smi[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)}"
           f" count {torch.cuda.device_count()}", flush=True)
@@ -1606,6 +1646,7 @@ def phase_main(torch, layers):
           f"{got['logprob_gather']} + score-prm {scored['logprob_gather']}",
           flush=True)
     elapsed("run score-prm")
+    launches["paged_attention"] += phase_slo(torch, params)
     # the profiler's processing costs about as much as the step itself,
     # per launch: the three Qwen engine-step profiles run at
     # PROFILE_LAYERS layers so that the script keeps well inside its time
@@ -1624,6 +1665,356 @@ def phase_main(torch, layers):
     phase_profile_pipelined(torch, prof_cfgs, prof_params, gcfg)
     phase_profile_scoring(torch, full, params, results["gsi"])
     del params, cut
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------------------
+# Phase 4: SLO serving (chunked prefill, priority preemption, deadlines,
+# token streams) and the warm prefix cache
+# ----------------------------------------------------------------------
+
+def slo_requests(vocab):
+    """The five requests of the SLO runs: ``id -> (prompt, priority,
+    deadline_s, step budget)``; r3 is r0's first 32 tokens (two pages) and
+    24 of its own, so its admission gets a prefix hit."""
+    import numpy as np
+    from repro_torch.launch import serve
+    p = serve.random_prompts(5, seed=SLO_PROMPT_SEED, vocab=vocab, lo=64,
+                             hi=64)
+    return {"r0": (p[0], 0, None, SLO_R0_STEPS),
+            "r1": (p[1][:48], 0, None, None),
+            "r2": (p[2][:40], 1, SLO_MISS_S, None),
+            "r3": (np.concatenate([p[0][:32], p[3][:24]]), 0, None, None),
+            "r4": (p[4][:40], 1, SLO_MEET_S, None)}
+
+
+def slo_engine(torch, cfgs, params, g, rec, capacity=2):
+    """A paged bf16 engine (pages of 16 rows, prefix cache on, max_seq
+    512) whose three models' decode steps are counted into ``rec``."""
+    from repro_torch.serving import GSIServingEngine
+    engine = GSIServingEngine(*cfgs, *params, g, mode="gsi", max_seq=512,
+                              device="cuda", paged=True, page_size=16)
+    for tag, model in (("draft", engine.draft), ("target", engine.target),
+                       ("prm", engine.prm)):
+        instrument(torch, model, tag, rec)
+    return engine
+
+
+def live_tilted(engine, into):
+    """Record, at every materialized step, each live row's tilted rewards
+    (at temperature 0 the n candidates are one, so any is the selected)."""
+    materialize = engine.materialize
+
+    def recorded(ticket):
+        res = materialize(ticket)
+        into.extend(res.tilted[~res.done_prev, 0].tolist())
+        return res
+
+    engine.materialize = recorded
+
+
+def slo_threshold(torch, cfgs, params, g, reqs):
+    """A threshold among the runs' own selected tilted rewards: one engine
+    step of the five prompts (one slot each) gives every request's first
+    decision, which no threshold changes (temperature 0, the prompt alone
+    as context); the midpoint of the widest gap between two of them makes
+    every run accept at least one first step and reject at least one."""
+    from repro_torch.serving import GSIScheduler
+    engine = slo_engine(torch, cfgs, params, g, {}, capacity=5)
+    first = []
+    live_tilted(engine, first)
+    sched = GSIScheduler(engine, capacity=5)
+    for rid, (prompt, _, _, _) in reqs.items():
+        sched.submit(prompt, request_id=rid, max_steps=1)
+    sched.run(torch.Generator(device="cuda").manual_seed(0))
+    vals = sorted(first)
+    check(len(vals) == len(reqs), f"SLO calibration: {len(vals)} first "
+          f"decisions for {len(reqs)} requests")
+    gap, lo = max((b - a, a) for a, b in zip(vals, vals[1:]))
+    threshold = lo + gap / 2
+    print(f"SLO runs: first-step selected tilted rewards "
+          f"{[round(v, 4) for v in vals]}; threshold {threshold:.4f} (the "
+          f"midpoint of their widest gap, {gap:.4f})", flush=True)
+    del sched, engine
+    return threshold
+
+
+def slo_run(torch, name, cfgs, params, g, reqs, acc, *, sync, chunk,
+            staged):
+    """Serve the five requests through ``GSIScheduler.step`` with every
+    launch counter zeroed just before and read just after.  ``staged``:
+    r0, r1 and r3 at the start, r2 and r4 (priority 1) once neither slot
+    is free or mid-prefill; otherwise all five at the start, priority 0.
+    Every request carries its deadline and a ``TokenStream``."""
+    from repro_torch.serving import GSIScheduler, TokenStream
+    rec = acc.setdefault(name, {})
+    engine = slo_engine(torch, cfgs, params, g, rec)
+    tilted = []
+    live_tilted(engine, tilted)
+    sched = GSIScheduler(engine, capacity=2, sync=sync, chunk_tokens=chunk,
+                         collect_stats=True)
+    streams = {}
+
+    def submit(rid, at=0.0):
+        prompt, prio, deadline, steps = reqs[rid]
+        streams[rid] = TokenStream()
+        sched.submit(prompt, request_id=rid, max_steps=steps,
+                     arrival_time=at, priority=prio if staged else 0,
+                     deadline_s=deadline, stream=streams[rid])
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    wrappers = counters(torch)
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    late = ["r2", "r4"] if staged else []
+    for rid in ("r0", "r1", "r3") if staged else ("r0", "r1", "r3", "r2",
+                                                  "r4"):
+        submit(rid)
+    calls = late_at = 0
+    while sched.queue or sched.pool.num_live or sched.has_pending:
+        sched.step(gen)
+        calls += 1
+        check(calls < 200, f"{name}: not drained after {calls} steps")
+        if late and sched.pool.num_live == 2 and not sched._prefill:
+            now = sched._now()
+            for rid in late:
+                submit(rid, now)
+            late, late_at = [], calls
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    check(not late, f"{name}: no step found both slots decoding")
+    out = sched.responses
+    tokens = sum(r.num_tokens for r in out.values())
+    return {"name": name, "engine": engine, "sched": sched, "out": out,
+            "streams": {rid: list(s) for rid, s in streams.items()},
+            "launches": launches, "wall_s": wall, "tokens": tokens,
+            "tokens_per_s": tokens / wall, "steps": sched.engine_steps,
+            "late_at": late_at, "tilted": tilted, "stats": sched.stats,
+            "prefix": sched.prefix_stats()}
+
+
+def slo_report(torch, res, rec, vocab, reqs):
+    """Print one SLO run's numbers and hold it to the checks every run
+    shares: tokens, finish reasons, streams, deadline accounting, prefix
+    hits, page conservation and launches."""
+    import numpy as np
+    name, out, st = res["name"], res["out"], res["stats"]
+    pool = res["engine"].pager
+    print(f"run {name}: requests finished {len(out)}/{len(reqs)}, engine "
+          f"steps {res['steps']}, generated tokens {res['tokens']}, wall "
+          f"{res['wall_s']:.2f} s, tokens/s {res['tokens_per_s']:.2f} "
+          f"({CARD})" + (f"; r2 and r4 submitted after step "
+                         f"{res['late_at']}" if res["late_at"] else ""),
+          flush=True)
+    print(f"run {name}: counters preemptions {st.preemptions}, resumes "
+          f"{st.resumes}, deadline_misses {st.deadline_misses}, "
+          f"prefill_commit_max {st.prefill_commit_max}, decisions "
+          f"{st.decisions}, accepted {st.accepted}, prefix {res['prefix']}",
+          flush=True)
+    t = np.asarray(res["tilted"])
+    print(f"run {name}: selected tilted rewards of {t.size} decisions in "
+          f"[{t.min():.4f}, {t.max():.4f}], median {np.median(t):.4f}",
+          flush=True)
+    for prio in sorted({r.priority for r in out.values()}):
+        cls = [r for r in out.values() if r.priority == prio]
+        ttft = np.asarray([r.ttft for r in cls])
+        tpot = np.asarray([r.tpot for r in cls])
+        print(f"run {name}: priority {prio} ({len(cls)} requests): TTFT "
+              f"median {np.median(ttft):.4f} s, max {ttft.max():.4f} s; "
+              f"TPOT median {np.median(tpot) * 1e3:.2f} ms, max "
+              f"{tpot.max() * 1e3:.2f} ms ({CARD})", flush=True)
+    for tag, r in rec.items():
+        stream_s = sum(a.elapsed_time(b) for a, b in r["events"]) / 1e3
+        print(f"run {name}: {tag} decode_step calls {r['calls']} (paged "
+              f"{r['paged_calls']}), host {r['host_s']:.2f} s, stream "
+              f"{stream_s:.2f} s", flush=True)
+    print(f"run {name}: kernel launches {res['launches']}", flush=True)
+    check(set(out) == set(reqs), f"{name}: finished {sorted(out)}")
+    for rid, r in out.items():
+        toks = r.tokens
+        check(r.finish_reason in ("eos", "low_reward", "max_steps")
+              and toks.size > 0 and toks.min() >= 0 and toks.max() < vocab,
+              f"{name} {rid}: reason {r.finish_reason!r}, tokens {toks}")
+        events = res["streams"][rid]
+        steps = [e.step for e in events[:-1]]
+        got = np.concatenate([np.asarray(e.tokens, np.int32)
+                              for e in events])
+        check(events and events[-1].final
+              and events[-1].finish_reason == r.finish_reason
+              and not any(e.final for e in events[:-1])
+              and all(a < b for a, b in zip(steps, steps[1:]))
+              and got.tolist() == toks.tolist(),
+              f"{name} {rid}: its stream does not reassemble its response")
+    missed = sum(r.deadline_missed for r in out.values())
+    check(st.deadline_misses >= 1 and st.deadline_misses == missed,
+          f"{name}: deadline_misses {st.deadline_misses}, responses past "
+          f"their deadline {missed}")
+    check(st.prefix_hits >= 1, f"{name}: no prefix hit")
+    check(0 < st.accepted < st.decisions,
+          f"{name}: {st.accepted} of {st.decisions} decisions accepted; the"
+          f" run must take both the accept and the fallback branch")
+    check(pool.num_free + pool.num_referenced + pool.num_cached
+          == pool.num_pages,
+          f"{name}: pages free {pool.num_free} + referenced "
+          f"{pool.num_referenced} + cached {pool.num_cached} != "
+          f"{pool.num_pages}")
+    want = sum(r["layers"] * r["paged_calls"] for r in rec.values())
+    check(want > 0 and only(res["launches"], paged_attention=want),
+          f"{name}: launches {res['launches']}; want paged_attention = "
+          f"layers x paged decode_step calls = {want} and no other kernel")
+    print(f"run {name}: streams reassemble every response; deadline misses "
+          f"{missed}; pages conserved ({pool.num_free} free + "
+          f"{pool.num_referenced} referenced + {pool.num_cached} cached = "
+          f"{pool.num_pages}); paged_attention launches {want} = layers x "
+          f"paged decode_step calls, no other kernel", flush=True)
+
+
+def canon_snapshot(snap):
+    """A snapshot as {token path: {leaf: row}}, independent of page ids."""
+    import numpy as np
+    paths = []
+    for i in range(len(snap["pages"])):
+        path, j = [], i
+        while j != -1:
+            path.append(tuple(int(t) for t in snap["chunks"][j]))
+            j = int(snap["parents"][j])
+        paths.append(tuple(reversed(path)))
+    return {path: {k: np.asarray(a)[i] for k, a in snap["leaves"].items()}
+            for i, path in enumerate(paths)}
+
+
+def slo_warm_cache(torch, cfgs, params, g, reqs, one, acc):
+    """Save run gsi-slo-oneshot's radix cache to an ``.npz``, load it into
+    a fresh engine on the same weights (rows bitwise equal, pages
+    conserved), and serve r0 alone for one step: a prefix hit and
+    gsi-slo-oneshot's first step."""
+    import tempfile
+    import numpy as np
+    from repro_torch.serving import GSIScheduler
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "cache.npz"
+        t0 = time.perf_counter()
+        snap = one["engine"].save_cache(one["sched"].state, path)
+        saved_s = time.perf_counter() - t0
+        size = path.stat().st_size
+        rec = acc.setdefault("warm-cache", {})
+        engine = slo_engine(torch, cfgs, params, g, rec)
+        sched = GSIScheduler(engine, capacity=2)
+        t0 = time.perf_counter()
+        sched.state = engine.load_cache(sched.state, str(path))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    pool = engine.pager
+    check(snap["pages"].size > 0 and pool.num_cached == snap["pages"].size,
+          f"warm cache: {snap['pages'].size} pages saved, "
+          f"{pool.num_cached} cached after the load")
+    check(pool.num_free + pool.num_referenced + pool.num_cached
+          == pool.num_pages, "warm cache: pages not conserved by the load")
+    a, b = canon_snapshot(snap), canon_snapshot(engine.save_cache(
+        sched.state))
+    check(a.keys() == b.keys() and all(
+        a[p].keys() == b[p].keys() and all(
+            a[p][k].dtype == b[p][k].dtype and np.array_equal(a[p][k],
+                                                              b[p][k])
+            for k in a[p]) for p in a),
+          "warm cache: restored page rows differ from the saved ones")
+    print(f"warm cache: saved {snap['pages'].size} pages "
+          f"({len(snap['leaves'])} pools, {size} B .npz) in {saved_s:.2f} s,"
+          f" loaded in {load_s:.2f} s ({CARD}); restored rows bitwise "
+          f"equal, pages conserved ({pool.num_free} free + "
+          f"{pool.num_cached} cached = {pool.num_pages})", flush=True)
+    wrappers = counters(torch)
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    sched.submit(reqs["r0"][0], request_id="r0", max_steps=1)
+    sched.run(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    got = sched.responses["r0"].steps[0].tolist()
+    want = one["out"]["r0"].steps[0].tolist()
+    hit = sched.prefix_stats()["hit_tokens"]
+    print(f"warm cache: r0 alone, one step: prefix hit tokens {hit}, first "
+          f"step {'the same as' if got == want else 'NOT'} run "
+          f"gsi-slo-oneshot's; kernel launches {launches}", flush=True)
+    check(hit > 0, "warm cache: r0 got no prefix hit from the restore")
+    check(got == want, f"warm cache: r0's first step {got} != run "
+          f"gsi-slo-oneshot's {want}")
+    paged = sum(r["layers"] * r["paged_calls"] for r in rec.values())
+    check(only(launches, paged_attention=paged),
+          f"warm cache: launches {launches}; want paged_attention = {paged}")
+    del sched, engine
+    return launches["paged_attention"]
+
+
+def phase_slo(torch, params):
+    """Phase 4's SLO runs at full Qwen2.5-Math width (``SLO_LAYERS`` deep)
+    and the warm-cache check; returns their paged_attention launches."""
+    from repro_torch.config import GSIConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import param_specs
+    full = serve.build_triple("qwen2.5-math")
+    cfgs = serve.build_triple("qwen2.5-math", layers=SLO_LAYERS)
+    print(f"== phase 4: SLO runs at full Qwen2.5-Math width "
+          f"({cfgs[0].num_layers} layers)", flush=True)
+    if cfgs[0].num_layers < full[0].num_layers:
+        print(f"reduced: runs gsi-slo, gsi-slo-async, gsi-slo-oneshot and "
+              f"the warm-cache check cut to {cfgs[0].num_layers} layers in "
+              f"all three models (published {full[0].num_layers}); widths "
+              f"unchanged", flush=True)
+    cut = [{k: p[k] for k in param_specs(c)} for p, c in zip(params, cfgs)]
+    g = GSIConfig(n=4, beta=20.0, temperature=0.0, max_step_tokens=16,
+                  max_steps=3, eos_token_id=-1, min_step_reward=-1e9)
+    reqs = slo_requests(full[0].vocab_size)
+    print("SLO requests: " + ", ".join(
+        f"{rid} {p.size} tokens, priority {pr}, deadline_s {dl}, budget "
+        f"{st or g.max_steps}" for rid, (p, pr, dl, st) in reqs.items()),
+        flush=True)
+    g = dataclasses.replace(g, threshold_u=slo_threshold(
+        torch, cfgs, cut, g, reqs))
+    acc, runs = {}, {}
+    for name, sync, chunk, staged in (
+            ("gsi-slo", True, SLO_CHUNK, True),
+            ("gsi-slo-async", False, SLO_CHUNK, True),
+            ("gsi-slo-oneshot", True, 0, False)):
+        runs[name] = slo_run(torch, name, cfgs, cut, g, reqs, acc,
+                             sync=sync, chunk=chunk, staged=staged)
+        slo_report(torch, runs[name], acc[name], full[0].vocab_size, reqs)
+        elapsed(f"run {name}")
+    base = runs["gsi-slo"]["out"]
+    for name, res in runs.items():
+        st = res["stats"]
+        check(all(res["out"][r].tokens.tolist() == base[r].tokens.tolist()
+                  and res["out"][r].finish_reason == base[r].finish_reason
+                  for r in reqs),
+              f"{name}: tokens or finish reasons differ from run gsi-slo's")
+        if name == "gsi-slo-oneshot":
+            check(st.prefill_commit_max > SLO_CHUNK,
+                  f"{name}: prefill_commit_max {st.prefill_commit_max}")
+        else:
+            check(st.prefill_commit_max <= SLO_CHUNK,
+                  f"{name}: prefill_commit_max {st.prefill_commit_max} > "
+                  f"{SLO_CHUNK}")
+            check(st.preemptions >= 1 and st.resumes == st.preemptions,
+                  f"{name}: preemptions {st.preemptions}, resumes "
+                  f"{st.resumes}")
+    print("SLO runs: every request's tokens and finish reason identical in "
+          "runs gsi-slo, gsi-slo-async and gsi-slo-oneshot; "
+          "prefill_commit_max " + ", ".join(
+              f"{n} {r['stats'].prefill_commit_max}" for n, r in runs.items())
+          + f"; preempted " + ", ".join(
+              f"{n} {[r for r, x in res['out'].items() if x.preemptions]}"
+              for n, res in runs.items()), flush=True)
+    launches = sum(r["launches"]["paged_attention"] for r in runs.values())
+    launches += slo_warm_cache(torch, cfgs, cut, g, reqs,
+                               runs["gsi-slo-oneshot"], acc)
+    elapsed("the warm-cache check")
+    runs.clear()
+    del cut
     torch.cuda.empty_cache()
     return launches
 

@@ -4,7 +4,9 @@ continuous-batching scheduler.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --config qwen2.5-math \
         --requests 6 --capacity 4 --n 4 --paged [--layers 28] [--device cuda] \
-        [--kv-dtype {fp,bf16,int8,fp8}] [--quantize-draft] [--sync | --async]
+        [--kv-dtype {fp,bf16,int8,fp8}] [--quantize-draft] [--sync | --async] \
+        [--chunk-tokens N] [--priority K] [--deadline S] [--stream] \
+        [--cache-dir DIR]
     PYTHONPATH=src python -m repro_torch.launch.serve --config rwkv6-3b
     PYTHONPATH=src python -m repro_torch.launch.serve --config rwkv6-3b \
         --device cpu --layers 2 --requests 2 --max-steps 1 --max-step-tokens 4
@@ -19,6 +21,20 @@ pipeline: overlap_fraction=...`` line; ``--sync`` selects the lock-step
 loop (identical tokens).  ``--kv-dtype`` (with ``--paged``) picks the page
 storage format and ``--quantize-draft`` rounds the draft's weights through
 int8, as in the reference's CLI.  ``--replicas > 1`` and ``--tp`` raise.
+
+The SLO options are the reference's: ``--chunk-tokens N`` meters prompt
+prefill to N tokens per engine step, ``--priority K`` submits every K-th
+request at priority 1 (with ``--deadline S`` seconds as its SLO), which
+arms the preemption of priority-0 slots, ``--stream`` prints the first
+request's tokens as they are harvested (one ``stream`` line per event),
+and ``--cache-dir DIR`` (with ``--paged``) restores the radix cache from
+``DIR/cache-r0.npz`` before serving, if it is there, and saves it back
+after.  A second start with the same seed and ``--cache-dir`` serves its
+first requests from the restored pages:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --config toy \
+        --device cpu --paged --chunk-tokens 16 --priority 3 --deadline 5 \
+        --stream --cache-dir /tmp/gsi-cache
 
 ``--config rwkv6-3b`` serves the RWKV-6 family: draft, target and PRM all
 have ``rwkv6-3b``'s shape (the PRM adds the reward head), with seeds 0, 1
@@ -44,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -145,6 +162,7 @@ def random_prompts(count: int, *, seed: int, vocab: int, lo: int, hi: int,
 
 def make_frontend(engines, *, capacity: int, continuous: bool = True,
                   collect_stats: bool = False, sync: bool = True,
+                  chunk_tokens: int = 0, cache_aware: bool = False,
                   **kw) -> GSIScheduler:
     """One serving frontend: a :class:`GSIScheduler` over one engine.
     Several engines (replicas behind a router) are not ported yet."""
@@ -154,21 +172,70 @@ def make_frontend(engines, *, capacity: int, continuous: bool = True,
                 "replicas behind a router are not ported to repro_torch yet")
         engines = engines[0]
     return GSIScheduler(engines, capacity=capacity, continuous=continuous,
-                        collect_stats=collect_stats, sync=sync, **kw)
+                        collect_stats=collect_stats, sync=sync,
+                        chunk_tokens=chunk_tokens, cache_aware=cache_aware,
+                        **kw)
+
+
+def _cache_path(cache_dir: str) -> str:
+    # the reference's name for replica 0's snapshot
+    return os.path.join(cache_dir, "cache-r0.npz")
+
+
+def load_frontend_cache(sched: GSIScheduler, cache_dir: str) -> int:
+    """Warm-restart a frontend from ``cache_dir``: load ``cache-r0.npz``
+    (written by :func:`save_frontend_cache`) into its state through the
+    engine's snapshot codec, so restored radix subtrees serve the first
+    requests from spliced pages.  Returns 1 if a snapshot was restored, 0
+    if there was none."""
+    path = _cache_path(cache_dir)
+    if not os.path.exists(path):
+        return 0
+    sched.state = sched.engine.load_cache(sched.state, path)
+    return 1
+
+
+def save_frontend_cache(sched: GSIScheduler, cache_dir: str) -> int:
+    """Persist the frontend's cached radix subtrees to
+    ``cache_dir/cache-r0.npz``.  Returns 1 if a snapshot was written, 0 for
+    an engine without a live prefix cache."""
+    eng = sched.engine
+    if not eng.paged or not eng.prefix_cache:
+        return 0
+    os.makedirs(cache_dir, exist_ok=True)
+    eng.save_cache(sched.state, _cache_path(cache_dir))
+    return 1
 
 
 def serve(engine: GSIServingEngine, prompts, *, capacity: int,
-          seed: int = 0, continuous: bool = True, sync: bool = True) -> dict:
+          seed: int = 0, continuous: bool = True, sync: bool = True,
+          chunk_tokens: int = 0, cache_aware: bool = False,
+          priority_every: int = 0, deadline_s=None, stream=None,
+          cache_dir: str = "") -> dict:
     """Submit ``prompts`` up front and drain them through the scheduler,
     lock-step (``sync=True``) or pipelined.
+
+    ``chunk_tokens`` and ``cache_aware`` go to the scheduler.
+    ``priority_every=k`` submits every k-th request at priority 1, with
+    ``deadline_s`` as its SLO; ``stream`` is attached to the first
+    request; ``cache_dir`` restores the radix cache from a snapshot there
+    before serving (if one exists) and saves it back after, as the
+    reference's ``evaluate_queued`` does.
 
     Returns the responses and the serving counters; ``wall_s`` is the host
     clock around the whole drain, which ends in a device synchronize, so it
     includes the device work.
     """
     sched = make_frontend(engine, capacity=capacity, continuous=continuous,
-                          collect_stats=True, sync=sync)
-    ids = [sched.submit(p) for p in prompts]
+                          collect_stats=True, sync=sync,
+                          chunk_tokens=chunk_tokens, cache_aware=cache_aware)
+    restored = load_frontend_cache(sched, cache_dir) if cache_dir else 0
+    ids = []
+    for i, p in enumerate(prompts):
+        hi = bool(priority_every) and i % priority_every == 0
+        ids.append(sched.submit(p, priority=1 if hi else 0,
+                                deadline_s=deadline_s if hi else None,
+                                stream=stream if i == 0 else None))
     gen = torch.Generator(device=engine.device)
     gen.manual_seed(seed)
     t0 = time.perf_counter()
@@ -176,14 +243,29 @@ def serve(engine: GSIServingEngine, prompts, *, capacity: int,
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
     wall = time.perf_counter() - t0
+    saved = save_frontend_cache(sched, cache_dir) if cache_dir else 0
     tokens = sum(out[r].num_tokens for r in ids if r in out)
+    ttft = [out[r].ttft for r in ids if r in out
+            and not np.isnan(out[r].ttft)]
     s = sched.stats
     return {"responses": out, "ids": ids, "finished": len(out),
             "steps": sched.engine_steps, "tokens": tokens, "wall_s": wall,
             "tokens_per_s": tokens / max(wall, 1e-9),
             "accept_rate": s.accept_rate, "draft_tokens": s.draft_tokens,
             "target_tokens": s.target_tokens, "prefix": sched.prefix_stats(),
-            "pipeline": sched.pipeline_stats(), "stats": s}
+            "pipeline": sched.pipeline_stats(), "stats": s,
+            "preemptions": s.preemptions, "resumes": s.resumes,
+            "deadline_misses": s.deadline_misses,
+            "prefill_commit_max": s.prefill_commit_max,
+            "ttft_p50": float(np.percentile(ttft, 50)) if ttft else 0.0,
+            "cache_restored": restored, "cache_saved": saved}
+
+
+def _print_stream(event) -> None:
+    """One printed line per stream event, as the reference's CLI prints."""
+    tag = f"[{event.finish_reason}]" if event.final \
+        else " ".join(map(str, event.tokens.tolist()))
+    print(f"stream {event.request_id} step {event.step}: {tag}", flush=True)
 
 
 def main(argv=None) -> None:
@@ -232,6 +314,22 @@ def main(argv=None) -> None:
                          "this many steps first, then serve task problems "
                          "and report accuracy (toy only; 0 = random "
                          "weights)")
+    ap.add_argument("--chunk-tokens", type=int, default=0,
+                    help="per-step prefill token budget (chunked prefill; "
+                         "0 = admit whole prompts at once)")
+    ap.add_argument("--priority", type=int, default=0, metavar="K",
+                    help="submit every K-th request at priority 1 (arms "
+                         "preemption of priority-0 slots; 0 = one class)")
+    ap.add_argument("--deadline", type=float, default=0.0,
+                    help="SLO deadline (seconds, arrival to finish) of the "
+                         "priority-1 requests")
+    ap.add_argument("--stream", action="store_true",
+                    help="print the first request's tokens as they are "
+                         "harvested (one line per stream event)")
+    ap.add_argument("--cache-dir", default="",
+                    help="warm-restart directory: the radix cache snapshot "
+                         "(cache-r0.npz) is restored from here before "
+                         "serving and saved back after (needs --paged)")
     args = ap.parse_args(argv)
     if args.replicas > 1:
         raise NotImplementedError("--replicas > 1 is not ported yet")
@@ -278,7 +376,21 @@ def main(argv=None) -> None:
         prompts = random_prompts(args.requests, seed=args.seed,
                                  vocab=cfgs[0].vocab_size, lo=24, hi=72)
     res = serve(engine, prompts, capacity=args.capacity, seed=args.seed,
-                continuous=not args.gang, sync=args.sync)
+                continuous=not args.gang, sync=args.sync,
+                chunk_tokens=args.chunk_tokens, priority_every=args.priority,
+                deadline_s=args.deadline or None,
+                stream=_print_stream if args.stream else None,
+                cache_dir=args.cache_dir)
+    if args.cache_dir:
+        print(f"cache-dir {args.cache_dir}: restored "
+              f"{res['cache_restored']} snapshot(s), saved "
+              f"{res['cache_saved']}; prefix {res['prefix']}", flush=True)
+    if args.priority or args.chunk_tokens:
+        print(f"slo: preemptions={res['preemptions']} "
+              f"resumes={res['resumes']} "
+              f"deadline_misses={res['deadline_misses']} "
+              f"prefill_commit_max={res['prefill_commit_max']} "
+              f"ttft_p50={res['ttft_p50'] * 1e3:.0f}ms", flush=True)
     print(f"{args.config} ({cfgs[1].num_layers} layers) method={args.method}"
           f" n={args.n} capacity={args.capacity} device={engine.device} "
           f"{'paged' if args.paged else 'dense'} kv={args.kv_dtype}"

@@ -1,4 +1,5 @@
-"""Serving layer of the port: engine, slots, pages, radix cache, scheduler."""
+"""Serving layer of the port: engine, slots, pages, radix cache, scheduler,
+and the radix cache's snapshots."""
 from repro_torch.serving.engine import (branch_cache,  # noqa: F401
                                         branch_pages, repeat_cache,
                                         reset_cache_rows, take_candidates)
@@ -8,6 +9,11 @@ from repro_torch.serving.gsi_engine import (EngineStats,  # noqa: F401
 from repro_torch.serving.pages import (PagePool, RadixIndex,  # noqa: F401
                                        pages_for)
 from repro_torch.serving.scheduler import (GSIScheduler,  # noqa: F401
-                                           Request, Response)
+                                           Request, Response, StreamEvent,
+                                           TokenStream)
+from repro_torch.serving.snapshot import (index_records,  # noqa: F401
+                                          load_snapshot, restore_records,
+                                          restore_state, save_snapshot,
+                                          snapshot_state)
 from repro_torch.serving.slots import (SlotPool, pack_prompts,  # noqa: F401
                                        pack_tails)

@@ -60,6 +60,12 @@ above, which ``dispatch_decode`` passes through.  ``step_decode`` is the
 two back to back, so the lock-step and the pipelined scheduler run the
 same step.  At most one step is in flight: the caches are written in
 place, so the next dispatch must follow the last ``materialize``.
+
+**SLO serving and the warm cache.**  ``extend`` commits the next chunk of a
+chunked prefill through the same commit path (the scheduler's
+``chunk_tokens``); ``preempt_slot`` publishes a paused slot's full pages,
+then releases them; ``save_cache`` / ``load_cache`` snapshot and restore the
+cached radix subtrees (``serving/snapshot.py``).
 """
 from __future__ import annotations
 
@@ -188,7 +194,10 @@ class EngineStats:
     prefill_tokens: int = 0       # prompt tokens actually prefill-committed
     pages_evicted: int = 0        # cached pages evicted to admit (LRU)
     decode_pages_published: int = 0
-    prefill_commit_max: int = 0   # most prompt tokens in one admit commit
+    preemptions: int = 0          # live slots paused for a higher priority
+    resumes: int = 0              # paused requests re-admitted
+    deadline_misses: int = 0      # finished requests past their deadline_s
+    prefill_commit_max: int = 0   # most prompt tokens in one admit/extend
     trace_limit: int = 512
     tilted_rewards: list = field(default_factory=list)
     raw_rewards: list = field(default_factory=list)
@@ -631,6 +640,20 @@ class GSIServingEngine:
             done=torch.where(admit_mask, ~live, state["done"]))
         return self._commit(new, tails[:, 1:], row_live=admit_mask)
 
+    def _extend(self, state, mask, chunks, live):
+        """Commit continuation prefill ``chunks`` (B,W; PAD-padded) into
+        the mid-prefill slots where ``mask`` is True (chunked prefill).
+
+        The commit path teacher-forces ``pending`` + ``chunks[:, :-1]`` and
+        leaves each chunk's last token pending, so after the final chunk a
+        row holds what a one-shot admit leaves (cache prompt[:-1], pending
+        prompt[-1], pos len-1).  ``live`` turns the rows whose final chunk
+        this is to done=False; the others stay done, inert under the decode
+        masks."""
+        new = self._commit(state, chunks, row_live=mask)
+        new["done"] = torch.where(mask, ~live, state["done"])
+        return new
+
     def _branch(self, cache, n, state):
         """n branches of a committed cache: dense n-way copy, or paged
         copy-on-write aliasing.  Returns (cache, branch_pt)."""
@@ -966,19 +989,89 @@ class GSIServingEngine:
         return out
 
     def extend(self, state, mask, chunks, live):
-        """Chunked-prefill continuation: not ported yet."""
-        raise NotImplementedError("extend (chunked prefill) is not ported "
-                                  "to repro_torch yet")
+        """Scheduler API: commit continuation prefill chunks (chunked
+        prefill) into mid-prefill slots.
 
-    def save_cache(self, state, path=None, *, roots=None):
-        """Radix-cache snapshot: not ported yet."""
-        raise NotImplementedError("save_cache is not ported to repro_torch "
-                                  "yet")
+        ``chunks`` (B,W; PAD-padded) holds each masked slot's next run of
+        prompt tokens; ``live`` marks the rows whose final chunk this is
+        (they come up decoding).  Pages for the chunk's positions are drawn
+        lazily from the slot's admission claim, and the host ``pos``/``done``
+        mirrors advance, so a pipelined dispatch keeps assigning pages
+        without reading device state.  Publishing the prompt's full pages
+        stays the scheduler's job (``publish_prefix`` after the final
+        chunk): a page becomes matchable only once its commit is queued.
+        """
+        mask = np.asarray(mask, bool)
+        chunks = np.asarray(chunks, np.int32)
+        live_np = np.asarray(live, bool)
+        lengths = (chunks != PAD).sum(axis=1)
+        if self.paged:
+            self._check_gen(state)
+            state = self._flush_released(state)
+            wants = {}
+            for slot in np.nonzero(mask)[0]:
+                slot = int(slot)
+                # the chunk commits positions pos .. pos+len-1, plus the
+                # benign garbage write at the new pos
+                need = int(self._known_pos[slot]) + int(lengths[slot]) + 1
+                wants[slot] = min(self.nblk, self.pager.max_blocks(slot),
+                                  pages_for(need, self.page_size))
+            state = self._ensure_blocks(state, wants)
+        dev = self.device
+        out = self._extend(
+            state, torch.as_tensor(mask, device=dev),
+            torch.as_tensor(chunks, dtype=torch.long, device=dev),
+            torch.as_tensor(live_np, device=dev))
+        sel = np.nonzero(mask)[0]
+        self._known_pos[sel] = self._known_pos[sel] + lengths[sel]
+        self._known_done[sel] = ~live_np[sel]
+        return out
+
+    def preempt_slot(self, slot: int, tokens) -> int:
+        """Pause a live slot: publish its full committed pages (a later
+        re-admission splices them back through the prefix match), then
+        release its pages and claim.  Returns the pages published.
+
+        Publication precedes the release: ``publish`` requires the caller
+        to hold a reference to every page it publishes.  The caller does
+        the rest: force the row done, free the scheduler slot and requeue
+        ``tokens`` as the resume prompt."""
+        published = self.publish_prefix(slot, tokens)
+        self.release_slot(slot)
+        return published
+
+    def save_cache(self, state, path=None, *, roots=None) -> dict:
+        """Snapshot the cached (reference-free) radix subtrees of ``state``:
+        token chunks, LRU clocks and the cached pages' rows, scale rows
+        included for quantized pools (``serving.snapshot`` format).
+
+        Returns the host-side snapshot dict and, given ``path``, also
+        writes it as one ``.npz``.  ``roots`` restricts it to the given
+        first chunks; ``None`` takes everything cached.  Empty on dense
+        engines or with the prefix cache off."""
+        from repro_torch.serving.snapshot import save_snapshot, \
+            snapshot_state
+        snap = snapshot_state(self, state, roots=roots)
+        if path is not None:
+            save_snapshot(snap, path)
+        return snap
 
     def load_cache(self, state, snapshot):
-        """Radix-cache restore: not ported yet."""
-        raise NotImplementedError("load_cache is not ported to repro_torch "
-                                  "yet")
+        """Splice a snapshot (a dict or an ``.npz`` path) into ``state``'s
+        prefix cache; returns the state.
+
+        Page ids are remapped through the pool's free list, so a restore
+        never overwrites a page a live slot references; when the pool has
+        fewer free pages than the snapshot has records, the coldest
+        subtrees are dropped.  Conservation and the ``scale_slots``
+        lockstep hold after every restore; an empty snapshot changes
+        nothing."""
+        from repro_torch.serving.snapshot import load_snapshot, \
+            restore_state
+        if isinstance(snapshot, (str, bytes)) or hasattr(snapshot,
+                                                         "__fspath__"):
+            snapshot = load_snapshot(snapshot)
+        return restore_state(self, state, snapshot)
 
     def publish_prefix(self, slot: int, tokens) -> int:
         """Publish ``slot``'s full committed pages of ``tokens`` (its

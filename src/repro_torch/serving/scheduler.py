@@ -28,9 +28,31 @@ assembly, stats) runs under that next step.  Admission sees the same free
 slots and pages, and the generator the same draws, as the lock-step loop,
 so both produce the same tokens.
 
-Not ported yet, and raising: ``chunk_tokens`` (chunked prefill),
-``cache_aware`` ordering, priorities and preemption, deadlines and token
-streams.
+Three SLO mechanisms ride on top, as in the reference:
+
+* **chunked prefill** (``chunk_tokens > 0``): prompt prefill is metered to
+  at most ``chunk_tokens`` committed tokens per engine step, shared between
+  new admissions and mid-prefill continuations.  A long prompt is admitted
+  truncated (its slot stays done on the device, inert under the decode
+  masks) and grows by one chunk per step through the engine's ``extend``,
+  so live requests keep decoding.  At temperature 0 the committed context,
+  hence every token, is the same chunked or not.
+* **priority preemption**: requests carry ``priority`` (larger is more
+  urgent) and an optional ``deadline_s``.  When a higher-priority arrival
+  cannot be admitted, the lowest-priority live slot is paused: its full
+  committed pages are published to the radix cache, its slot and pages are
+  released, and the request requeues with prompt + generated tokens as its
+  resume context, spliced back from the cache on re-admission.  A pause,
+  never a drop: ``free + referenced + cached == num_pages`` holds across
+  every preemption and resume.
+* **token streams**: ``submit(..., stream=cb)`` delivers a
+  :class:`StreamEvent` per harvested step and a final one, in materialize
+  order, which gives each request's TTFT and inter-token latency;
+  :class:`TokenStream` turns the callback into a blocking iterator.
+
+``cache_aware=True`` admits, within a priority class, the queued request
+with the longest live radix match first, bypassing the class's FIFO head
+at most ``_bypass_limit`` admissions in a row.
 """
 from __future__ import annotations
 
@@ -55,6 +77,9 @@ class Request:
     prompt: np.ndarray            # 1-D int32 token array (no padding)
     max_steps: int                # per-request reasoning-step budget
     arrival_time: float = 0.0     # seconds after scheduler start
+    submitted_at: float = 0.0     # host clock (perf_counter) at submit
+    priority: int = 0             # larger = more urgent (0 = default class)
+    deadline_s: Optional[float] = None   # SLO: finish within s of arrival
 
 
 @dataclass
@@ -68,7 +93,10 @@ class Response:
     admitted_at: float = 0.0      # seconds since scheduler start
     finished_at: float = 0.0
     arrival_time: float = 0.0
-    first_token_at: Optional[float] = None
+    priority: int = 0
+    deadline_s: Optional[float] = None
+    first_token_at: Optional[float] = None  # scheduler clock, first token
+    preemptions: int = 0          # times this request was paused
 
     @property
     def tokens(self) -> np.ndarray:
@@ -85,6 +113,81 @@ class Response:
     def latency(self) -> float:
         """Queueing + decode latency, seconds since the request arrived."""
         return self.finished_at - self.arrival_time
+
+    @property
+    def ttft(self) -> float:
+        """Time to the first committed token since arrival (NaN if none)."""
+        if self.first_token_at is None:
+            return float("nan")
+        return self.first_token_at - self.arrival_time
+
+    @property
+    def tpot(self) -> float:
+        """Mean time per output token after the first (NaN with fewer than
+        two tokens)."""
+        n = self.num_tokens
+        if self.first_token_at is None or n < 2:
+            return float("nan")
+        return (self.finished_at - self.first_token_at) / (n - 1)
+
+    @property
+    def deadline_missed(self) -> bool:
+        """True iff a deadline was set and the latency exceeded it."""
+        return self.deadline_s is not None and self.latency > self.deadline_s
+
+
+@dataclass
+class StreamEvent:
+    """One incremental update of a request's stream.
+
+    A per-step event carries the step's non-PAD tokens, in materialize
+    order; the final event (``final=True``, possibly no tokens) carries the
+    finish reason.  ``t`` is the scheduler clock (seconds since start): the
+    first event's ``t`` minus the request's arrival time is its TTFT, and
+    the gaps between events are inter-token latencies.
+    """
+
+    request_id: str
+    tokens: np.ndarray
+    step: int                     # engine steps the request has consumed
+    final: bool = False
+    finish_reason: str = ""
+    t: float = 0.0
+
+
+class TokenStream:
+    """A thread-safe stream consumer: a callback that is also an iterator.
+
+    Pass one as ``submit(..., stream=...)`` and iterate it from any thread:
+    iteration yields :class:`StreamEvent` objects as the scheduler harvests
+    them and ends after the final one.
+    """
+
+    def __init__(self):
+        self._events: deque = deque()
+        self._cv = threading.Condition()
+        self._closed = False
+
+    def __call__(self, event: StreamEvent) -> None:
+        """Producer side: enqueue one event (the scheduler's thread)."""
+        with self._cv:
+            self._events.append(event)
+            if event.final:
+                self._closed = True
+            self._cv.notify_all()
+
+    def __iter__(self):
+        """Consumer side: wait for events until the final one arrives."""
+        while True:
+            with self._cv:
+                while not self._events and not self._closed:
+                    self._cv.wait()
+                if not self._events:
+                    return
+                event = self._events.popleft()
+            yield event
+            if event.final:
+                return
 
 
 @dataclass
@@ -114,8 +217,18 @@ class _RetiredStep:
     finished: List[Tuple[int, Response, str, float]]
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet")
+@dataclass
+class _Prefill:
+    """A slot mid chunked prefill: how much of its prompt is committed.
+
+    ``committed`` counts the prompt tokens the engine holds for the slot
+    (the pending one and the prefix-cache match included); the next chunk
+    is ``req.prompt[committed:committed + chunk]``.  The slot is claimed
+    and done on the device until its final chunk commits.
+    """
+
+    req: Request
+    committed: int
 
 
 class GSIScheduler:
@@ -125,6 +238,12 @@ class GSIScheduler:
     continuous:    admit into freed slots mid-flight (True) or only into an
                    empty pool (False, gang discipline).
     collect_stats: forward per-step reward/ratio arrays into ``stats``.
+    cache_aware:   within the highest arrived priority class, admit the
+                   request with the longest live radix match first (it
+                   skips prefill now and pins its pages before they can be
+                   evicted); equal matches keep arrival order, a deferral
+                   still blocks the queue, and the class's FIFO head is
+                   bypassed at most ``_bypass_limit`` admissions in a row.
     sync:          True (default) runs the lock-step loop: every ``step``
                    dispatches one engine step and waits for its results.
                    False runs the two-stage pipeline: one ticket stays in
@@ -132,6 +251,9 @@ class GSIScheduler:
                    (``step`` then returns the responses finalized this
                    call, which lag the decode by one step until the
                    pipeline drains).  Tokens are identical either way.
+    chunk_tokens:  per-step prefill token budget (0: whole prompts in one
+                   admit).  Admissions and mid-prefill continuations share
+                   it; greedy outputs are the same with chunking on or off.
     """
 
     def __init__(self, engine: GSIServingEngine, *, capacity: int,
@@ -140,15 +262,18 @@ class GSIScheduler:
                  sync: bool = True, chunk_tokens: int = 0):
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
-        if chunk_tokens:
-            raise _not_ported("chunked prefill (chunk_tokens)")
-        if cache_aware:
-            raise _not_ported("cache-aware admission ordering")
+        if chunk_tokens < 0:
+            raise ValueError("chunk_tokens must be >= 0")
         self.engine = engine
         self.capacity = capacity
         self.continuous = continuous
         self.collect_stats = collect_stats
+        self.cache_aware = bool(cache_aware)
         self.sync = bool(sync)
+        self._chunk = int(chunk_tokens)
+        # cache-aware ordering may prefer hits over the class's FIFO head,
+        # but never more than this many admissions in a row
+        self._bypass_limit = 8
         self._pad = int(prompt_pad_len)
         self._seq = 0
         self.queue: deque = deque()
@@ -179,7 +304,13 @@ class GSIScheduler:
         # how many of its full pages are already in the radix index
         self._ctx: Dict[int, np.ndarray] = {}
         self._pub_full: Dict[int, int] = {}
-        self._ids: set = set()
+        self._ids: set = set()                       # every id submitted
+        # SLO state: chunked prefill, preemption, streams
+        self._prefill: Dict[int, _Prefill] = {}      # slot -> mid-prefill
+        self._live_req: Dict[int, Request] = {}      # slot -> its request
+        self._paused: Dict[str, Response] = {}       # preempted, unfinished
+        self._streams: Dict[str, object] = {}        # id -> stream callback
+        self._head_bypassed = 0
         # async pipeline state: at most one dispatched, unmaterialized
         # ticket plus one materialized, unharvested step
         self._inflight: Optional[_InflightStep] = None
@@ -198,13 +329,17 @@ class GSIScheduler:
                arrival_time: float = 0.0, priority: int = 0,
                deadline_s: Optional[float] = None, stream=None) -> str:
         """Queue a prompt; returns the request id (unique for the
-        scheduler's lifetime)."""
-        if priority:
-            raise _not_ported("priority scheduling and preemption")
-        if deadline_s is not None:
-            raise _not_ported("deadline accounting")
-        if stream is not None:
-            raise _not_ported("token streaming")
+        scheduler's lifetime: a reused id raises, even once its request
+        has finished).
+
+        ``priority`` (larger is more urgent) orders admission across
+        classes and arms preemption: a deferring higher-priority request
+        pauses the lowest-priority live slot.  ``deadline_s`` is the SLO
+        latency target, arrival to finish; it is accounting only
+        (``Response.deadline_missed``).  ``stream`` is an optional callable
+        (a :class:`TokenStream`, say) that receives one
+        :class:`StreamEvent` per harvested step and a final one.
+        """
         g = self.engine.gcfg
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
@@ -232,10 +367,14 @@ class GSIScheduler:
         elif request_id in self._ids:
             raise ValueError(f"duplicate request id {request_id!r}")
         self._ids.add(request_id)
+        if stream is not None:
+            self._streams[request_id] = stream
         self._seq += 1
-        self.queue.append(Request(id=request_id, prompt=prompt,
-                                  max_steps=budget,
-                                  arrival_time=float(arrival_time)))
+        self.queue.append(Request(
+            id=request_id, prompt=prompt, max_steps=budget,
+            arrival_time=float(arrival_time),
+            submitted_at=time.perf_counter(), priority=int(priority),
+            deadline_s=deadline_s))
         if len(self.queue) > 1 and \
                 arrival_time < self.queue[-2].arrival_time:
             self.queue = deque(sorted(self.queue,
@@ -252,33 +391,96 @@ class GSIScheduler:
     def _ready(self, now: float) -> bool:
         return bool(self.queue) and self.queue[0].arrival_time <= now
 
+    def _pick_ready(self, now: float):
+        """The next request to admit: ``(queue index, shared pages, hit
+        tokens)``, its radix match computed once here.
+
+        The highest priority among arrived requests wins outright, over
+        FIFO order and the bypass bound.  Within that class: FIFO, or with
+        ``cache_aware`` the longest live radix match, arrival order
+        breaking ties, the class's FIFO head bypassed at most
+        ``_bypass_limit`` admissions in a row.
+        """
+        tier: List[int] = []
+        top = None
+        for i, req in enumerate(self.queue):
+            if req.arrival_time > now:
+                break                  # the queue is arrival-ordered
+            if top is None or req.priority > top:
+                top, tier = req.priority, [i]
+            elif req.priority == top:
+                tier.append(i)
+        if not tier:
+            tier = [0]                 # the caller checked _ready(now)
+        lead = tier[0]
+        if not self.cache_aware or len(tier) == 1 \
+                or self._head_bypassed >= self._bypass_limit:
+            return (lead,) + self.engine.match_prefix(
+                self.queue[lead].prompt)
+        best = None
+        for i in tier:
+            shared, hit = self.engine.match_prefix(self.queue[i].prompt)
+            if best is None or hit > best[2]:
+                best = (i, shared, hit)
+        return best
+
     def _admit_ready(self, now: float) -> List[str]:
-        """Move arrived requests from the queue into free slots (FIFO).
+        """Advance the mid-prefill slots, then move arrived requests from
+        the queue into free slots.
 
         Each admission splices its longest cached prefix and prefills only
-        the tail.  A request that does not fit (no free slot or pages)
-        stays queued — back-pressure, never dropped — and blocks the
-        requests behind it until a later step frees room.
+        the tail.  A request that does not fit (no free slot or pages) may
+        preempt a strictly lower-priority live slot (``_try_preempt``);
+        otherwise it stays queued (back-pressure, never dropped) and blocks
+        the requests behind it until a later step frees room.  With
+        ``chunk_tokens`` set, continuations and admissions share one
+        per-step budget, and a prompt whose tail exceeds what is left is
+        admitted truncated, to be completed by ``extend``.
         """
+        budget = self._chunk if self._chunk else None
+        budget = self._advance_prefill(budget)
         if not self.continuous and self.pool.num_live > 0:
             return []
         batch: Dict[int, Tuple[Request, np.ndarray]] = {}
         starts = np.zeros((self.capacity,), np.int32)
+        live = np.ones((self.capacity,), bool)
         committed_total = 0
         while self._ready(now):
+            if budget is not None and budget <= 0:
+                break                  # this step's prefill budget is spent
             free = [s for s in self.pool.free_slots() if s not in batch]
-            req = self.queue[0]
-            shared, hit_tok = self.engine.match_prefix(req.prompt)
+            pick, shared, hit_tok = self._pick_ready(now)
+            req = self.queue[pick]
             if not free or not self.engine.admit_ok(
                     req.prompt.size, req.max_steps, shared=shared):
-                break
-            self.queue.popleft()
+                if self._try_preempt(req, now):
+                    continue           # re-pick: a slot and pages freed
+                break                  # back-pressure: defer, keep order
+            if pick and req.priority == self.queue[0].priority:
+                self._head_bypassed += 1
+            elif not pick:
+                self._head_bypassed = 0
+            del self.queue[pick]
             slot = free[0]
+            if self._inflight is not None and slot in self._inflight.bound:
+                # a slot bound by a ticket in flight has not had its final
+                # tokens materialized: admission must never reacquire it
+                raise RuntimeError(
+                    f"slot {slot} reacquired while its step is still in "
+                    f"flight (deferred-release invariant violated)")
             self.engine.claim_slot(slot, req.prompt.size, req.max_steps,
                                    shared=shared)
             tail = req.prompt.size - hit_tok
-            committed_total += tail
-            batch[slot] = (req, req.prompt)
+            take = tail if budget is None else min(tail, budget)
+            committed = hit_tok + take
+            if committed < req.prompt.size:
+                # chunked admission: only prompt[:committed] prefills now
+                live[slot] = False
+                self._prefill[slot] = _Prefill(req=req, committed=committed)
+            if budget is not None:
+                budget -= take
+            committed_total += take
+            batch[slot] = (req, req.prompt[:committed])
             starts[slot] = hit_tok
             self.stats.bump(
                 prefix_queries=1, prefix_hits=int(bool(hit_tok)),
@@ -296,21 +498,76 @@ class GSIScheduler:
         for slot, (req, prompt) in batch.items():
             mask[slot] = True
             self.pool.claim(slot, req.id)
-            # admit() publishes exactly the prompt's full pages
+            self._live_req[slot] = req
+            # admit() publishes exactly the committed prompt's full pages
             self._ctx[slot] = np.asarray(prompt, np.int32)
             self._pub_full[slot] = max(prompt.size - 1, 0) \
                 // self.engine.page_size
             self._steps_taken[slot] = 0
             self._budget[slot] = req.max_steps
-            self._partial[slot] = Response(request_id=req.id,
-                                           admitted_at=now,
-                                           arrival_time=req.arrival_time)
-        self.state = self.engine.admit(self.state, mask, packed, starts)
+            resp = self._paused.pop(req.id, None)
+            if resp is not None:
+                self.stats.bump(resumes=1)   # resumed after a preemption
+            else:
+                resp = Response(request_id=req.id, admitted_at=now,
+                                arrival_time=req.arrival_time,
+                                priority=req.priority,
+                                deadline_s=req.deadline_s)
+            self._partial[slot] = resp
+        self.state = self.engine.admit(self.state, mask, packed, starts,
+                                       live=live)
         self.stats.prefill_commit_max = max(self.stats.prefill_commit_max,
                                             committed_total)
         if self.engine.pager is not None:
             self.stats.pages_evicted = self.engine.pager.evicted
         return [req.id for req, _ in batch.values()]
+
+    def _advance_prefill(self, budget: Optional[int]) -> Optional[int]:
+        """Commit the next chunk of every mid-prefill slot, in slot order,
+        spending from this step's prefill ``budget``; returns what is left
+        for admissions.
+
+        A slot whose final chunk commits comes up live (it decodes from
+        this engine step on, as a one-shot admit would have left it) and
+        its prompt's full pages are published to the radix index.
+        """
+        if not self._prefill:
+            return budget
+        mask = np.zeros((self.capacity,), bool)
+        live = np.zeros((self.capacity,), bool)
+        chunks: Dict[int, np.ndarray] = {}
+        total = 0
+        for slot in sorted(self._prefill):
+            if budget is not None and budget <= 0:
+                break
+            pf = self._prefill[slot]
+            remaining = pf.req.prompt.size - pf.committed
+            take = remaining if budget is None else min(remaining, budget)
+            chunks[slot] = pf.req.prompt[pf.committed:pf.committed + take]
+            mask[slot] = True
+            pf.committed += take
+            self._ctx[slot] = pf.req.prompt[:pf.committed].astype(np.int32)
+            total += take
+            if budget is not None:
+                budget -= take
+            if pf.committed == pf.req.prompt.size:
+                live[slot] = True
+        if not chunks:
+            return budget
+        # the longest chunk: every column costs a decode step of each model
+        width = max(c.size for c in chunks.values())
+        packed = np.full((self.capacity, width), PAD, np.int32)
+        for slot, c in chunks.items():
+            packed[slot, :c.size] = c
+        self.state = self.engine.extend(self.state, mask, packed, live)
+        self.stats.prefill_commit_max = max(self.stats.prefill_commit_max,
+                                            total)
+        for slot in np.nonzero(live)[0]:
+            pf = self._prefill.pop(int(slot))
+            self.engine.publish_prefix(int(slot), pf.req.prompt)
+            self._pub_full[int(slot)] = \
+                max(pf.req.prompt.size - 1, 0) // self.engine.page_size
+        return budget
 
     # ------------------------------------------------------------------
     # Decode-time page publication
@@ -341,6 +598,98 @@ class GSIScheduler:
         self._pub_full[slot] = full
         if published:
             self.stats.bump(decode_pages_published=published)
+
+    def _drop_ctx(self, slot: int) -> None:
+        """Forget a released or preempted slot's publication bookkeeping."""
+        self._ctx.pop(slot, None)
+        self._pub_full.pop(slot, None)
+
+    # ------------------------------------------------------------------
+    # Priority preemption
+    # ------------------------------------------------------------------
+    def _try_preempt(self, req: Request, now: float) -> bool:
+        """Pause the lowest-priority live slot strictly below
+        ``req.priority`` so that ``req`` can be admitted; False if there is
+        no such victim.
+
+        Victims go lowest priority first, then fewest decode steps taken
+        (the least progress to replay), then lowest slot.  A mid-prefill
+        slot is never a victim: its request has produced nothing and holds
+        no published pages.
+        """
+        victim = None
+        for slot in self.pool.live_slots():
+            if slot in self._prefill:
+                continue
+            vreq = self._live_req[slot]
+            if vreq.priority >= req.priority:
+                continue
+            key = (vreq.priority, int(self._steps_taken[slot]), slot)
+            if victim is None or key < victim:
+                victim = key
+        if victim is None:
+            return False
+        self._preempt(victim[2], now)
+        return True
+
+    def _preempt(self, slot: int, now: float) -> None:
+        """Pause the live request in ``slot``: publish its committed pages,
+        release the slot and its pages, and requeue it for a resume.
+
+        The committed context (prompt + every harvested step) becomes the
+        resume prompt; its full pages were just published, so re-admission
+        splices them back and re-prefills at most a page of tail.  The
+        partial :class:`Response` waits in ``_paused`` and keeps growing on
+        resume.
+        """
+        req = self._live_req.pop(slot)
+        resp = self._partial.pop(slot)
+        # pipelined: the victim's latest step may still await its deferred
+        # harvest; fold its tokens in before building the context
+        if self._retired is not None and slot in self._retired.bound:
+            res = self._retired.res
+            self._retired.bound.pop(slot)
+            if not res.done_prev[slot]:
+                toks = res.chosen[slot]
+                self._emit_step(resp, toks[toks != PAD], now)
+        context = np.concatenate([req.prompt.astype(np.int32), resp.tokens])
+        mask = np.zeros((self.capacity,), bool)
+        mask[slot] = True
+        self.state = self.engine.force_done(self.state, mask)
+        self.engine.preempt_slot(slot, context)
+        self.pool.release(slot)
+        self._drop_ctx(slot)
+        remaining = int(self._budget[slot] - self._steps_taken[slot])
+        resp.preemptions += 1
+        self.stats.bump(preemptions=1)
+        self._paused[req.id] = resp
+        resumed = Request(
+            id=req.id, prompt=context, max_steps=remaining,
+            arrival_time=req.arrival_time, submitted_at=req.submitted_at,
+            priority=req.priority, deadline_s=req.deadline_s)
+        self.queue.appendleft(resumed)
+        if len(self.queue) > 1 and \
+                self.queue[1].arrival_time < resumed.arrival_time:
+            self.queue = deque(sorted(self.queue,
+                                      key=lambda r: r.arrival_time))
+
+    def preempt(self, request_id: str) -> bool:
+        """Pause a live request by hand (the mechanism priority admission
+        uses).  False when the request cannot be paused: unknown, queued,
+        mid-prefill or finished.
+
+        Drains the pipeline first, so the request's last harvested state
+        is known; the drain may even finish it (an EOS in flight), and then
+        there is nothing to pause.  ``flush`` harvests a retired step
+        before it retires the one in flight, so no step is lost.
+        """
+        if self.has_pending:
+            self.flush()
+        slot = self.pool.slot_of(request_id)
+        if slot is None or slot in self._prefill:
+            return False
+        self._preempt(slot, self._now())
+        return True
 
     def prefix_stats(self) -> Dict[str, float]:
         """Prefix-cache admission counters."""
@@ -428,23 +777,37 @@ class GSIScheduler:
         self.pool.release(slot)
         self.engine.release_slot(slot)
         del self._partial[slot]
-        self._ctx.pop(slot, None)
-        self._pub_full.pop(slot, None)
+        self._live_req.pop(slot, None)
+        self._drop_ctx(slot)
 
     def _emit_step(self, resp: Response, toks: np.ndarray,
                    now: float) -> None:
-        """Append one harvested step's tokens to ``resp``."""
+        """Append one harvested step's tokens to ``resp`` and fire its
+        stream callback (streams see materialize order)."""
         resp.steps.append(toks)
         resp.engine_steps += 1
         if toks.size and resp.first_token_at is None:
             resp.first_token_at = now
+        cb = self._streams.get(resp.request_id)
+        if cb is not None and toks.size:
+            cb(StreamEvent(request_id=resp.request_id, tokens=toks,
+                           step=resp.engine_steps, t=now))
 
     def _finalize(self, resp: Response, reason: str, at: float) -> None:
-        """Stamp a finished response and record it."""
+        """Stamp a finished response, account its deadline and close its
+        stream with one final event carrying the finish reason."""
         resp.finish_reason = reason
         resp.finished_at = at
         self.responses[resp.request_id] = resp
         self.stats.bump(requests_finished=1)
+        if resp.deadline_missed:
+            self.stats.bump(deadline_misses=1)
+        cb = self._streams.pop(resp.request_id, None)
+        if cb is not None:
+            cb(StreamEvent(request_id=resp.request_id,
+                           tokens=np.zeros((0,), np.int32),
+                           step=resp.engine_steps, final=True,
+                           finish_reason=reason, t=at))
 
     # ------------------------------------------------------------------
     # Async pipeline (sync=False)

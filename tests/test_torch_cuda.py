@@ -37,6 +37,9 @@ on a machine that has only the port (``--noconftest``: the shared
 
 Paged serving through the kernel against dense serving on the card is
 checked by ``chip_smoke.py`` (its toy agreement phase), not repeated here.
+On the toy triple the card's chunked prefill (``extend``) and a priority
+preemption with its resume commit the CPU's tokens, and a radix-cache
+snapshot round trip (bf16 and int8 pools) is bitwise.
 """
 import dataclasses
 
@@ -1007,3 +1010,98 @@ def test_materialize_copies_each_buffer_to_the_host_once(cuda_device,
         assert copies == [("cuda", torch.int64),
                           ("cuda", torch.float32)] * step
     assert res.rewards.shape == res.tilted.shape == (2, 2)
+
+
+def toy_pair(g, **kw):
+    """The toy fp32 triple on the CPU and on the card over the same seeded
+    weights (made on the CPU, copied to the card), paged."""
+    from repro_torch.launch import serve
+    from repro_torch.models import random_params
+    from repro_torch.serving import GSIServingEngine
+    cfgs = serve.toy_triple(vocab=64)
+    params = [random_params(c, i, "cpu") for i, c in enumerate(cfgs)]
+    return [GSIServingEngine(*cfgs, *params, g, device=dev, max_seq=96,
+                             paged=True, page_size=8, **kw)
+            for dev in ("cpu", "cuda")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sync", [True, False])
+def test_chunked_prefill_and_preemption_on_the_card_match_the_cpu(
+        cuda_device, sync):
+    """Chunked admission (``extend``), a priority preemption and its
+    resume through the prefix cache commit the CPU port's tokens on the
+    card at temperature 0, with the same counters, every paged call on the
+    card launching the kernel."""
+    from repro_torch.config import GSIConfig
+    from repro_torch.serving import GSIScheduler
+    g = GSIConfig(n=2, max_step_tokens=5, max_steps=3, beta=4.0,
+                  temperature=0.0, eos_token_id=-1, min_step_reward=-1e9)
+    pre = [5 + i % 24 for i in range(17)]
+    low = np.asarray(pre + [33, 34, 4], np.int32)
+    high = np.asarray([30 + i % 20 for i in range(17)] + [43, 44, 4],
+                      np.int32)
+    runs = []
+    for eng in toy_pair(g):
+        sched = GSIScheduler(eng, capacity=1, sync=sync, chunk_tokens=8)
+        gen = torch.Generator(device=eng.device).manual_seed(0)
+        before = paged_attention_cuda.launches
+        sched.submit(low, request_id="lo", max_steps=3)
+        for _ in range(4):                # three chunks, then one decode
+            sched.step(gen)
+        sched.submit(high, request_id="hi", max_steps=2, priority=1)
+        out = sched.run(gen)
+        st = sched.stats
+        runs.append(({r: (out[r].tokens.tolist(), out[r].finish_reason,
+                          out[r].preemptions) for r in out},
+                     sched.engine_steps, sched.prefix_stats(),
+                     st.preemptions, st.resumes, st.prefill_commit_max))
+        if eng.device.type == "cuda":
+            assert paged_attention_cuda.launches > before
+    assert runs[1] == runs[0]
+    assert runs[0][3] == runs[0][4] == 1
+    assert runs[0][5] <= 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_snapshot_round_trip_on_the_card_is_bitwise(cuda_device, tmp_path,
+                                                    kv_dtype):
+    """save_cache -> .npz -> load_cache into a fresh engine on the card:
+    every restored page row (bf16 bits; int8 codes and scales) is bitwise
+    the saved one, the page ledger holds, and the warm rerun commits the
+    cold run's tokens with every admission a hit."""
+    from repro_torch.config import GSIConfig
+    from repro_torch.serving import GSIScheduler
+    g = GSIConfig(n=2, max_step_tokens=5, max_steps=2, beta=4.0,
+                  temperature=0.0)
+    pre = [5 + i % 24 for i in range(17)]
+    prompts = [np.asarray(pre + [33 + i, 34, 4], np.int32) for i in range(2)]
+    engines = [toy_pair(g, kv_dtype=kv_dtype)[1] for _ in range(2)]
+    cold = GSIScheduler(engines[0], capacity=1)
+    ids = [cold.submit(p) for p in prompts]
+    out = cold.run(torch.Generator(device="cuda").manual_seed(0))
+    path = tmp_path / "cache.npz"
+    snap = engines[0].save_cache(cold.state, path)
+    assert snap["pages"].size >= 2
+    warm = GSIScheduler(engines[1], capacity=1)
+    warm.state = engines[1].load_cache(warm.state, str(path))
+    pool = engines[1].pager
+    assert pool.num_free + pool.num_referenced + pool.num_cached \
+        == pool.num_pages
+    if kv_dtype == "int8":
+        assert pool.scale_slots == set(pool.refcount) | pool.cached
+    # the same trie, so the records come in the same preorder (page ids
+    # are remapped); row i of every pool is record i's page
+    again = engines[1].save_cache(warm.state)
+    for key in ("chunks", "parents"):
+        np.testing.assert_array_equal(snap[key], again[key])
+    assert snap["leaves"].keys() == again["leaves"].keys()
+    for key, rows in snap["leaves"].items():
+        assert rows.dtype == again["leaves"][key].dtype
+        np.testing.assert_array_equal(rows, again["leaves"][key])
+    ids2 = [warm.submit(p) for p in prompts]
+    out2 = warm.run(torch.Generator(device="cuda").manual_seed(0))
+    assert [out2[r].tokens.tolist() for r in ids2] == \
+        [out[r].tokens.tolist() for r in ids]
+    assert warm.prefix_stats()["hits"] == 2

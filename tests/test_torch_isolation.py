@@ -39,10 +39,10 @@ def _imported(tree):
 def test_port_sources_import_no_jax_and_no_reference():
     files = _port_files()
     assert len(files) > 20
-    # the full-sequence slice's modules are among them
+    # the full-sequence and warm-cache slices' modules are among them
     rel = {str(p.relative_to(PORT)) for p in files if PORT in p.parents}
     assert {"kernels/flash_attention.py", "rewards/prm.py",
-            "rewards/__init__.py"} <= rel
+            "rewards/__init__.py", "serving/snapshot.py"} <= rel
     bad = []
     for path in files:
         for name in _imported(ast.parse(path.read_text(), str(path))):
@@ -96,6 +96,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
 
 
 def test_unported_options_raise():
+    """The fleet and multi-GPU options still raise; the SLO options and
+    the warm cache, ported, no longer do."""
     from repro_torch.config import GSIConfig
     from repro_torch.launch import serve
     from repro_torch.models import random_params
@@ -107,21 +109,19 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         GSIServingEngine(*args, device="cpu", mesh=object())
     eng = GSIServingEngine(*args, device="cpu", paged=True)
-    for call in (lambda: eng.extend(None, None, None, None),
-                 lambda: eng.save_cache(None),
-                 lambda: eng.load_cache(None, {})):
-        with pytest.raises(NotImplementedError):
-            call()
-    for kw in ({"chunk_tokens": 8}, {"cache_aware": True}):
-        with pytest.raises(NotImplementedError):
-            GSIScheduler(eng, capacity=1, **kw)
-    # the pipelined loop is ported
-    assert GSIScheduler(eng, capacity=1, sync=False).pipeline_stats()[
-        "sync"] is False
-    sched = GSIScheduler(eng, capacity=1)
-    for kw in ({"priority": 1}, {"deadline_s": 1.0}, {"stream": print}):
-        with pytest.raises(NotImplementedError):
-            sched.submit([5, 6, 4], **kw)
+    with pytest.raises(NotImplementedError):
+        serve.make_frontend([eng, eng], capacity=1)
     for argv in (["--replicas", "2"], ["--tp", "2"]):
         with pytest.raises(NotImplementedError):
             serve.main(["--config", "toy", "--device", "cpu"] + argv)
+    # ported: chunked prefill, cache-aware ordering, the pipelined loop,
+    # priorities, deadlines, streams, extend and the snapshot codec
+    sched = GSIScheduler(eng, capacity=1, chunk_tokens=8, cache_aware=True,
+                         sync=False)
+    assert sched.pipeline_stats()["sync"] is False
+    sched.submit([5, 6, 4], max_steps=1, priority=1, deadline_s=1.0,
+                 stream=print)
+    state = eng.extend(sched.state, [False], [[0]], [False])
+    snap = eng.save_cache(state)
+    assert snap["pages"].size == 0
+    assert eng.load_cache(state, snap) is state
