@@ -88,7 +88,23 @@ Phases, each printing its own lines; any failure exits non-zero:
    run gsi-slo-oneshot's radix cache saved to an ``.npz``, loaded into a
    fresh engine (rows bitwise equal, pages conserved), and r0 served
    alone for one step with a prefix hit and the same first step.
-   Then, once the Qwen weights are freed, the full-width full-depth
+   Then, once the Qwen weights are freed, GSI with a mixture-of-experts
+   target at full width and the published depth: the Qwen2.5-Math-1.5B
+   draft, ``qwen2-moe-a2.7b`` (24 layers, 60 routed experts top-4 laid out
+   as 64, 4 shared) and the Qwen2.5-Math PRM, seeded random bf16 weights,
+   4 requests on 4 slots over bf16 pages, n 4, at most 2 steps of 16
+   tokens: one calibration engine step (the same prompts, seed and slots)
+   gives a threshold among the run's first-step selected tilted rewards;
+   run gsi-moe (lock-step) must both accept and fall back to the MoE
+   target, run gsi-moe-async (pipelined) must commit its tokens, finish
+   reasons, steps and counters bit for bit, and each launches the paged
+   kernel layers x paged decode_step calls times (each model's layers),
+   nothing else; each model's host and stream ms per decode_step and the
+   memory after the weights are printed.  Then layer 0 of the MoE target
+   at the runs' 16 rows: bf16 twice (bitwise equal) against fp32 from the
+   same weights and input, the share of routed slots dropped, and its
+   device time against the bytes it must read (every laid-out expert).
+   Then, once those weights are freed too, the full-width full-depth
    rwkv6-3b triple (bf16, seeded random weights, every decay_base
    overwritten so the WKV state carries): run gsi-rwkv-shared serves 4
    requests through the dense engine with shared scoring, at a threshold
@@ -115,8 +131,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    pipelined dispatches of (a)'s configuration (these three with the
    Qwen2.5-Math models cut to ``PROFILE_LAYERS`` layers, said on a
    ``reduced:`` line) (after the first, the
-   window pump, dispatch, pump), one score-prm batch and one engine step of
-   gsi-rwkv-shared, under ``torch.profiler`` (device activity only; each
+   window pump, dispatch, pump), one score-prm batch, one engine step of
+   gsi-moe (cut to ``PROFILE_LAYERS``, said on a ``reduced:`` line, at
+   threshold 0.5, so the MoE target's fallback runs) and one engine step
+   of gsi-rwkv-shared (cut to ``PROFILE_LAYERS`` too), under
+   ``torch.profiler`` (device activity only; each
    with the device's busy and idle share); a paged kernel's row counts its
    split and combine kernels together.
 
@@ -143,7 +162,8 @@ under ``long_*`` and the wrapper's host time per call under ``host_ms``,
 the backward's row its draft-shape timings under ``draft_*``).
 The last line is ``{"ok": true, "device": {...}}``.  ``--layers`` cuts
 the depth of runs (a), (d) and (b) (never a width, never run (c),
-score-prm or the RWKV runs) and says so on a ``reduced:`` line.
+score-prm, the MoE runs or the RWKV runs) and says so on a ``reduced:``
+line.
 """
 from __future__ import annotations
 
@@ -230,14 +250,28 @@ SLO_CHUNK = 16
 SLO_MISS_S, SLO_MEET_S = 1e-3, 600.0
 SLO_PROMPT_SEED = 23
 SLO_R0_STEPS = 5
-# phase 5 profiles the Qwen engine steps at this depth (the profiler's
-# processing grows with the launches; at 28 layers the three profiles
-# took 313 s of a chip run)
-PROFILE_LAYERS = 14
+# phase 5 profiles every engine step at this depth (the profiler's
+# processing grows with the launches: at 28 layers the three Qwen profiles
+# took 313 s of a chip run; at 14, with the gsi-moe step, the four took
+# 237 s and the full-depth RWKV step 70 s of a run whose script took
+# 1118.8 s of its 1200, H100 80GB HBM3, 700 W)
+PROFILE_LAYERS = 7
 # depth of the SLO runs and the warm-cache check (0: the published 28): at
-# 28 layers they took 287 s of a chip run (H100 80GB HBM3, 700 W), which
-# would take the whole script past 800 s; widths are never cut
+# 28 layers they took 287 s of a chip run (H100 80GB HBM3, 700 W), at 14
+# 192 s of the run above; widths are never cut
 SLO_LAYERS = PROFILE_LAYERS
+# runs gsi-moe and gsi-moe-async: the seed of their prompts, of the
+# serving generator and of the MoE layer check's input
+MOE_SEED = 4
+# the MoE layer check, bf16 against fp32 from the same weights and the
+# same bf16-rounded input, over the rows that both route to the same
+# experts: the bf16 side rounds the router's weights and top-k weights,
+# the gate and up products, their product and the output (2^-9 relative
+# each, products accumulated in fp32 over d 2048 and ff 1408 terms): 3e-2
+# of the output's scale.  A row that a near tie sends to another expert
+# differs by that expert's whole contribution: its error is printed, and
+# at least half the rows must route alike
+MOE_TOL = 3e-2
 # flash attention's backward kernel against its plain version.  fp32: both
 # sides in fp32, summation orders differ: 1e-5 of the gradient's scale.
 # bf16: the kernel rounds P and dS to bf16 before their products (2^-9
@@ -1486,10 +1520,12 @@ def fmt_stats(stats):
                      for k, v in stats.items())
 
 
-def check_pipelined(sync, pipe):
-    """Run gsi-async against run gsi: the same tokens, finish reasons,
-    engine steps, decisions and prefix counters, bit for bit, and the same
-    paged-attention launches; the pipeline overlapped host work."""
+def check_pipelined(sync, pipe, names=("gsi", "gsi-async")):
+    """Run gsi-async against run gsi (or the runs ``names`` says): the
+    same tokens, finish reasons, engine steps, decisions and prefix
+    counters, bit for bit, and the same paged-attention launches; the
+    pipeline overlapped host work."""
+    base, piped = names
     def outcome(res):
         st = res["stats"]
         return ({r: (res["responses"][r].tokens.tolist(),
@@ -1499,23 +1535,23 @@ def check_pipelined(sync, pipe):
                 st.target_tokens, res["prefix"])
 
     stats = pipe["pipeline"]
-    print(f"run gsi-async against run gsi (one process): tokens/s "
+    print(f"run {piped} against run {base} (one process): tokens/s "
           f"{pipe['tokens_per_s']:.2f} vs {sync['tokens_per_s']:.2f}, wall "
           f"{pipe['wall_s']:.2f} s vs {sync['wall_s']:.2f} s, engine steps "
           f"{pipe['steps']} vs {sync['steps']}; pipeline_stats "
           + fmt_stats(stats), flush=True)
     check(outcome(pipe) == outcome(sync),
-          "gsi-async: tokens, finish reasons, engine steps, decisions or "
-          "prefix counters differ from run gsi's")
+          f"{piped}: tokens, finish reasons, engine steps, decisions or "
+          f"prefix counters differ from run {base}'s")
     check(pipe["launches"]["paged_attention"]
           == sync["launches"]["paged_attention"],
-          f"gsi-async: {pipe['launches']['paged_attention']} paged launches"
-          f", run gsi {sync['launches']['paged_attention']}")
+          f"{piped}: {pipe['launches']['paged_attention']} paged launches"
+          f", run {base} {sync['launches']['paged_attention']}")
     check(stats["sync"] is False and stats["overlap_host_s"] > 0,
-          f"gsi-async: no host work overlapped a step ({stats})")
-    print("run gsi-async: tokens, finish reasons, engine steps, accepted "
-          "and decision counts, prefix stats and paged launches identical "
-          "to run gsi", flush=True)
+          f"{piped}: no host work overlapped a step ({stats})")
+    print(f"run {piped}: tokens, finish reasons, engine steps, accepted "
+          f"and decision counts, prefix stats and paged launches identical "
+          f"to run {base}", flush=True)
 
 
 def phase_main(torch, layers):
@@ -1714,6 +1750,22 @@ def live_tilted(engine, into):
     engine.materialize = recorded
 
 
+def gap_threshold(label, first, count):
+    """The midpoint of the widest gap between the sorted first-step
+    selected tilted rewards ``first`` (one per request, ``count`` of
+    them), printed under ``label``: any run that repeats those first steps
+    accepts one and rejects another there."""
+    vals = sorted(first)
+    check(len(vals) == count, f"{label} calibration: {len(vals)} first "
+          f"decisions for {count} requests")
+    gap, lo = max((b - a, a) for a, b in zip(vals, vals[1:]))
+    threshold = lo + gap / 2
+    print(f"{label}: first-step selected tilted rewards "
+          f"{[round(v, 4) for v in vals]}; threshold {threshold:.4f} (the "
+          f"midpoint of their widest gap, {gap:.4f})", flush=True)
+    return threshold
+
+
 def slo_threshold(torch, cfgs, params, g, reqs):
     """A threshold among the runs' own selected tilted rewards: one engine
     step of the five prompts (one slot each) gives every request's first
@@ -1728,16 +1780,8 @@ def slo_threshold(torch, cfgs, params, g, reqs):
     for rid, (prompt, _, _, _) in reqs.items():
         sched.submit(prompt, request_id=rid, max_steps=1)
     sched.run(torch.Generator(device="cuda").manual_seed(0))
-    vals = sorted(first)
-    check(len(vals) == len(reqs), f"SLO calibration: {len(vals)} first "
-          f"decisions for {len(reqs)} requests")
-    gap, lo = max((b - a, a) for a, b in zip(vals, vals[1:]))
-    threshold = lo + gap / 2
-    print(f"SLO runs: first-step selected tilted rewards "
-          f"{[round(v, 4) for v in vals]}; threshold {threshold:.4f} (the "
-          f"midpoint of their widest gap, {gap:.4f})", flush=True)
     del sched, engine
-    return threshold
+    return gap_threshold("SLO runs", first, len(reqs))
 
 
 def slo_run(torch, name, cfgs, params, g, reqs, acc, *, sync, chunk,
@@ -2019,6 +2063,215 @@ def phase_slo(torch, params):
     return launches
 
 
+# ----------------------------------------------------------------------
+# Phase 4: GSI with the mixture-of-experts target (qwen2-moe)
+# ----------------------------------------------------------------------
+
+def moe_layer_bytes(cfg):
+    """Bytes one bf16 MoE FFN layer must read at decode: the router, every
+    laid-out expert's three matrices (the batched product reads all of
+    them, padding experts included) and the shared experts' three."""
+    from repro_torch.models.moe import padded_experts
+    d, ff = cfg.d_model, cfg.moe_d_ff
+    e = padded_experts(cfg)
+    return 2 * (d * e + e * 3 * d * ff
+                + 3 * d * cfg.num_shared_experts * ff)
+
+
+def moe_threshold(torch, cfgs, params, g, prompts):
+    """A threshold among run gsi-moe's own first-step selected tilted
+    rewards: one engine step of the same prompts with the same seed and
+    slots draws the same candidates (no threshold changes a first step),
+    and the midpoint of the widest gap between two rows' selected values
+    makes the run accept at least one step and fall back on another."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import GSIServingEngine, gsi_engine
+    engine = GSIServingEngine(*cfgs, *params, dataclasses.replace(
+        g, max_steps=1), mode="gsi", max_seq=512, device="cuda", paged=True,
+        page_size=16)
+    first = []
+    select = gsi_engine.gsi_select
+
+    def recorded(*a, **k):
+        dec = select(*a, **k)
+        if not first:
+            first.extend(dec.selected_tilted.tolist())
+        return dec
+
+    gsi_engine.gsi_select = recorded
+    try:
+        serve.serve(engine, prompts, capacity=len(prompts), seed=MOE_SEED)
+    finally:
+        gsi_engine.gsi_select = select
+    del engine
+    return gap_threshold("run gsi-moe calibration", first, len(prompts))
+
+
+def moe_layer_check(torch, cfg, params, rows):
+    """Layer 0 of the MoE target on the card at ``rows`` tokens (the
+    decode_step rows of runs gsi-moe): the bf16 layer twice (bitwise
+    equal), against the same layer in fp32 from the same weights and the
+    same bf16-rounded input; the share of routed slots dropped; its time
+    against the bytes it must read."""
+    from repro_torch.models import moe
+    p = {k.split(".", 3)[3]: v for k, v in params.items()
+         if k.startswith("layers.0.ffn.")}
+    gen = torch.Generator(device="cuda").manual_seed(MOE_SEED)
+    x = torch.randn((rows, 1, cfg.d_model), generator=gen,
+                    device="cuda").bfloat16()
+    y = moe.moe_ffn(cfg, p, x)[0]
+    check(torch.equal(y, moe.moe_ffn(cfg, p, x)[0]),
+          "MoE layer: two bf16 calls on the same input differ")
+    p32 = {k: v.float() for k, v in p.items()}
+    want = moe.moe_ffn(cfg, p32, x.float())[0]
+    scale = want.abs().max()
+    diff = (y.float() - want).abs().amax(dim=(1, 2)) / scale     # per row
+    xf = x.reshape(rows, cfg.d_model)
+    e16 = moe._route(cfg, p["router"], xf)[1].sort(dim=1).values
+    e32 = moe._route(cfg, p32["router"], xf.float())[1].sort(dim=1).values
+    e_pad = p["router"].shape[1]
+    cap = moe._capacity(cfg, rows, e_pad)
+    counts = torch.bincount(e16.flatten(), minlength=e_pad)
+    dropped = int((counts - cap).clamp(min=0).sum().item())
+    slots = rows * cfg.experts_per_token
+    same = (e16 == e32).all(dim=1)
+    err, n_same = diff.max().item(), int(same.sum().item())
+    err_same = diff[same].max().item() if n_same else 0.0
+    check(torch.isfinite(y).all().item() and 2 * n_same >= rows
+          and err_same < MOE_TOL,
+          f"MoE layer: bf16 against fp32, {n_same} of {rows} rows routed "
+          f"alike, largest error over them {err_same:.3e} of the output's "
+          f"scale; tolerance {MOE_TOL}")
+    # about 70 launches a call: 8 calls stay inside the launch queue, so
+    # the host finishes enqueueing before the device sleep ends
+    dev_ms, b2b_ms, host_ms = time_ms(
+        torch, lambda a: moe.moe_ffn(cfg, p, a), [(x,)], iters=8,
+        enqueue=True)
+    nbytes = moe_layer_bytes(cfg)
+    bound = nbytes / H100_BYTES_PER_S * 1e3
+    print(f"MoE layer (layer 0 of {cfg.name}, T = {rows} rows, bf16): "
+          f"largest error against fp32 {err_same:.4e} of the output's "
+          f"scale over the {n_same} of {rows} rows routed to the same "
+          f"experts, {err:.4e} over all (max |y| {scale.item():.4f}); "
+          f"routed slots dropped {dropped} of {slots} = "
+          f"{dropped / slots:.4f} (capacity {cap} per expert, {e_pad} laid "
+          f"out, {cfg.num_experts} real); two calls bitwise equal",
+          flush=True)
+    print(f"MoE layer time: device {dev_ms:.4f} ms a call, back to back "
+          f"{b2b_ms:.4f} ms, host {host_ms:.4f} ms; bound {bound:.4f} ms "
+          f"(bytes: {nbytes:,} B a layer over {H100_BYTES_PER_S:.3g} B/s; "
+          f"x {cfg.num_layers} layers = {nbytes * cfg.num_layers:,} B, "
+          f"{bound * cfg.num_layers:.2f} ms a decode_step); "
+          f"{dev_ms / bound:.2f}x the bound", flush=True)
+    return {"err": err_same, "dropped": dropped / slots, "ms": dev_ms,
+            "bound_ms": bound}
+
+
+def phase_moe(torch):
+    """Runs gsi-moe and gsi-moe-async at qwen2-moe's full width and depth
+    (the Qwen2.5-Math draft and PRM around the qwen2-moe-a2.7b target),
+    one MoE layer bf16 against fp32, and one profiled engine step; returns
+    the paged_attention launches."""
+    print("== phase 4: GSI with the mixture-of-experts target at full "
+          "qwen2-moe-a2.7b width and depth", flush=True)
+    from repro_torch.config import GSIConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import param_specs, random_params
+    cfgs = serve.build_triple("qwen2-moe")
+    for c in cfgs:
+        moe_note = (f" experts={c.num_experts} (laid out "
+                    f"{param_specs(c)['layers.0.ffn.router'].shape[1]}) "
+                    f"top-{c.experts_per_token} shared="
+                    f"{c.num_shared_experts} expert_ffn={c.moe_d_ff} "
+                    f"capacity_factor={c.capacity_factor}"
+                    if c.num_experts else f" ffn={c.d_ff}")
+        print(f"model {c.name}: layers={c.num_layers} d={c.d_model} "
+              f"heads={c.num_heads}/{c.num_kv_heads} hd={c.head_dim}"
+              f"{moe_note} vocab={c.vocab_size} tied={c.tie_embeddings} "
+              f"params~{c.param_count() / 1e9:.2f}B (as laid out "
+              f"{sum(math.prod(s.shape) for s in param_specs(c).values()) / 1e9:.2f}B)",
+              flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = [random_params(c, i, "cuda") for i, c in enumerate(cfgs)]
+    torch.cuda.synchronize()
+    print(f"random bf16 weights on the card: "
+          f"{time.perf_counter() - t0:.1f} s; memory_allocated after the "
+          f"weights {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    g = GSIConfig(n=4, beta=20.0, temperature=0.7, max_step_tokens=16,
+                  max_steps=2, min_step_reward=0.0)
+    count = 4
+    prompts = serve.random_prompts(count, seed=MOE_SEED,
+                                   vocab=cfgs[0].vocab_size, lo=24, hi=72)
+    g = dataclasses.replace(g, threshold_u=moe_threshold(
+        torch, cfgs, params, g, prompts))
+    elapsed("the MoE calibration step")
+    acc, results = {}, {}
+    for name, sync in (("gsi-moe", True), ("gsi-moe-async", False)):
+        res = serve_run(torch, name, cfgs, params, g, count, MOE_SEED, acc,
+                        sync=sync)
+        results[name] = res
+        report_run(name, res, acc[name], cfgs[0].vocab_size)
+        for tag, r in acc[name].items():
+            stream = sum(a.elapsed_time(b) for a, b in r["events"])
+            print(f"run {name}: {tag} ({r['layers']} layers) per "
+                  f"decode_step: host {1e3 * r['host_s'] / r['calls']:.2f} "
+                  f"ms, stream {stream / r['calls']:.2f} ms over "
+                  f"{r['calls']} calls", flush=True)
+        want = sum(r["layers"] * r["paged_calls"] for r in acc[name].values())
+        got = res["launches"]
+        print(f"run {name}: paged_attention launches "
+              f"{got['paged_attention']}, layers x paged decode_step calls "
+              f"{want} (" + ", ".join(
+                  f"{t} {r['layers']} x {r['paged_calls']}"
+                  for t, r in acc[name].items()) + ")", flush=True)
+        check(want > 0 and only(got, paged_attention=want),
+              f"{name}: launches {got}; want paged_attention = layers x "
+              f"paged decode_step calls = {want} and no other kernel")
+        elapsed(f"run {name}")
+    stats = results["gsi-moe"]["stats"]
+    print(f"run gsi-moe: threshold {g.threshold_u:.4f}; decisions "
+          f"{stats.decisions}: accepted {stats.accepted} (a draft candidate "
+          f"committed), rejected {stats.decisions - stats.accepted} (the MoE "
+          f"target's fallback); accept rate "
+          f"{results['gsi-moe']['accept_rate']:.3f}, tokens/s "
+          f"{results['gsi-moe']['tokens_per_s']:.2f}", flush=True)
+    check(0 < stats.accepted < stats.decisions,
+          f"gsi-moe: {stats.accepted} of {stats.decisions} decisions "
+          f"accepted; the run must take both the accept and the fallback "
+          f"branch")
+    check(results["gsi-moe"]["target_tokens"] > 0,
+          "gsi-moe: the MoE target's fallback generated no token")
+    check_pipelined(results["gsi-moe"], results["gsi-moe-async"],
+                    names=("gsi-moe", "gsi-moe-async"))
+    rows = count * g.n
+    layer = moe_layer_check(torch, cfgs[1], params[1], rows)
+    elapsed("the MoE layer check")
+    print(f"max_memory_allocated (MoE phase) "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    # as the Qwen engine-step profiles: PROFILE_LAYERS deep, and at
+    # threshold 0.5, which no selected tilted reward reaches, so the
+    # profiled step runs the MoE target's fallback
+    depth = min(PROFILE_LAYERS, min(c.num_layers for c in cfgs))
+    print(f"reduced: phase 5's engine-step profile of run gsi-moe cuts "
+          f"all three models to {depth} layers (published "
+          + ", ".join(str(c.num_layers) for c in cfgs)
+          + "); widths unchanged; runs gsi-moe and gsi-moe-async at full "
+          "depth", flush=True)
+    prof = serve.build_triple("qwen2-moe", layers=depth)
+    phase_profile(torch, [("gsi-moe", prof, [
+        {k: p[k] for k in param_specs(c)} for p, c in zip(params, prof)],
+        {})], dataclasses.replace(g, threshold_u=0.5))
+    launches = sum(r["launches"]["paged_attention"]
+                   for r in results.values())
+    del params
+    results.clear()
+    torch.cuda.empty_cache()
+    return {"paged_attention": launches, "layer": layer}
+
+
 def carry_decays(torch, params, seed):
     """Overwrite every RWKV layer's ``decay_base`` in ``params`` (in place)
     with a seeded uniform in [-6, -0.5], so that the base decays
@@ -2053,7 +2306,7 @@ def phase_rwkv(torch):
           flush=True)
     from repro_torch.config import GSIConfig
     from repro_torch.launch import serve
-    from repro_torch.models import random_params
+    from repro_torch.models import param_specs, random_params
     cfgs = serve.build_triple("rwkv6-3b")
     for c in cfgs:
         print(f"model {c.name}: layers={c.num_layers} d={c.d_model} "
@@ -2122,7 +2375,14 @@ def phase_rwkv(torch):
     print(f"max_memory_allocated (RWKV phase) "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
           flush=True)
-    phase_profile(torch, [("gsi-rwkv-shared", cfgs, params, kw)], gcfg)
+    depth = min(PROFILE_LAYERS, cfgs[0].num_layers)
+    print(f"reduced: phase 5's engine-step profile of run gsi-rwkv-shared "
+          f"cuts all three models to {depth} layers (published "
+          f"{cfgs[0].num_layers}); widths unchanged", flush=True)
+    prof = serve.build_triple("rwkv6-3b", layers=depth)
+    phase_profile(torch, [("gsi-rwkv-shared", prof, [
+        {k: p[k] for k in param_specs(c)} for p, c in zip(params, prof)],
+        kw)], gcfg)
     del params
     torch.cuda.empty_cache()
     return {"rwkv6_scan": got["rwkv6_scan"] + scored["rwkv6_scan"],
@@ -2917,6 +3177,12 @@ def main() -> int:
         elapsed("phases 1-3")
         launches = phase_main(torch, args.layers)
         elapsed("the Qwen runs")
+        moe = phase_moe(torch)
+        print(f"paged_attention launches over its runs: Qwen2.5-Math "
+              f"{launches['paged_attention']} + qwen2-moe "
+              f"{moe['paged_attention']}", flush=True)
+        launches["paged_attention"] += moe["paged_attention"]
+        elapsed("the MoE runs")
         rwkv = phase_rwkv(torch)
         elapsed("the RWKV runs")
         launches["rwkv6_scan"] = rwkv["rwkv6_scan"]

@@ -91,8 +91,9 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Approximate parameter count (embedding + blocks) of the families
-        the port builds: dense attention stacks and RWKV (``ssm``) stacks,
-        counted as the reference counts them."""
+        the port builds: dense and MoE attention stacks and RWKV (``ssm``)
+        stacks, counted as the reference counts them (MoE: the real
+        experts and the router, not the padding experts the layout adds)."""
         d, ff, v = self.d_model, self.d_ff, self.vocab_size
         total = v * d * (1 if self.tie_embeddings else 2)
         pattern = list(self.layer_pattern) * self.pattern_repeats \
@@ -101,9 +102,13 @@ class ModelConfig:
             if self.family == "ssm":
                 # r,k,v,o projections + decay/mix params; channel-mix
                 total += 4 * d * d + 6 * d + 2 * d * int(3.5 * d)
+                continue
+            total += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+            if self.num_experts:
+                total += (self.num_experts + self.num_shared_experts) \
+                    * 3 * d * self.moe_d_ff + d * self.num_experts
             else:
-                total += d * self.q_dim + 2 * d * self.kv_dim \
-                    + self.q_dim * d + 3 * d * ff
+                total += 3 * d * ff
         return int(total)
 
 

@@ -1,9 +1,35 @@
 """Architecture registry: importing this package registers every config."""
-from repro_torch.configs import qwen25_math, rwkv6_3b  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    deepseek_7b,
+    kimi_k2_1t_a32b,
+    phi3_medium_14b,
+    qwen25_math,
+    qwen2_moe_a27b,
+    qwen3,
+    rwkv6_3b,
+    smollm_135m,
+)
 
-# The paper's own model triple (draft / target / PRM).
+# The ten architectures assigned to this paper (public pool), as the
+# reference lists them; the port registers the ones it builds.
+ASSIGNED = (
+    "rwkv6-3b",
+    "recurrentgemma-9b",
+    "gemma3-1b",
+    "kimi-k2-1t-a32b",
+    "seamless-m4t-medium",
+    "llama-3.2-vision-11b",
+    "qwen2-moe-a2.7b",
+    "phi3-medium-14b",
+    "deepseek-7b",
+    "smollm-135m",
+)
+
+# The paper's own model triples (draft / target / PRM).
 PAPER_MODELS = (
     "qwen2.5-math-1.5b",
     "qwen2.5-math-7b",
     "qwen2.5-math-prm-7b",
+    "qwen3-1.7b",
+    "qwen3-14b",
 )

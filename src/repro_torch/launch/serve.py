@@ -7,6 +7,8 @@ continuous-batching scheduler.
         [--kv-dtype {fp,bf16,int8,fp8}] [--quantize-draft] [--sync | --async] \
         [--chunk-tokens N] [--priority K] [--deadline S] [--stream] \
         [--cache-dir DIR]
+    PYTHONPATH=src python -m repro_torch.launch.serve --config qwen2-moe
+    PYTHONPATH=src python -m repro_torch.launch.serve --config qwen3
     PYTHONPATH=src python -m repro_torch.launch.serve --config rwkv6-3b
     PYTHONPATH=src python -m repro_torch.launch.serve --config rwkv6-3b \
         --device cpu --layers 2 --requests 2 --max-steps 1 --max-step-tokens 4
@@ -36,6 +38,13 @@ first requests from the restored pages:
         --device cpu --paged --chunk-tokens 16 --priority 3 --deadline 5 \
         --stream --cache-dir /tmp/gsi-cache
 
+``--config qwen2-moe`` serves a mixture-of-experts target: the
+Qwen2.5-Math-1.5B draft, ``qwen2-moe-a2.7b`` (24 layers, 60 routed experts
+top-4 laid out as 64, 4 shared) and the Qwen2.5-Math PRM, all on the Qwen
+tokenizer (the PRM's vocabulary of 152,064 is padding beyond the others'
+151,936).  ``--config qwen3`` serves the paper's second pair,
+``qwen3-1.7b`` and ``qwen3-14b``, with the same PRM.
+
 ``--config rwkv6-3b`` serves the RWKV-6 family: draft, target and PRM all
 have ``rwkv6-3b``'s shape (the PRM adds the reward head), with seeds 0, 1
 and 2.  The repository registers only this one RWKV model, so the triple
@@ -52,9 +61,9 @@ and last loss and the accuracy next to the accept rate and tokens/s:
     PYTHONPATH=src python -m repro_torch.launch.serve --config toy \
         --train-steps 300 --requests 16 --capacity 8 --paged
 
-``qwen2.5-math`` and ``rwkv6-3b`` refuse ``--train-steps``: their triples
-serve seeded random weights at the published widths, and nothing here
-trains a 7B model to a useful accuracy.
+Every triple but ``toy`` refuses ``--train-steps``: those triples serve
+seeded random weights at the published widths, and nothing here trains a
+7B model to a useful accuracy.
 """
 from __future__ import annotations
 
@@ -68,7 +77,7 @@ import torch
 
 from repro_torch.config import GSIConfig, ModelConfig, TrainConfig, \
     get_config
-from repro_torch.configs import qwen25_math
+from repro_torch.configs import qwen25_math, qwen2_moe_a27b, qwen3
 from repro_torch.data import SyntheticReasoningTask
 from repro_torch.device import resolve_device
 from repro_torch.models import random_params
@@ -129,7 +138,10 @@ def rwkv_triple():
 
 
 TRIPLES = {"qwen2.5-math": lambda: qwen25_math.TRIPLE, "toy": toy_triple,
-           "rwkv6-3b": rwkv_triple}
+           "rwkv6-3b": rwkv_triple,
+           "qwen2-moe": lambda: (qwen25_math.DRAFT, qwen2_moe_a27b.CONFIG,
+                                 qwen25_math.PRM),
+           "qwen3": lambda: (qwen3.DRAFT, qwen3.TARGET, qwen25_math.PRM)}
 
 
 def build_triple(name: str, *, layers: int = 0):

@@ -1,16 +1,19 @@
-"""Decoder blocks: pre-norm self-attention + SwiGLU FFN (``full``/``local``)
-and RWKV-6 time-mix + channel-mix (``rwkv``, the ssm family).
+"""Decoder blocks: pre-norm self-attention + SwiGLU or MoE FFN
+(``full``/``local``) and RWKV-6 time-mix + channel-mix (``rwkv``, the ssm
+family).
 
 A port of ``repro.models.blocks`` for these kinds, in the train, prefill
-and decode modes.  Recurrent, cross and encoder blocks belong to later
-slices and raise.
+and decode modes.  A config with experts (``num_experts > 0``) gets the
+mixture-of-experts FFN of :mod:`repro_torch.models.moe` in every
+attention block, never a dense one.  Recurrent, cross and encoder blocks
+belong to later slices and raise.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models import rwkv
+from repro_torch.models import moe, rwkv
 from repro_torch.models.common import (ffn_apply, ffn_specs, norm_spec,
                                        rms_norm)
 
@@ -31,7 +34,8 @@ def block_specs(cfg, kind: str) -> dict:
     d = cfg.d_model
     out = {"ln1": norm_spec(d), "ln2": norm_spec(d)}
     out.update({f"attn.{k}": s for k, s in attn.attn_specs(cfg).items()})
-    out.update({f"ffn.{k}": s for k, s in ffn_specs(d, cfg.d_ff).items()})
+    ffn = moe.moe_specs(cfg) if cfg.num_experts else ffn_specs(d, cfg.d_ff)
+    out.update({f"ffn.{k}": s for k, s in ffn.items()})
     return out
 
 
@@ -61,7 +65,8 @@ def _freeze(live, new, old):
 def block_apply(cfg, kind: str, p, x, *, mode: str, positions, freqs,
                 cache=None, window_override: int = 0, max_seq: int = 0,
                 pt=None, pos32=None, live=None):
-    """One block in ``mode``; returns ``(x, cache)``.
+    """One block in ``mode``; returns ``(x, cache, aux)``, ``aux`` the MoE
+    FFN's load-balance loss (0.0 for a dense FFN and for ``rwkv``).
 
     Attention kinds go through :func:`repro_torch.models.attention.
     self_attention` (a decode step writes the given cache in place; ``live``
@@ -81,12 +86,12 @@ def block_apply(cfg, kind: str, p, x, *, mode: str, positions, freqs,
         x, new = rwkv.rwkv_block(cfg, p, x, state, live,
                                  wkv_in_place=decode)
         if mode == "train":
-            return x, None
+            return x, None, 0.0
         if decode:
             for k in ("tm_prev", "cm_prev"):
                 cache[k].copy_(_freeze(live, new[k], cache[k]))
-            return x, cache
-        return x, new
+            return x, cache, 0.0
+        return x, new, 0.0
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     y, cache = attn.self_attention(
         cfg, p["attn"], h, kind=kind, mode=mode, positions=positions,
@@ -94,4 +99,7 @@ def block_apply(cfg, kind: str, p, x, *, mode: str, positions, freqs,
         max_seq=max_seq, pt=pt, pos32=pos32)
     x = x + y
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + ffn_apply(p["ffn"], h), cache
+    if cfg.num_experts:
+        y, aux = moe.moe_ffn(cfg, p["ffn"], h)
+        return x + y, cache, aux
+    return x + ffn_apply(p["ffn"], h), cache, 0.0

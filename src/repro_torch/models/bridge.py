@@ -4,7 +4,9 @@
 (``jax.tree.map(np.asarray, params)``) into the port's flat parameter dict:
 the scanned ``blocks/p{i}`` leaves are unstacked along their leading layer
 dim, and every weight keeps its reference layout (an attention block's
-``attn``/``ffn`` leaves and an RWKV block's ``tm``/``cm`` leaves alike).
+``attn``/``ffn`` leaves, a MoE block's ``ffn.router``, ``ffn.we_*`` over
+the padded experts and ``ffn.shared_*``, and an RWKV block's ``tm``/``cm``
+leaves alike).
 ``cache_to_numpy`` goes the other way for caches (K/V rows, page pools, or
 an RWKV layer's ``tm_prev``/``wkv``/``cm_prev``), so a test can compare the
 port's per-layer caches with the reference's stacked cache pytree leaf by

@@ -1,10 +1,11 @@
 """The decoder model as an ``nn.Module``: full-sequence passes and decode
 steps over dense or paged KV.
 
-A port of ``repro.models.model.Model`` for the attention stacks and the
-RWKV-6 (``ssm``) stacks:
+A port of ``repro.models.model.Model`` for the attention stacks, with a
+dense or a mixture-of-experts FFN, and the RWKV-6 (``ssm``) stacks:
 
-* ``forward(tokens)`` — (B,S) tokens -> (logits (B,S,V), 0.0);
+* ``forward(tokens)`` — (B,S) tokens -> (logits (B,S,V), aux), ``aux``
+  the layers' summed MoE load-balance loss (0.0 without experts);
 * ``hidden(tokens)`` — final hidden states (B,S,d);
 * ``prefill(tokens, max_seq=0)`` — last-token logits (B,V) and per-layer
   dense caches (an RWKV layer's state dict) that ``decode_step`` continues
@@ -170,18 +171,20 @@ class Model(nn.Module):
     def _run_stack(self, x, *, mode, positions, cache=None, max_seq=0,
                    window_override=0, pt=None, pos32=None, live=None):
         """Every layer in ``mode``, then the final norm; returns the hidden
-        states and the per-layer caches the blocks return."""
+        states, the per-layer caches the blocks return and the layers'
+        summed auxiliary loss (0.0 without experts)."""
         cfg = self.cfg
-        caches = []
+        caches, aux = [], 0.0
         for i, layer in enumerate(self.layers):
-            x, c = blocks.block_apply(
+            x, c, a = blocks.block_apply(
                 cfg, layer.kind, layer, x, mode=mode, positions=positions,
                 freqs=self.rope_freqs,
                 cache=None if cache is None else cache[i],
                 window_override=window_override, max_seq=max_seq, pt=pt,
                 pos32=pos32, live=live)
             caches.append(c)
-        return rms_norm(x, self.final_ln, cfg.norm_eps), caches
+            aux = aux + a
+        return rms_norm(x, self.final_ln, cfg.norm_eps), caches, aux
 
     def _full_sequence(self, tokens, source, **kw):
         if source is not None:
@@ -192,10 +195,11 @@ class Model(nn.Module):
         return self._run_stack(x, positions=positions, **kw)
 
     def forward(self, tokens, *, source=None):
-        """Training-shaped forward: (B,S) tokens -> (logits (B,S,V), 0.0)
-        (no MoE family is ported, so the auxiliary loss is 0)."""
-        x, _ = self._full_sequence(tokens, source, mode="train")
-        return unembed(self.cfg, self.embed, x), 0.0
+        """Training-shaped forward: (B,S) tokens -> (logits (B,S,V), aux),
+        ``aux`` the MoE layers' summed load-balance loss (a 0-dim fp32
+        tensor), or 0.0 for a model without experts."""
+        x, _, aux = self._full_sequence(tokens, source, mode="train")
+        return unembed(self.cfg, self.embed, x), aux
 
     def hidden(self, tokens, *, source=None):
         """Final hidden states (B,S,d), read by ``score`` and ``reward``."""
@@ -209,7 +213,7 @@ class Model(nn.Module):
         dict of each RWKV layer, which ``decode_step`` continues from at
         position S."""
         cfg = self.cfg
-        x, cache = self._full_sequence(
+        x, cache, _ = self._full_sequence(
             tokens, source, mode="prefill", max_seq=max_seq or tokens.shape[1],
             window_override=cfg.serve_window_override)
         return unembed(cfg, self.embed, x[:, -1:])[:, 0], cache
@@ -248,7 +252,7 @@ class Model(nn.Module):
         """
         cfg = self.cfg
         x = embed_tokens(cfg, self.embed, tokens)
-        x, _ = self._run_stack(
+        x, _, _ = self._run_stack(
             x, mode="decode", positions=positions, cache=cache,
             window_override=cfg.serve_window_override, pt=pt,
             pos32=None if pt is None else positions.to(torch.int32),

@@ -13,15 +13,17 @@ Dtypes follow ``jnp``'s promotion: a dequantized (fp32) cache view under
 bf16 activations promotes the attention output, and from there the rest of
 the pass, to fp32.  An RWKV layer repeats its O(1) state n ways and runs
 its block over the L + 1 feeds, as the reference does (one WKV6 scan
-launch with T = L + 1 on the card).  Recurrent and cross kinds raise, as
-the port's blocks do.
+launch with T = L + 1 on the card).  A config with experts runs the MoE
+FFN over all ``B * n * (L + 1)`` feeds of a layer in one call, as the
+reference does, so the experts' capacity is shared by every candidate.
+Recurrent and cross kinds raise, as the port's blocks do.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models import rwkv
+from repro_torch.models import moe, rwkv
 from repro_torch.models.blocks import check_kind
 from repro_torch.models.common import (apply_rope, embed_tokens, ffn_apply,
                                        matmul, rms_norm)
@@ -108,6 +110,8 @@ def score_block(cfg, kind: str, p, x, *, cache, pos, n: int, freqs,
                             kind=kind, freqs=freqs,
                             window_override=window_override)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if cfg.num_experts:
+        return x + moe.moe_ffn(cfg, p["ffn"], h)[0]
     return x + ffn_apply(p["ffn"], h)
 
 

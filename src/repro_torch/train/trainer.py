@@ -6,8 +6,9 @@ function of a parameter pytree, jitted; here a step runs eagerly over a
 is a full-sequence pass with autograd on (flash attention's backward
 kernel in every attention layer on the card), ``torch.autograd.grad``
 gives the gradients, and :class:`~repro_torch.optim.AdamW` writes the new
-parameters into the model's own tensors.  No MoE family is ported, so the
-auxiliary loss is 0.
+parameters into the model's own tensors.  A model with experts adds
+``router_aux_weight`` times its layers' summed load-balance loss to the LM
+loss, as the reference does.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ from repro_torch.optim import AdamW
 
 
 def lm_loss(model, batch, *, source=None):
-    """Next-token CE over loss_mask positions (+ MoE aux, 0 here)."""
+    """Next-token CE over loss_mask positions (+ the weighted MoE aux loss,
+    0 without experts)."""
     tokens = batch["tokens"]
     mask = batch["loss_mask"][:, :-1]
     logits, aux = model.forward(tokens[:, :-1], source=source)

@@ -210,11 +210,12 @@ def test_block_modes_match_reference(stack, mode):
         cache=None if st is None else _j(st),
         live=None if live is None else jnp.asarray(live))
     cache = None if st is None else _t(st)
-    ty, tst = blocks.block_apply(
+    ty, tst, taux = blocks.block_apply(
         tcfg, "rwkv", tp, torch.from_numpy(x), mode=mode,
         positions=torch.zeros(3, dtype=torch.long), freqs=model.rope_freqs,
         cache=cache, live=None if live is None else torch.from_numpy(live))
     _close(ty.numpy(), jy)
+    assert taux == 0.0
     if mode == "train":
         assert jst is None and tst is None
         return
