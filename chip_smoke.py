@@ -88,6 +88,31 @@ Phases, each printing its own lines; any failure exits non-zero:
    run gsi-slo-oneshot's radix cache saved to an ``.npz``, loaded into a
    fresh engine (rows bitwise equal, pages conserved), and r0 served
    alone for one step with a prefix hit and the same first step.
+   Then the replica fleet (``ReplicaRouter``), at full width and
+   ``FLEET_LAYERS`` deep (a ``reduced:`` line), every replica's engine over
+   the one shared set of weights, bf16 pages of 16 rows with the prefix
+   cache, temperature 0, capacity 1 a replica, at a threshold from one
+   calibration step of the same prompts: 8 requests in 2 preamble groups
+   (33-token preambles, so two full pages are shared; step budgets 1, 2,
+   3, 3 as the reference benchmark cycles them) through fleet-single (one
+   replica), fleet-affinity (2 replicas, sequential, no skew guard),
+   fleet-rr (round robin), fleet-async (affinity, pipelined replicas, one
+   thread and CUDA stream each) and fleet-grow (rendezvous hashing on 2
+   replicas, then ``add_replica`` to 3 and each group's next request).
+   Every request's tokens are identical in all five; the prefix hits
+   equal the host's prediction (affinity above round robin);
+   ``add_replica`` moves the groups and pages the host predicts, at least
+   one, and the moved group's next request hits on the new replica; the
+   threaded runs' replicas ran on distinct, non-default streams; every run
+   accepts and falls back, conserves pages and launches the paged kernel
+   layers x paged decode_step calls times summed over its replicas, and
+   nothing else.  Then fleet-int8-async (2 threaded replicas over int8
+   pages with shared scoring and the int8 draft, 4 requests, its own
+   calibrated threshold) against fleet-int8-single (one such replica):
+   identical tokens, and the quantized kernel and the gather launched
+   exactly as in gsi-int8-shared.  Each run prints its wall time, tokens/s,
+   per-replica hits and routing counters, and a threaded run its wall time
+   against the sum of its replicas' step times.
    Then, once the Qwen weights are freed, GSI with a mixture-of-experts
    target at full width and the published depth: the Qwen2.5-Math-1.5B
    draft, ``qwen2-moe-a2.7b`` (24 layers, 60 routed experts top-4 laid out
@@ -169,6 +194,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -254,12 +280,30 @@ SLO_R0_STEPS = 5
 # processing grows with the launches: at 28 layers the three Qwen profiles
 # took 313 s of a chip run; at 14, with the gsi-moe step, the four took
 # 237 s and the full-depth RWKV step 70 s of a run whose script took
-# 1118.8 s of its 1200, H100 80GB HBM3, 700 W)
-PROFILE_LAYERS = 7
+# 1118.8 s of its 1200, H100 80GB HBM3, 700 W; at 7, with the fleet
+# phase added at 7 too, the Qwen phases alone took 687.4 s of a run on the
+# same card, the SLO runs 105 s, the fleet 144.7 s and the three Qwen
+# profiles 91 s, so all three went to 4)
+PROFILE_LAYERS = 4
 # depth of the SLO runs and the warm-cache check (0: the published 28): at
 # 28 layers they took 287 s of a chip run (H100 80GB HBM3, 700 W), at 14
 # 192 s of the run above; widths are never cut
 SLO_LAYERS = PROFILE_LAYERS
+# the fleet phase (replicas behind the router): its depth (widths never
+# cut), the seed of its prompts (8: under rendezvous hashing the two
+# groups' first pages go to replicas 0 and 1 of 2, and group 1's to the
+# new replica 2 of 3, so add_replica moves one group; under mod to
+# replicas 1 and 0), its preamble groups of FLEET_PER_GROUP requests each
+# plus one held back for fleet-grow's second wave, the 33-token preamble
+# (two full pages of 16 and one token), the GSI config's step budget and
+# tokens, the int8 runs' request count, and the pages of every fleet
+# engine (enough that no run evicts: hits are then predictable)
+FLEET_LAYERS = PROFILE_LAYERS
+FLEET_SEED = 8
+FLEET_GROUPS, FLEET_PER_GROUP, FLEET_PREAMBLE = 2, 4, 33
+FLEET_STEPS, FLEET_STEP_TOKENS = 3, 4
+FLEET_INT8_REQUESTS = 4
+FLEET_PAGES = 64
 # runs gsi-moe and gsi-moe-async: the seed of their prompts, of the
 # serving generator and of the MoE layer check's input
 MOE_SEED = 4
@@ -293,6 +337,16 @@ class SmokeFailure(Exception):
 def elapsed(what):
     print(f"elapsed {time.perf_counter() - T0:.1f} s after {what}",
           flush=True)
+
+
+def release(torch):
+    """Free the device memory of a finished phase: the counting wrappers
+    of its engines' models make reference cycles (model -> wrapper -> bound
+    method -> model), which keep the engines, and through them the
+    phase's weights, until the cycle collector runs; collect them, then
+    return the cached blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def check(cond, msg):
@@ -1683,6 +1737,12 @@ def phase_main(torch, layers):
           flush=True)
     elapsed("run score-prm")
     launches["paged_attention"] += phase_slo(torch, params)
+    fleet = phase_fleet(torch, params)
+    for key, n in fleet.items():
+        launches[key] += n
+    print(f"launches over the runs of phase 4 so far, the fleet's "
+          f"included: {launches}", flush=True)
+    elapsed("the fleet runs")
     # the profiler's processing costs about as much as the step itself,
     # per launch: the three Qwen engine-step profiles run at
     # PROFILE_LAYERS layers so that the script keeps well inside its time
@@ -2059,6 +2119,381 @@ def phase_slo(torch, params):
     elapsed("the warm-cache check")
     runs.clear()
     del cut
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------------------
+# Phase 4: the replica fleet (router, thread-per-replica loop, migration)
+# ----------------------------------------------------------------------
+
+def fleet_prompts(vocab):
+    """``FLEET_GROUPS`` preamble groups of ``FLEET_PER_GROUP + 1`` prompts
+    (a 33-token preamble and a tail of 2-6 tokens, no reserved token), as
+    ``benchmarks/common.py``'s ``shared_prefix_prompts`` lays them out:
+    returns the first wave (the groups in blocks), each prompt's group and
+    the held-back next request of every group."""
+    import numpy as np
+    rng = np.random.default_rng(FLEET_SEED)
+    allowed = np.arange(3, vocab)
+    pres = [rng.choice(allowed, FLEET_PREAMBLE) for _ in range(FLEET_GROUPS)]
+    wave, groups, nxt = [], [], []
+    for g, pre in enumerate(pres):
+        for i in range(FLEET_PER_GROUP + 1):
+            tail = rng.choice(allowed, int(rng.integers(2, 7)))
+            p = np.concatenate([pre, tail]).astype(np.int32)
+            if i < FLEET_PER_GROUP:
+                wave.append(p)
+                groups.append(g)
+            else:
+                nxt.append(p)
+    return wave, groups, nxt
+
+
+def fleet_budgets(count, max_steps):
+    """The reference benchmark's step budgets, cycling short to long."""
+    cycle = [1, 2, max(3, max_steps - 1), max_steps]
+    return [cycle[i % len(cycle)] for i in range(count)]
+
+
+def fleet_engines(torch, cfgs, params, g, count, **kw):
+    """``count`` paged engines (pages of 16 rows, prefix cache on, mode
+    gsi) over the one shared set of weights, each model's decode_step
+    counted per engine into ``engine.fleet_calls`` (paged calls and
+    layers), the draft phases into ``engine.fleet_phases``."""
+    from repro_torch.serving import GSIServingEngine
+    engines = []
+    for _ in range(count):
+        eng = GSIServingEngine(*cfgs, *params, g, mode="gsi", max_seq=128,
+                               device="cuda", paged=True, page_size=16,
+                               num_pages=FLEET_PAGES, **kw)
+        eng.fleet_calls = {}
+        eng.fleet_phases = [0]
+        for tag, model in (("draft", eng.draft), ("target", eng.target),
+                           ("prm", eng.prm)):
+            def counted(*a, _orig=model.decode_step, _tag=tag, _eng=eng,
+                        _layers=len(model.layers), **k):
+                calls = _eng.fleet_calls.setdefault(_tag, [0, _layers])
+                calls[0] += k.get("pt") is not None
+                return _orig(*a, **k)
+            model.decode_step = counted
+
+        def phased(*a, _orig=eng._draft_phase, _eng=eng, **k):
+            _eng.fleet_phases[0] += 1
+            return _orig(*a, **k)
+        eng._draft_phase = phased
+        engines.append(eng)
+    return engines
+
+
+def fleet_threshold(torch, label, cfgs, params, g, prompts, **kw):
+    """One calibration step of ``prompts`` (a slot each) on a throwaway
+    engine gives every request's first decision; the midpoint of the widest
+    gap between two of them (``gap_threshold``) makes every run of these
+    requests accept a first step and reject one."""
+    from repro_torch.serving import GSIScheduler, GSIServingEngine
+    engine = GSIServingEngine(*cfgs, *params, g, mode="gsi", max_seq=128,
+                              device="cuda", paged=True, page_size=16, **kw)
+    first = []
+    live_tilted(engine, first)
+    sched = GSIScheduler(engine, capacity=len(prompts))
+    for i, p in enumerate(prompts):
+        sched.submit(p, request_id=f"c{i}", max_steps=1)
+    sched.run(torch.Generator(device="cuda").manual_seed(0))
+    del sched, engine
+    return gap_threshold(label, first, len(prompts))
+
+
+def fleet_run(torch, name, engines, requests, *, grow=None, **router_kw):
+    """Serve ``requests`` (id -> (prompt, budget)) through a new
+    ``ReplicaRouter`` over ``engines`` (capacity 1 a replica), with every
+    launch counter zeroed just before and read just after; each replica's
+    steps timed and the stream they ran on recorded.  ``grow = (engine,
+    more)``: after the drain, ``add_replica(engine)`` and a second drain
+    of ``more``."""
+    from repro_torch.serving import ReplicaRouter
+    for eng in engines + ([grow[0]] if grow else []):
+        eng.fleet_calls.clear()
+        eng.fleet_phases[0] = 0
+    router = ReplicaRouter(engines, capacity=1, **router_kw)
+    timing = {}
+
+    def timed(rep):
+        step = rep.scheduler.step
+
+        def run_step(gen):
+            t0 = time.perf_counter()
+            out = step(gen)
+            rec = timing.setdefault(rep.index, {"s": 0.0, "streams": set()})
+            rec["s"] += time.perf_counter() - t0
+            rec["streams"].add(torch.cuda.current_stream().cuda_stream)
+            return out
+        rep.scheduler.step = run_step
+
+    for rep in router.replicas:
+        timed(rep)
+    wrappers = counters(torch)
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for rid, (prompt, budget) in requests.items():
+        router.submit(prompt, request_id=rid, max_steps=budget)
+    router.run(FLEET_SEED)
+    moved = predicted = None
+    if grow:
+        engine, more = grow
+        predicted = fleet_predict_moves(router)
+        moved = router.add_replica(engine)
+        timed(router.replicas[-1])
+        for rid, (prompt, budget) in more.items():
+            router.submit(prompt, request_id=rid, max_steps=budget)
+        router.run(FLEET_SEED + 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    out = router.responses
+    tokens = sum(r.num_tokens for r in out.values())
+    return {"name": name, "router": router, "out": out, "wall_s": wall,
+            "tokens": tokens, "tokens_per_s": tokens / wall,
+            "launches": launches, "timing": timing, "moved": moved,
+            "predicted": predicted, "stats": router.stats,
+            "prefix": router.prefix_stats(),
+            "engines": list(router.replicas)}
+
+
+def fleet_predict_moves(router):
+    """What ``add_replica`` must move, from the host's radix trees before
+    it runs: the groups whose rendezvous winner over the grown fleet is the
+    new replica, and the cached pages of their subtrees."""
+    from repro_torch.serving import preamble_rendezvous
+    import numpy as np
+    new = router.num_replicas
+    groups = pages = 0
+    for rep in router.replicas:
+        pager = rep.engine.pager
+        for chunk in pager.index.groups():
+            if preamble_rendezvous(np.asarray(chunk, np.int32),
+                                   new + 1) != new:
+                continue
+            stack = [pager.index.root.children[chunk]]
+            if stack[0].page not in pager.cached:
+                continue
+            groups += 1
+            while stack:
+                node = stack.pop()
+                pages += node.page in pager.cached
+                stack.extend(node.children.values())
+    return {"groups_moved": groups, "pages_moved": pages}
+
+
+def fleet_report(torch, res, vocab, ids):
+    """Print one fleet run's numbers and hold it to the checks every run
+    shares: requests finished with tokens in range, accept and fallback
+    both taken, pages conserved on every replica, and launches exact (the
+    paged kernel, or the quantized kernel and the gather, layers x paged
+    decode_step calls summed over the replicas)."""
+    name, router, out, st = res["name"], res["router"], res["out"], \
+        res["stats"]
+    px = res["prefix"]
+    print(f"run {name}: {router.num_replicas} replica(s), requests "
+          f"finished {len(out)}/{len(ids)}, engine steps "
+          f"{router.engine_steps} (busiest replica "
+          f"{router.engine_steps_max}), generated tokens {res['tokens']}, "
+          f"wall {res['wall_s']:.2f} s, tokens/s {res['tokens_per_s']:.2f}, "
+          f"decisions {st.decisions}, accepted {st.accepted} ({CARD})",
+          flush=True)
+    print(f"run {name}: routing {router.routing}; prefix hits "
+          f"{px['hits']} of {px['queries']} admissions, per replica "
+          + ", ".join(f"r{i} {p['hits']}/{p['queries']} (hit tokens "
+                      f"{p['hit_tokens']})"
+                      for i, p in enumerate(px["per_replica"]))
+          + "; routed " + ", ".join(f"r{r.index} {r.routed}"
+                                    for r in router.replicas), flush=True)
+    steps = {i: t["s"] for i, t in sorted(res["timing"].items())}
+    if router.threaded:
+        print(f"run {name}: threaded fleet wall {res['wall_s']:.2f} s "
+              f"against its replicas' step times "
+              + " + ".join(f"r{i} {s:.2f}" for i, s in steps.items())
+              + f" = {sum(steps.values()):.2f} s ({CARD})", flush=True)
+    print(f"run {name}: kernel launches {res['launches']}", flush=True)
+    check(set(ids) <= set(out), f"{name}: finished {sorted(out)}")
+    for rid in ids:
+        r = out[rid]
+        toks = r.tokens
+        check(r.finish_reason in ("eos", "low_reward", "max_steps")
+              and toks.size > 0 and toks.min() >= 0 and toks.max() < vocab,
+              f"{name} {rid}: reason {r.finish_reason!r}, tokens {toks}")
+    check(0 < st.accepted < st.decisions,
+          f"{name}: {st.accepted} of {st.decisions} decisions accepted; the"
+          f" run must take both the accept and the fallback branch")
+    for rep in router.replicas:
+        pool = rep.engine.pager
+        check(pool.num_free + pool.num_referenced + pool.num_cached
+              == pool.num_pages and pool.evicted == 0,
+              f"{name} replica {rep.index}: pages not conserved or evicted")
+    want = sum(layers * calls for rep in router.replicas
+               for calls, layers in rep.engine.fleet_calls.values())
+    phases = sum(rep.engine.fleet_phases[0] for rep in router.replicas)
+    if router.kv_dtype == "int8":
+        ok = only(res["launches"], paged_attention_quant=want,
+                  logprob_gather=2 * phases)
+        what = (f"paged_attention_quant = {want} and logprob_gather = 2 x "
+                f"draft phases = {2 * phases}")
+    else:
+        ok = only(res["launches"], paged_attention=want)
+        what = f"paged_attention = {want}"
+    check(want > 0 and ok, f"{name}: launches {res['launches']}; want "
+          f"{what} (layers x paged decode_step calls summed over the "
+          f"replicas) and no other kernel")
+    if router.threaded:
+        streams = [res["timing"][i]["streams"] for i in steps]
+        handles = [h for s in streams for h in s]
+        check(len(steps) == router.num_replicas
+              and all(len(s) == 1 for s in streams)
+              and len(set(handles)) == len(handles) and 0 not in handles,
+              f"{name}: replica streams {streams}; want one distinct, "
+              f"non-default stream per replica")
+        print(f"run {name}: replica streams {handles}, distinct and not the"
+              f" default stream", flush=True)
+
+
+def phase_fleet(torch, params):
+    """Phase 4's fleet runs at full Qwen2.5-Math width (``FLEET_LAYERS``
+    deep); returns their launches of the paged kernels and the gather."""
+    import numpy as np
+    from repro_torch.config import GSIConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import param_specs
+    from repro_torch.serving import preamble_hash, preamble_rendezvous
+    t_phase = time.perf_counter()
+    full = serve.build_triple("qwen2.5-math")
+    cfgs = serve.build_triple("qwen2.5-math", layers=FLEET_LAYERS)
+    vocab = full[0].vocab_size
+    print(f"== phase 4: the replica fleet at full Qwen2.5-Math width "
+          f"({cfgs[0].num_layers} layers)", flush=True)
+    if cfgs[0].num_layers < full[0].num_layers:
+        print(f"reduced: runs fleet-single, fleet-affinity, fleet-rr, "
+              f"fleet-async, fleet-grow, fleet-int8-async and "
+              f"fleet-int8-single cut to {cfgs[0].num_layers} layers in all "
+              f"three models (published {full[0].num_layers}); widths "
+              f"unchanged", flush=True)
+    cut = [{k: p[k] for k in param_specs(c)} for p, c in zip(params, cfgs)]
+    g = GSIConfig(n=4, beta=20.0, temperature=0.0,
+                  max_step_tokens=FLEET_STEP_TOKENS, max_steps=FLEET_STEPS,
+                  eos_token_id=-1, min_step_reward=-1e9)
+    wave, groups, nxt = fleet_prompts(vocab)
+    budgets = fleet_budgets(len(wave), FLEET_STEPS)
+    reqs = {f"f{i}": (p, m) for i, (p, m) in enumerate(zip(wave, budgets))}
+    more = {f"next{gi}": (p, FLEET_STEPS) for gi, p in enumerate(nxt)}
+    print("fleet requests: " + ", ".join(
+        f"{rid} group {gr} {p.size} tokens budget {m}"
+        for (rid, (p, m)), gr in zip(reqs.items(), groups))
+        + "; next wave " + ", ".join(f"{rid} {p.size} tokens"
+                                     for rid, (p, _) in more.items()),
+        flush=True)
+    # the CPU's predictions: affinity keeps each group on one replica
+    # (one cold miss a group); round robin over blocks misses once per
+    # (group, replica) pair; rendezvous moves the groups the new replica
+    # wins
+    first = [p[:16] for p in wave[::FLEET_PER_GROUP]]
+    rr_pairs = {(gr, i % 2) for i, gr in enumerate(groups)}
+    want_hits = {"fleet-single": len(wave) - FLEET_GROUPS,
+                 "fleet-affinity": len(wave) - FLEET_GROUPS,
+                 "fleet-rr": len(wave) - len(rr_pairs),
+                 "fleet-async": len(wave) - FLEET_GROUPS}
+    moving = [gi for gi, c in enumerate(first)
+              if preamble_rendezvous(c, 3) == 2]
+    print(f"fleet predictions (host): groups' first pages hash (mod, 2) to "
+          f"{[preamble_hash(c, 2) for c in first]}, rendezvous over 2 to "
+          f"{[preamble_rendezvous(c, 2) for c in first]} and over 3 to "
+          f"{[preamble_rendezvous(c, 3) for c in first]}; prefix hits "
+          f"{want_hits}; fleet-grow moves groups {moving}", flush=True)
+    check(moving and len(moving) < FLEET_GROUPS,
+          f"fleet-grow: groups {moving} move; FLEET_SEED must move at "
+          f"least one group and keep one")
+    threshold = fleet_threshold(torch, "fleet runs", cfgs, cut, g, wave)
+    g = dataclasses.replace(g, threshold_u=threshold)
+    engines = fleet_engines(torch, cfgs, cut, g, 3)
+    runs = {}
+    for name, engs, kw in (
+            ("fleet-single", engines[:1], dict(threaded=False)),
+            ("fleet-affinity", engines[:2], dict(skew=None,
+                                                 threaded=False)),
+            ("fleet-rr", engines[:2], dict(policy="round_robin",
+                                           threaded=False)),
+            ("fleet-async", engines[:2], dict(skew=None, sync=False,
+                                              threaded=True))):
+        runs[name] = fleet_run(torch, name, engs, reqs, **kw)
+        fleet_report(torch, runs[name], vocab, list(reqs))
+    runs["fleet-grow"] = grow = fleet_run(
+        torch, "fleet-grow", engines[:2], reqs, grow=(engines[2], more),
+        skew=None, hash_tier="rendezvous", threaded=False)
+    fleet_report(torch, grow, vocab, list(reqs) + list(more))
+    elapsed("the bf16 fleet runs")
+    base = runs["fleet-single"]["out"]
+    for name, res in runs.items():
+        check(all(res["out"][r].tokens.tolist() == base[r].tokens.tolist()
+                  for r in reqs),
+              f"{name}: tokens differ from run fleet-single's")
+        if name in want_hits:
+            check(res["prefix"]["hits"] == want_hits[name],
+                  f"{name}: {res['prefix']['hits']} prefix hits, predicted "
+                  f"{want_hits[name]}")
+    check(runs["fleet-affinity"]["prefix"]["hits"]
+          > runs["fleet-rr"]["prefix"]["hits"],
+          "fleet-affinity: no more prefix hits than round robin")
+    moved, predicted = grow["moved"], grow["predicted"]
+    router = grow["router"]
+    print(f"run fleet-grow: add_replica moved {moved}, the host predicted "
+          f"{predicted}; the next requests went to replicas "
+          f"{[router.replica_of(r) for r in more]}", flush=True)
+    check(moved == predicted and moved["groups_moved"] == len(moving)
+          and moved["pages_moved"] > 0,
+          f"fleet-grow: moved {moved}, predicted {predicted} "
+          f"({len(moving)} groups)")
+    new = router.replicas[-1]
+    check(all(router.replica_of(f"next{gi}") == new.index for gi in moving)
+          and new.scheduler.prefix_stats()["hits"] == len(moving),
+          f"fleet-grow: the moved groups' next requests did not all hit on "
+          f"the new replica ({new.scheduler.prefix_stats()})")
+    print("fleet runs: every request's tokens identical in runs "
+          "fleet-single, fleet-affinity, fleet-rr, fleet-async and "
+          "fleet-grow; prefix hits " + ", ".join(
+              f"{n} {r['prefix']['hits']}" for n, r in runs.items())
+          + " as predicted; the moved group hit on the new replica",
+          flush=True)
+    launches = {"paged_attention": sum(r["launches"]["paged_attention"]
+                                       for r in runs.values())}
+    runs.clear()
+    del engines, grow, router, new
+    # int8 pages, shared scoring and the int8 draft: a threaded fleet of 2
+    # against one replica
+    q8 = dict(kv_dtype="int8", shared_scoring=True, quantize_draft=True)
+    ids8 = [f"f{i}" for i in range(FLEET_INT8_REQUESTS // 2)] + [
+        f"f{FLEET_PER_GROUP + i}" for i in range(FLEET_INT8_REQUESTS // 2)]
+    reqs8 = {rid: reqs[rid] for rid in ids8}
+    g8 = dataclasses.replace(g, threshold_u=fleet_threshold(
+        torch, "fleet int8 runs", cfgs, cut, g,
+        [p for p, _ in reqs8.values()], **q8))
+    engines = fleet_engines(torch, cfgs, cut, g8, 3, **q8)
+    for name, engs, kw in (
+            ("fleet-int8-async", engines[:2], dict(skew=None, sync=False,
+                                                   threaded=True)),
+            ("fleet-int8-single", engines[2:], dict(threaded=False))):
+        runs[name] = fleet_run(torch, name, engs, reqs8, **kw)
+        fleet_report(torch, runs[name], vocab, ids8)
+    a, b = runs["fleet-int8-async"]["out"], runs["fleet-int8-single"]["out"]
+    check(all(a[r].tokens.tolist() == b[r].tokens.tolist() for r in ids8),
+          "fleet-int8-async: tokens differ from run fleet-int8-single's")
+    print("fleet int8 runs: every request's tokens identical in the "
+          "threaded 2-replica fleet and one replica", flush=True)
+    for key in ("paged_attention_quant", "logprob_gather"):
+        launches[key] = sum(r["launches"][key] for r in runs.values())
+    print(f"fleet phase: {time.perf_counter() - t_phase:.1f} s ({CARD}); "
+          f"launches {launches}", flush=True)
+    runs.clear()
+    del engines, cut
     torch.cuda.empty_cache()
     return launches
 
@@ -3176,14 +3611,20 @@ def main() -> int:
                 phase_kernels_flash_bwd(torch), phase_kernels_rwkv(torch)]
         elapsed("phases 1-3")
         launches = phase_main(torch, args.layers)
+        release(torch)
+        print(f"device memory after the Qwen phases: "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+              f"allocated", flush=True)
         elapsed("the Qwen runs")
         moe = phase_moe(torch)
+        release(torch)
         print(f"paged_attention launches over its runs: Qwen2.5-Math "
               f"{launches['paged_attention']} + qwen2-moe "
               f"{moe['paged_attention']}", flush=True)
         launches["paged_attention"] += moe["paged_attention"]
         elapsed("the MoE runs")
         rwkv = phase_rwkv(torch)
+        release(torch)
         elapsed("the RWKV runs")
         launches["rwkv6_scan"] = rwkv["rwkv6_scan"]
         launches["logprob_gather"] += rwkv["logprob_gather"]

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -29,6 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict = {}
+# replica threads may reach a kernel's first call together
+_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -87,9 +90,13 @@ def build(names=SOURCES) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<name>.cu``, built first if needed
+    (once, whichever threads ask at the same time)."""
     lib = _loaded.get(name)
     if lib is None:
-        build((name,))
-        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        with _LOCK:
+            lib = _loaded.get(name)
+            if lib is None:
+                build((name,))
+                lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return lib

@@ -48,7 +48,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, streams
 
 NEG = -1e30
 MAX_GROUP = 64        # query heads per kv head (the kernel's 64 query rows)
@@ -313,7 +313,7 @@ def flash_attention_cuda(q, k, v, *, causal=True, window: int = 0,
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    flash_attention_cuda.launches += 1
+    streams.launched(flash_attention_cuda)
     return (out, lse) if return_lse else out
 
 
@@ -392,7 +392,7 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal=True,
     if err:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err}")
-    flash_attention_bwd_cuda.launches += 1
+    streams.launched(flash_attention_bwd_cuda)
     return dq, dk, dv
 
 

@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, streams
 
 NEG = -1e30
 # (tokens per block, vocab columns per strip, blocks per SM the vocab split
@@ -149,7 +149,7 @@ def logprob_gather_cuda(h, w, labels, vocab_size: int):
     if err:
         raise RuntimeError(f"logprob_gather kernel launch failed: CUDA error "
                            f"{err}")
-    logprob_gather_cuda.launches += 1
+    streams.launched(logprob_gather_cuda)
     return out.reshape(B, S)
 
 

@@ -228,7 +228,7 @@ def paged_attention_cuda(q, kp, vp, pt, pos, *, window: int = 0,
     if err:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err}")
-    paged_attention_cuda.launches += 1
+    streams.launched(paged_attention_cuda)
     return out
 
 
@@ -285,7 +285,7 @@ def paged_attention_quant_cuda(q, kp, vp, ks, vs, pt, pos, *,
     if err:
         raise RuntimeError(f"paged_attention_quant kernel launch failed: "
                            f"CUDA error {err}")
-    paged_attention_quant_cuda.launches += 1
+    streams.launched(paged_attention_quant_cuda)
     return out
 
 

@@ -181,7 +181,7 @@ def _launch(who, r, k, v, w, u, state, final, live):
     if err:
         raise RuntimeError(f"rwkv6_scan kernel launch failed: CUDA error "
                            f"{err}")
-    rwkv6_scan_cuda.launches += 1
+    streams.launched(rwkv6_scan_cuda)
     return out
 
 

@@ -1,19 +1,39 @@
-"""Per-stream scratch and the current stream's handle, for the wrappers
-whose kernels need fp32 scratch between two launches of one call (the
-paged kernels' partials, the WKV6 scan's segment states).
+"""Per-stream scratch, the current stream's handle and the launch counts,
+for the wrappers.  The scratch serves the wrappers whose kernels need fp32
+scratch between two launches of one call (the paged kernels' partials, the
+WKV6 scan's segment states).
 
-Calls on one stream run in order (a call's first kernel starts after the
-previous call's last one), so each (device, stream) keeps one buffer,
-grown as needed and shared by every such wrapper, and a call pays no
-allocation; another stream gets its own.  Under CUDA-graph capture the
-scratch is allocated afresh from the graph's pool, so that every captured
-graph owns its own.
+Launches on one stream run in order, so one host thread's calls on one
+stream never overlap: a call's first kernel starts after the previous
+call's last one.  Each (device, stream) therefore keeps one buffer, grown
+as needed and shared by every such wrapper, and a call pays no
+allocation; another stream gets its own.  Two host threads on one stream
+would interleave their split and combine launches over that one buffer,
+so every thread that launches concurrently with another runs on a stream
+of its own: the replica fleet's threads each run under their replica's
+stream (``serving/replica.py``).  Under CUDA-graph capture the scratch is
+allocated afresh from the graph's pool, so that every captured graph owns
+its own.
+
+Each wrapper counts its launches on its own ``launches`` attribute through
+:func:`launched`, under one lock, so that concurrent replica threads lose
+no count.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
 _SCRATCH: dict = {}
+_COUNT = threading.Lock()
+
+
+def launched(fn) -> None:
+    """Add one to ``fn.launches`` (a wrapper's launch count) under a lock:
+    ``+=`` on an attribute is not atomic across threads."""
+    with _COUNT:
+        fn.launches += 1
 
 
 def scratch(dev, stream, n):

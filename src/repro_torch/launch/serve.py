@@ -6,7 +6,7 @@ continuous-batching scheduler.
         --requests 6 --capacity 4 --n 4 --paged [--layers 28] [--device cuda] \
         [--kv-dtype {fp,bf16,int8,fp8}] [--quantize-draft] [--sync | --async] \
         [--chunk-tokens N] [--priority K] [--deadline S] [--stream] \
-        [--cache-dir DIR]
+        [--cache-dir DIR] [--replicas R [--router POLICY] [--hash-tier T]]
     PYTHONPATH=src python -m repro_torch.launch.serve --config qwen2-moe
     PYTHONPATH=src python -m repro_torch.launch.serve --config qwen3
     PYTHONPATH=src python -m repro_torch.launch.serve --config rwkv6-3b
@@ -22,7 +22,20 @@ flight and harvests and admits while it runs, and prints an ``async
 pipeline: overlap_fraction=...`` line; ``--sync`` selects the lock-step
 loop (identical tokens).  ``--kv-dtype`` (with ``--paged``) picks the page
 storage format and ``--quantize-draft`` rounds the draft's weights through
-int8, as in the reference's CLI.  ``--replicas > 1`` and ``--tp`` raise.
+int8, as in the reference's CLI.  ``--tp`` raises.
+
+``--replicas R`` (R > 1) serves through a fleet of R data-parallel
+replicas behind a :class:`ReplicaRouter`: each replica has its own engine,
+page pool and radix index over one shared set of weight tensors (the
+full-width bf16 triple is about 31 GiB, so copies would not fit beside the
+pages), ``--capacity`` is split between them, ``--router`` picks the
+placement policy and ``--hash-tier`` affinity's hash.  The pipelined
+default drives the fleet with one thread per replica, each on its own CUDA
+stream; ``--sync`` steps the replicas in turn.  Each replica's prefix hit
+rate is printed:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --config toy \
+        --device cpu --paged --replicas 2 --router affinity
 
 The SLO options are the reference's: ``--chunk-tokens N`` meters prompt
 prefill to N tokens per engine step, ``--priority K`` submits every K-th
@@ -30,9 +43,9 @@ request at priority 1 (with ``--deadline S`` seconds as its SLO), which
 arms the preemption of priority-0 slots, ``--stream`` prints the first
 request's tokens as they are harvested (one ``stream`` line per event),
 and ``--cache-dir DIR`` (with ``--paged``) restores the radix cache from
-``DIR/cache-r0.npz`` before serving, if it is there, and saves it back
-after.  A second start with the same seed and ``--cache-dir`` serves its
-first requests from the restored pages:
+``DIR/cache-r{i}.npz`` (one per replica) before serving, if it is there,
+and saves it back after.  A second start with the same seed and
+``--cache-dir`` serves its first requests from the restored pages:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --config toy \
         --device cpu --paged --chunk-tokens 16 --priority 3 --deadline 5 \
@@ -81,7 +94,8 @@ from repro_torch.configs import qwen25_math, qwen2_moe_a27b, qwen3
 from repro_torch.data import SyntheticReasoningTask
 from repro_torch.device import resolve_device
 from repro_torch.models import random_params
-from repro_torch.serving import GSIScheduler, GSIServingEngine
+from repro_torch.serving import (HASH_TIERS, POLICIES, GSIScheduler,
+                                 GSIServingEngine, ReplicaRouter)
 from repro_torch.train import Trainer
 
 
@@ -153,13 +167,24 @@ def build_triple(name: str, *, layers: int = 0):
     return cfgs
 
 
-def build_engine(cfgs, gcfg: GSIConfig, *, seed: int = 0, device="cuda",
-                 **engine_kw) -> GSIServingEngine:
-    """A serving engine over the triple with seeded random weights made
-    directly on ``device`` (seeds ``seed``, ``seed+1``, ``seed+2``)."""
+def build_engines(cfgs, gcfg: GSIConfig, count: int, *, seed: int = 0,
+                  device="cuda", **engine_kw):
+    """``count`` serving engines (one per replica) over ONE set of seeded
+    random weights made directly on ``device`` (seeds ``seed``, ``seed+1``,
+    ``seed+2``), as the reference's CLI passes the same parameters to every
+    replica's engine.  Each engine has its own caches and page pool."""
     dev = resolve_device(device)
     params = [random_params(cfg, seed + i, dev) for i, cfg in enumerate(cfgs)]
-    return GSIServingEngine(*cfgs, *params, gcfg, device=dev, **engine_kw)
+    return [GSIServingEngine(*cfgs, *params, gcfg, device=dev, **engine_kw)
+            for _ in range(count)]
+
+
+def build_engine(cfgs, gcfg: GSIConfig, *, seed: int = 0, device="cuda",
+                 **engine_kw) -> GSIServingEngine:
+    """One serving engine over the triple with seeded random weights (see
+    :func:`build_engines`)."""
+    return build_engines(cfgs, gcfg, 1, seed=seed, device=device,
+                         **engine_kw)[0]
 
 
 def random_prompts(count: int, *, seed: int, vocab: int, lo: int, hi: int,
@@ -173,61 +198,84 @@ def random_prompts(count: int, *, seed: int, vocab: int, lo: int, hi: int,
 
 
 def make_frontend(engines, *, capacity: int, continuous: bool = True,
-                  collect_stats: bool = False, sync: bool = True,
-                  chunk_tokens: int = 0, cache_aware: bool = False,
-                  **kw) -> GSIScheduler:
-    """One serving frontend: a :class:`GSIScheduler` over one engine.
-    Several engines (replicas behind a router) are not ported yet."""
-    if isinstance(engines, (list, tuple)):
-        if len(engines) != 1:
-            raise NotImplementedError(
-                "replicas behind a router are not ported to repro_torch yet")
-        engines = engines[0]
-    return GSIScheduler(engines, capacity=capacity, continuous=continuous,
-                        collect_stats=collect_stats, sync=sync,
-                        chunk_tokens=chunk_tokens, cache_aware=cache_aware,
-                        **kw)
+                  collect_stats: bool = False, policy: str = "affinity",
+                  sync: bool = True, hash_tier: str = "mod",
+                  chunk_tokens: int = 0):
+    """One serving frontend over one or many engines.
+
+    One engine (or a 1-list) gets a :class:`GSIScheduler`; a list of N > 1
+    engines gets a :class:`ReplicaRouter` fronting N replicas of
+    ``capacity`` slots each, placed by ``policy`` (affinity's hash per
+    ``hash_tier``).  ``sync=False`` selects the pipelined loop and, for a
+    router, the thread-per-replica fleet loop.  Each frontend keeps its own
+    ``cache_aware`` default (off for a scheduler, on for a router), as in
+    the reference.  Both frontends expose the same
+    submit / run / stats / prefix_stats / pipeline_stats surface.
+    """
+    if isinstance(engines, GSIServingEngine):
+        engines = [engines]
+    engines = list(engines)
+    if len(engines) == 1:
+        return GSIScheduler(engines[0], capacity=capacity,
+                            continuous=continuous,
+                            collect_stats=collect_stats, sync=sync,
+                            chunk_tokens=chunk_tokens)
+    return ReplicaRouter(engines, capacity=capacity, policy=policy,
+                         continuous=continuous, collect_stats=collect_stats,
+                         sync=sync, threaded=not sync, hash_tier=hash_tier,
+                         chunk_tokens=chunk_tokens)
 
 
-def _cache_path(cache_dir: str) -> str:
-    # the reference's name for replica 0's snapshot
-    return os.path.join(cache_dir, "cache-r0.npz")
+def frontend_schedulers(sched):
+    """The per-engine schedulers behind a frontend (router or single)."""
+    if isinstance(sched, ReplicaRouter):
+        return [rep.scheduler for rep in sched.replicas]
+    return [sched]
 
 
-def load_frontend_cache(sched: GSIScheduler, cache_dir: str) -> int:
-    """Warm-restart a frontend from ``cache_dir``: load ``cache-r0.npz``
-    (written by :func:`save_frontend_cache`) into its state through the
-    engine's snapshot codec, so restored radix subtrees serve the first
-    requests from spliced pages.  Returns 1 if a snapshot was restored, 0
-    if there was none."""
-    path = _cache_path(cache_dir)
-    if not os.path.exists(path):
-        return 0
-    sched.state = sched.engine.load_cache(sched.state, path)
-    return 1
+def load_frontend_cache(sched, cache_dir: str) -> int:
+    """Warm-restart a frontend from ``cache_dir``: load ``cache-r{i}.npz``
+    (written by :func:`save_frontend_cache`) into replica ``i``'s state
+    through the engine's snapshot codec, so restored radix subtrees serve
+    their first requests from spliced pages.  A missing file is skipped (a
+    replica added since the last save starts cold).  Returns the number of
+    replicas restored."""
+    loaded = 0
+    for i, s in enumerate(frontend_schedulers(sched)):
+        path = os.path.join(cache_dir, f"cache-r{i}.npz")
+        if not os.path.exists(path):
+            continue
+        s.state = s.engine.load_cache(s.state, path)
+        loaded += 1
+    return loaded
 
 
-def save_frontend_cache(sched: GSIScheduler, cache_dir: str) -> int:
-    """Persist the frontend's cached radix subtrees to
-    ``cache_dir/cache-r0.npz``.  Returns 1 if a snapshot was written, 0 for
-    an engine without a live prefix cache."""
-    eng = sched.engine
-    if not eng.paged or not eng.prefix_cache:
-        return 0
-    os.makedirs(cache_dir, exist_ok=True)
-    eng.save_cache(sched.state, _cache_path(cache_dir))
-    return 1
+def save_frontend_cache(sched, cache_dir: str) -> int:
+    """Persist every replica's cached radix subtrees, one
+    ``cache_dir/cache-r{i}.npz`` each (engines without a live prefix cache
+    are skipped).  Returns the number of snapshots written."""
+    saved = 0
+    for i, s in enumerate(frontend_schedulers(sched)):
+        eng = s.engine
+        if not eng.paged or not eng.prefix_cache:
+            continue
+        os.makedirs(cache_dir, exist_ok=True)
+        eng.save_cache(s.state, os.path.join(cache_dir, f"cache-r{i}.npz"))
+        saved += 1
+    return saved
 
 
-def serve(engine: GSIServingEngine, prompts, *, capacity: int,
-          seed: int = 0, continuous: bool = True, sync: bool = True,
-          chunk_tokens: int = 0, cache_aware: bool = False,
+def serve(engine, prompts, *, capacity: int, seed: int = 0,
+          continuous: bool = True, sync: bool = True, chunk_tokens: int = 0,
+          policy: str = "affinity", hash_tier: str = "mod",
           priority_every: int = 0, deadline_s=None, stream=None,
           cache_dir: str = "") -> dict:
-    """Submit ``prompts`` up front and drain them through the scheduler,
-    lock-step (``sync=True``) or pipelined.
+    """Submit ``prompts`` up front and drain them through the frontend of
+    :func:`make_frontend`, lock-step (``sync=True``) or pipelined.
 
-    ``chunk_tokens`` and ``cache_aware`` go to the scheduler.
+    ``engine`` is one engine or a list of them (one per replica, behind a
+    router placing by ``policy`` and ``hash_tier``; ``capacity`` is per
+    replica).  ``chunk_tokens`` goes to the scheduler(s).
     ``priority_every=k`` submits every k-th request at priority 1, with
     ``deadline_s`` as its SLO; ``stream`` is attached to the first
     request; ``cache_dir`` restores the radix cache from a snapshot there
@@ -239,8 +287,9 @@ def serve(engine: GSIServingEngine, prompts, *, capacity: int,
     includes the device work.
     """
     sched = make_frontend(engine, capacity=capacity, continuous=continuous,
-                          collect_stats=True, sync=sync,
-                          chunk_tokens=chunk_tokens, cache_aware=cache_aware)
+                          collect_stats=True, sync=sync, policy=policy,
+                          hash_tier=hash_tier, chunk_tokens=chunk_tokens)
+    devices = {s.engine.device for s in frontend_schedulers(sched)}
     restored = load_frontend_cache(sched, cache_dir) if cache_dir else 0
     ids = []
     for i, p in enumerate(prompts):
@@ -248,12 +297,16 @@ def serve(engine: GSIServingEngine, prompts, *, capacity: int,
         ids.append(sched.submit(p, priority=1 if hi else 0,
                                 deadline_s=deadline_s if hi else None,
                                 stream=stream if i == 0 else None))
-    gen = torch.Generator(device=engine.device)
-    gen.manual_seed(seed)
+    if isinstance(sched, ReplicaRouter):
+        gen = seed            # each replica seeds its own generator from it
+    else:
+        gen = torch.Generator(device=sched.engine.device)
+        gen.manual_seed(seed)
     t0 = time.perf_counter()
     out = sched.run(gen)
-    if engine.device.type == "cuda":
-        torch.cuda.synchronize(engine.device)
+    for dev in devices:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     saved = save_frontend_cache(sched, cache_dir) if cache_dir else 0
     tokens = sum(out[r].num_tokens for r in ids if r in out)
@@ -262,6 +315,7 @@ def serve(engine: GSIServingEngine, prompts, *, capacity: int,
     s = sched.stats
     return {"responses": out, "ids": ids, "finished": len(out),
             "steps": sched.engine_steps, "tokens": tokens, "wall_s": wall,
+            "routing": getattr(sched, "routing", None),
             "tokens_per_s": tokens / max(wall, 1e-9),
             "accept_rate": s.accept_rate, "draft_tokens": s.draft_tokens,
             "target_tokens": s.target_tokens, "prefix": sched.prefix_stats(),
@@ -300,7 +354,17 @@ def main(argv=None) -> None:
     ap.add_argument("--paged", action="store_true")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--gang", action="store_true")
-    ap.add_argument("--replicas", type=int, default=1)
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="data-parallel serving replicas (each its own "
+                         "engine, page pool and radix index over shared "
+                         "weights; --capacity is split between them)")
+    ap.add_argument("--router", default="affinity", choices=list(POLICIES),
+                    help="replica placement policy (preamble affinity "
+                         "keeps shared-prefix requests on one replica)")
+    ap.add_argument("--hash-tier", default="mod", choices=list(HASH_TIERS),
+                    help="affinity's preamble hash: mod (blake2b mod N) or "
+                         "rendezvous (a new replica takes only the groups "
+                         "it wins)")
     ap.add_argument("--tp", type=int, default=0)
     ap.add_argument("--kv-dtype", default="fp",
                     choices=["fp", "bf16", "int8", "fp8"],
@@ -339,12 +403,13 @@ def main(argv=None) -> None:
                     help="print the first request's tokens as they are "
                          "harvested (one line per stream event)")
     ap.add_argument("--cache-dir", default="",
-                    help="warm-restart directory: the radix cache snapshot "
-                         "(cache-r0.npz) is restored from here before "
-                         "serving and saved back after (needs --paged)")
+                    help="warm-restart directory: the radix cache snapshots "
+                         "(cache-r{i}.npz, one per replica) are restored "
+                         "from here before serving and saved back after "
+                         "(needs --paged)")
     args = ap.parse_args(argv)
-    if args.replicas > 1:
-        raise NotImplementedError("--replicas > 1 is not ported yet")
+    if args.replicas < 1:
+        raise ValueError("--replicas must be >= 1")
     if args.tp > 1:
         raise NotImplementedError("--tp is not ported yet")
     if args.train_steps and args.config != "toy":
@@ -374,8 +439,9 @@ def main(argv=None) -> None:
         gcfg = GSIConfig(n=args.n, beta=args.beta, threshold_u=args.u,
                          temperature=args.temperature, max_step_tokens=8,
                          max_steps=8)
-        engine = GSIServingEngine(*cfgs, *params, gcfg, device=dev,
-                                  **engine_kw)
+        engines = [GSIServingEngine(*cfgs, *params, gcfg, device=dev,
+                                    **engine_kw)
+                   for _ in range(args.replicas)]
         problems = [task.sample_problem() for _ in range(args.requests)]
         prompts = [np.asarray(p.prompt, np.int32) for p in problems]
     else:
@@ -383,12 +449,15 @@ def main(argv=None) -> None:
                          temperature=args.temperature,
                          max_step_tokens=args.max_step_tokens,
                          max_steps=args.max_steps, min_step_reward=0.0)
-        engine = build_engine(cfgs, gcfg, seed=args.seed, device=args.device,
-                              **engine_kw)
+        engines = build_engines(cfgs, gcfg, args.replicas, seed=args.seed,
+                                device=args.device, **engine_kw)
         prompts = random_prompts(args.requests, seed=args.seed,
                                  vocab=cfgs[0].vocab_size, lo=24, hi=72)
-    res = serve(engine, prompts, capacity=args.capacity, seed=args.seed,
-                continuous=not args.gang, sync=args.sync,
+    # --capacity is the fleet's: each replica gets its share
+    capacity = max(1, args.capacity // args.replicas)
+    res = serve(engines if args.replicas > 1 else engines[0], prompts,
+                capacity=capacity, seed=args.seed, continuous=not args.gang,
+                sync=args.sync, policy=args.router, hash_tier=args.hash_tier,
                 chunk_tokens=args.chunk_tokens, priority_every=args.priority,
                 deadline_s=args.deadline or None,
                 stream=_print_stream if args.stream else None,
@@ -403,8 +472,20 @@ def main(argv=None) -> None:
               f"deadline_misses={res['deadline_misses']} "
               f"prefill_commit_max={res['prefill_commit_max']} "
               f"ttft_p50={res['ttft_p50'] * 1e3:.0f}ms", flush=True)
+    if args.replicas > 1:
+        px = res["prefix"]
+        print(f"fleet: {args.replicas} replicas ({args.router}, "
+              f"{args.hash_tier}), routing {res['routing']}, "
+              f"prefix hit_rate={px['hit_rate']:.2f}", flush=True)
+        for i, p in enumerate(px["per_replica"]):
+            print(f"  replica {i} ({args.router}): "
+                  f"hit_rate={p['hit_rate']:.2f} "
+                  f"({p['hits']}/{p['queries']} admissions) "
+                  f"prefill_tokens={p['prefill_tokens']}", flush=True)
     print(f"{args.config} ({cfgs[1].num_layers} layers) method={args.method}"
-          f" n={args.n} capacity={args.capacity} device={engine.device} "
+          f" n={args.n} capacity={capacity}"
+          f"{f' x {args.replicas} replicas' if args.replicas > 1 else ''} "
+          f"device={engines[0].device} "
           f"{'paged' if args.paged else 'dense'} kv={args.kv_dtype}"
           f"{' draft=int8' if args.quantize_draft else ''}: "
           f"finished={res['finished']}/{args.requests} steps={res['steps']} "

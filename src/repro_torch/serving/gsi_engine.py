@@ -233,15 +233,74 @@ class EngineStats:
                 lst.append(arr)
             if x.size == 0:
                 return
-            n_a, mean_a, m2_a = self.moments.setdefault(name, [0, 0.0, 0.0])
-            n_b = x.size
             mean_b = float(x.mean())
-            m2_b = float(((x - mean_b) ** 2).sum())
-            n = n_a + n_b
-            delta = mean_b - mean_a
-            self.moments[name] = [
-                n, mean_a + delta * n_b / n,
-                m2_a + m2_b + delta * delta * n_a * n_b / n]
+            self.moments[name] = _chan(
+                self.moments.get(name, _EMPTY), x.size, mean_b,
+                float(((x - mean_b) ** 2).sum()))
+
+    def trace_mean(self, name: str) -> float:
+        """Exact mean of every value ever recorded into ``name``."""
+        return self.moments.get(name, _EMPTY)[1]
+
+    def trace_var(self, name: str) -> float:
+        """Exact population variance of the named trace."""
+        n, _, m2 = self.moments.get(name, _EMPTY)
+        return m2 / n if n else 0.0
+
+    def trace_count(self, name: str) -> int:
+        """Total values folded into the named trace's moments."""
+        return self.moments.get(name, _EMPTY)[0]
+
+
+_EMPTY = (0, 0.0, 0.0)
+# the scalar counters merge_engine_stats sums (prefill_commit_max is a max)
+_COUNTERS = ("steps", "accepted", "decisions", "draft_tokens",
+             "target_tokens", "requests_finished", "prefix_queries",
+             "prefix_hits", "prefix_hit_tokens", "prefix_pages_reused",
+             "prefill_tokens", "pages_evicted", "decode_pages_published",
+             "preemptions", "resumes", "deadline_misses")
+
+
+def _chan(a, n_b: int, mean_b: float, m2_b: float) -> list:
+    """Chan/Welford: the moments ``a = (n, mean, M2)`` combined with
+    those of ``n_b`` more values."""
+    n_a, mean_a, m2_a = a
+    n = n_a + n_b
+    delta = mean_b - mean_a
+    return [n, mean_a + delta * n_b / n,
+            m2_a + m2_b + delta * delta * n_a * n_b / n]
+
+
+def merge_engine_stats(parts: Sequence[EngineStats]) -> EngineStats:
+    """Combine per-replica :class:`EngineStats` into one fleet view.
+
+    Counters sum and ``prefill_commit_max`` is a max; the running moments
+    merge exactly by the combine ``record_trace`` uses, so the fleet's
+    ``trace_mean`` / ``trace_var`` are what one scheduler would have
+    measured; the bounded trace lists concatenate up to ``trace_limit``.
+    Each part is snapshotted under its own lock (replica threads may still
+    be recording), and the parts are left untouched.
+    """
+    out = EngineStats()
+    if not parts:
+        return out
+    out.trace_limit = parts[0].trace_limit
+    for p in parts:
+        with p._lock:
+            for f in _COUNTERS:
+                setattr(out, f, getattr(out, f) + getattr(p, f))
+            out.prefill_commit_max = max(out.prefill_commit_max,
+                                         p.prefill_commit_max)
+            for trace in ("tilted_rewards", "raw_rewards", "logp_ratio"):
+                lst = getattr(out, trace)
+                lst.extend(getattr(p, trace)[:max(out.trace_limit
+                                                  - len(lst), 0)])
+            part_moments = {k: tuple(v) for k, v in p.moments.items()}
+        for name, (n_b, mean_b, m2_b) in part_moments.items():
+            if n_b:
+                out.moments[name] = _chan(out.moments.get(name, _EMPTY),
+                                          n_b, mean_b, m2_b)
+    return out
 
 
 class GSIServingEngine:

@@ -199,6 +199,25 @@ class PagePool:
                     self.evicted += 1
         return freed
 
+    def forget(self, page: int) -> int:
+        """Drop the radix subtree rooted at ``page``'s node, with no LRU
+        victim selection: the cache-migration primitive (a source replica
+        forgets a preamble group once its pages were pushed elsewhere, so
+        affinity stops matching it here).  Refcount-0 pages of the subtree
+        return to the free list with their scale slots; still-referenced
+        ones only lose their retention.  Returns the pages freed; not
+        counted in ``evicted``, which tracks pressure evictions only."""
+        if self.index is None:
+            return 0
+        freed = 0
+        for p in self.index.drop_subtree(page):
+            self.retained.discard(p)
+            if p in self.cached:
+                self.cached.remove(p)
+                self._free(p)
+                freed += 1
+        return freed
+
     # -- transitions ---------------------------------------------------
     def claim(self, slot: int, pages: int,
               shared: Sequence[int] = ()) -> None:

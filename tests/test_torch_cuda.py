@@ -39,7 +39,10 @@ Paged serving through the kernel against dense serving on the card is
 checked by ``chip_smoke.py`` (its toy agreement phase), not repeated here.
 On the toy triple the card's chunked prefill (``extend``) and a priority
 preemption with its resume commit the CPU's tokens, and a radix-cache
-snapshot round trip (bf16 and int8 pools) is bitwise.
+snapshot round trip (bf16 and int8 pools) is bitwise.  A threaded
+two-replica fleet (a thread and a CUDA stream a replica; bf16 pages, and
+int8 pages with shared scoring) commits the CPU's sequential fleet's
+tokens with exact launch counts.
 """
 import dataclasses
 
@@ -1105,3 +1108,56 @@ def test_snapshot_round_trip_on_the_card_is_bitwise(cuda_device, tmp_path,
     assert [out2[r].tokens.tolist() for r in ids2] == \
         [out[r].tokens.tolist() for r in ids]
     assert warm.prefix_stats()["hits"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_threaded_fleet_on_the_card_matches_the_cpu(cuda_device, kv_dtype):
+    """Two replicas on the card, each driven by a thread of its own under a
+    stream of its own (pipelined schedulers), commit the CPU's sequential
+    fleet's tokens at temperature 0 with the same per-replica hits; every
+    paged call on the card launched the kernel, counted exactly across
+    the threads; int8 pages with shared scoring reach the gather's TMA
+    kernel from the fleet's fresh threads."""
+    from repro_torch.config import GSIConfig
+    from repro_torch.kernels.logprob_gather import logprob_gather_cuda
+    from repro_torch.serving import ReplicaRouter
+    g = GSIConfig(n=2, max_step_tokens=5, max_steps=3, beta=4.0,
+                  temperature=0.0, eos_token_id=-1, min_step_reward=-1e9)
+    kw = {} if kv_dtype is None else dict(kv_dtype="int8",
+                                          shared_scoring=True)
+    pres = [[5 + i % 24 for i in range(17)], [30 + i % 20 for i in range(17)]]
+    prompts = [np.asarray(pres[i // 3] + [33 + i, 34, 4], np.int32)
+               for i in range(6)]
+    pairs = [toy_pair(g, **kw) for _ in range(2)]
+    calls = []
+    for eng in (pair[1] for pair in pairs):
+        for model in (eng.draft, eng.target, eng.prm):
+            def counted(*a, _orig=model.decode_step,
+                        _layers=len(model.layers), **k):
+                if k.get("pt") is not None:
+                    calls.append(_layers)
+                return _orig(*a, **k)
+            model.decode_step = counted
+    runs = []
+    for dev, threaded in ((0, False), (1, True)):
+        router = ReplicaRouter([pair[dev] for pair in pairs], capacity=1,
+                               skew=None, threaded=threaded,
+                               sync=not threaded)
+        paged = (paged_attention_quant_cuda if kv_dtype
+                 else paged_attention_cuda)
+        before = (paged.launches, logprob_gather_cuda.launches)
+        ids = [router.submit(p, max_steps=1 + i % 3)
+               for i, p in enumerate(prompts)]
+        out = router.run(3)
+        runs.append(({r: out[r].tokens.tolist() for r in ids},
+                     [p["hits"] for p in router.prefix_stats()
+                      ["per_replica"]]))
+        if threaded:
+            streams = [rep.stream.cuda_stream for rep in router.replicas]
+            assert len(set(streams)) == 2 and 0 not in streams
+            assert paged.launches - before[0] == sum(calls) > 0
+            assert (logprob_gather_cuda.launches > before[1]) \
+                == (kv_dtype is not None)
+    assert runs[1] == runs[0]
+    assert sum(runs[0][1]) == len(prompts) - len(pres)

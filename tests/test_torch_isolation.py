@@ -96,8 +96,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
 
 
 def test_unported_options_raise():
-    """The fleet and multi-GPU options still raise; the SLO options and
-    the warm cache, ported, no longer do."""
+    """The multi-GPU options still raise; the fleet, the SLO options and
+    the warm cache, ported, no longer do (a fleet of one shared engine is
+    refused as in the reference)."""
     from repro_torch.config import GSIConfig
     from repro_torch.launch import serve
     from repro_torch.models import random_params
@@ -109,11 +110,14 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         GSIServingEngine(*args, device="cpu", mesh=object())
     eng = GSIServingEngine(*args, device="cpu", paged=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="share engine"):
         serve.make_frontend([eng, eng], capacity=1)
-    for argv in (["--replicas", "2"], ["--tp", "2"]):
-        with pytest.raises(NotImplementedError):
-            serve.main(["--config", "toy", "--device", "cpu"] + argv)
+    with pytest.raises(NotImplementedError):
+        serve.main(["--config", "toy", "--device", "cpu", "--tp", "2"])
+    # ported: the replica fleet behind its router
+    serve.main(["--config", "toy", "--device", "cpu", "--layers", "1",
+                "--paged", "--replicas", "2", "--requests", "2",
+                "--max-steps", "1", "--max-step-tokens", "4"])
     # ported: chunked prefill, cache-aware ordering, the pipelined loop,
     # priorities, deadlines, streams, extend and the snapshot codec
     sched = GSIScheduler(eng, capacity=1, chunk_tokens=8, cache_aware=True,

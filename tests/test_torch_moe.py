@@ -376,12 +376,13 @@ def _prompts():
     return prompts
 
 
-def _threshold(moe_triple):
+def _threshold(moe_triple, tcfgs=None, **kw):
     """A threshold between two rows' first-step tilted rewards, so the
     engine runs accept and fallback alike (from the port's first step)."""
-    _, _, tcfgs, tparams = moe_triple
-    te = GSIServingEngine(*tcfgs, *tparams, GSIConfig(**GREEDY),
-                          device="cpu", max_seq=48, paged=True, page_size=8)
+    _, _, cfgs, tparams = moe_triple
+    te = GSIServingEngine(*(tcfgs or cfgs), *tparams, GSIConfig(**GREEDY),
+                          device="cpu", max_seq=48, paged=True, page_size=8,
+                          **kw)
     prompts = _prompts()
     st = te.admit(te.fresh_state(3), np.ones(3, bool), prompts)
     _, res = te.step_decode(st, torch.Generator().manual_seed(0))
@@ -420,6 +421,55 @@ def test_engine_with_moe_target_matches_reference(moe_triple, paged,
                                    rtol=0)
         accepts.extend(np.asarray(jr.accept)[~np.asarray(jr.done)].tolist())
     assert True in accepts and False in accepts
+
+
+@pytest.mark.parametrize("factor", ["published", "starved"])
+def test_engine_drops_slots_as_reference(moe_triple, factor, monkeypatch):
+    """The MoE target at the published capacity factor and a starved one,
+    with shared scoring: the candidates' scoring pass routes enough rows
+    that experts overflow and drop slots, and the port's steps still equal
+    the reference's, so it drops the same slots."""
+    cfgs, params, tcfgs, tparams = moe_triple
+    cfgs = (cfgs[0], dataclasses.replace(
+        cfgs[1], capacity_factor=FACTORS[factor]), cfgs[2])
+    tcfgs = [to_port(c) for c in cfgs]
+    kw = dict(mode="gsi", max_seq=48, paged=True, page_size=8,
+              shared_scoring=True)
+    g = dict(GREEDY, threshold_u=_threshold(moe_triple, tcfgs,
+                                            shared_scoring=True))
+    drops = []
+    moe_ffn = moe.moe_ffn
+
+    def counted(cfg, p, x):
+        """The call's routed slots beyond each expert's capacity."""
+        xf = x.reshape(-1, x.shape[-1])
+        e_pad = p["router"].shape[1]
+        _, top_e, _ = moe._route(cfg, p["router"], xf)
+        over = torch.bincount(top_e.reshape(-1), minlength=e_pad) \
+            - moe._capacity(cfg, xf.shape[0], e_pad)
+        drops.append(int(over.clamp(min=0).sum()))
+        return moe_ffn(cfg, p, x)
+
+    monkeypatch.setattr(moe, "moe_ffn", counted)
+    je = JEngine(*cfgs, *params, JGSIConfig(**g), **kw)
+    te = GSIServingEngine(*tcfgs, *tparams, GSIConfig(**g), device="cpu",
+                          **kw)
+    prompts = _prompts()
+    mask = np.ones(len(prompts), bool)
+    js = je.admit(je.fresh_state(len(prompts)), mask, prompts)
+    ts = te.admit(te.fresh_state(len(prompts)), mask, prompts)
+    key = jax.random.PRNGKey(0)
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(3):
+        key, k1, k2 = jax.random.split(key, 3)
+        js, jr = je.step_decode(js, k1, k2)
+        ts, tr = te.step_decode(ts, gen)
+        np.testing.assert_array_equal(tr.chosen, np.asarray(jr.chosen))
+        np.testing.assert_array_equal(tr.accept, jr.accept)
+        np.testing.assert_array_equal(tr.pos, jr.pos)
+        np.testing.assert_allclose(tr.rewards, jr.rewards, atol=1e-5,
+                                   rtol=0)
+    assert sum(drops) > 0, drops
 
 
 def _serve(sched, prompts, budgets, gen):
