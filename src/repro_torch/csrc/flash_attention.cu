@@ -50,11 +50,22 @@
 //     tiles are handed out longest first, so the last wave holds short
 //     ones.  The output is staged in the warpgroup's Q panels and stored
 //     as whole rows.
+//   * bf16 at head_dim 256 (gemma3-1b, recurrentgemma-9b):
+//     flash_hopper256_kernel.  Its 64 x 256 fp32 O accumulator takes 128
+//     registers a thread, more than a 384-thread block leaves a consumer
+//     (ptxas allocates every thread of a block by its launch bounds, 168),
+//     so the block is the two consumer warpgroups alone and warp 0 also
+//     issues the loads: Q once, then K/V tiles of 64 keys through a ring of
+//     2 stages (Q 64 KB + 2 x 64 KB of K/V; 128-key tiles in 3 stages would
+//     need 448 KB).  Each warpgroup runs its own loop, S = Q K^T with wgmma
+//     m64n64k16, the same online softmax and masks, O += P V as two
+//     m64n128k16 halves of the 256 dims; no named-barrier pingpong.
 //   * Other bf16 head dims (16 and 40 in the toy configs): QK^T and P.V on
 //     the tensor cores with mma.sync m16n8k16 (fp32 accumulate); each warp
 //     owns 16 query rows, keeps its 16 x 64 score tile and its 16 x hd
 //     output in registers, V staged transposed; head_dim zero-padded to a
-//     multiple of 16 in shared memory (40 -> 48).
+//     multiple of 16 in shared memory (40 -> 48).  Its register tiles, and
+//     the fp32 kernel's, are sized for head_dim 128 or, above it, 256.
 //   * fp32: CUDA cores, each thread a 4 x 8 register tile of the scores
 //     and a 4 x hd/8 tile of the output.
 //   * The ragged Sq / Sk edges of the last two are masked in the kernel:
@@ -83,7 +94,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kRows = 64;            // (position, head) query rows per block
 constexpr int kKeys = 64;            // keys per k tile
-constexpr int kMaxHeadDim = 128;
+constexpr int kMaxHeadDim = 256;
 constexpr int kPadBf16 = 8;          // bf16 elements of padding per row
 constexpr float kNeg = -1e30f;       // the reference's mask value
 
@@ -145,6 +156,7 @@ __device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+template <int kMaxHd>
 __global__ void __launch_bounds__(kThreads)
 flash_bf16_kernel(Args a) {
   extern __shared__ __align__(16) char smem[];
@@ -181,9 +193,9 @@ flash_bf16_kernel(Args a) {
   const int pos0 = q0 + r0 / a.G, pos1 = q0 + r1 / a.G;
   const int ndt = a.hd / 8;                  // output n-tiles of 8 dims
   float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
-  float o[kMaxHeadDim / 8][4];
+  float o[kMaxHd / 8][4];
 #pragma unroll
-  for (int t = 0; t < kMaxHeadDim / 8; ++t)
+  for (int t = 0; t < kMaxHd / 8; ++t)
     o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
 
   const int first = key_lo(a, q0) / kKeys;
@@ -268,7 +280,7 @@ flash_bf16_kernel(Args a) {
     m0 = mn0;
     m1 = mn1;
 #pragma unroll
-    for (int t = 0; t < kMaxHeadDim / 8; ++t) {
+    for (int t = 0; t < kMaxHd / 8; ++t) {
       o[t][0] *= al0;
       o[t][1] *= al0;
       o[t][2] *= al1;
@@ -284,7 +296,7 @@ flash_bf16_kernel(Args a) {
       const uint32_t a2 = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
       const uint32_t a3 = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
 #pragma unroll
-      for (int t = 0; t < kMaxHeadDim / 8; ++t) {
+      for (int t = 0; t < kMaxHd / 8; ++t) {
         if (t < ndt) {
           const __nv_bfloat16* vr =
               vt_s + (t * 8 + gq) * vt_ld + kc * 16 + tg * 2;
@@ -296,7 +308,7 @@ flash_bf16_kernel(Args a) {
 
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
 #pragma unroll
-  for (int t = 0; t < kMaxHeadDim / 8; ++t) {
+  for (int t = 0; t < kMaxHd / 8; ++t) {
     if (t < ndt) {
       const int d = t * 8 + tg * 2;
       if (r0 < nrows)
@@ -313,6 +325,7 @@ flash_bf16_kernel(Args a) {
 // fp32: CUDA cores
 // ---------------------------------------------------------------------------
 
+template <int kMaxHd>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(Args a) {
   extern __shared__ __align__(16) char smem[];
@@ -352,11 +365,11 @@ flash_f32_kernel(Args a) {
   // softmax: two threads per row, 32 keys each
   const int srow = tid / 2, shalf = tid & 1;
   float m_run = kNeg, l_run = 0.f;           // kept by the softmax threads
-  float o[4][kMaxHeadDim / 8];
+  float o[4][kMaxHd / 8];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < kMaxHeadDim / 8; ++j) o[i][j] = 0.f;
+    for (int j = 0; j < kMaxHd / 8; ++j) o[i][j] = 0.f;
 
   const int first = key_lo(a, q0) / kKeys;
   const int last = key_hi(a, qlast) / kKeys;
@@ -432,14 +445,14 @@ flash_f32_kernel(Args a) {
     for (int i = 0; i < 4; ++i) {
       const float al = al_s[tr * 4 + i];
 #pragma unroll
-      for (int j = 0; j < kMaxHeadDim / 8; ++j) o[i][j] *= al;
+      for (int j = 0; j < kMaxHd / 8; ++j) o[i][j] *= al;
     }
     for (int key = 0; key < kKeys; ++key) {
       float pv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = p_s[(tr * 4 + i) * sld + key];
 #pragma unroll
-      for (int j = 0; j < kMaxHeadDim / 8; ++j) {
+      for (int j = 0; j < kMaxHd / 8; ++j) {
         if (j < ndim) {
           const float vv = v_s[key * a.hd + tc + 8 * j];
 #pragma unroll
@@ -458,22 +471,30 @@ flash_f32_kernel(Args a) {
       const float inv = 1.f / fmaxf(l_s[row], 1e-30f);
       float* dst = out + q_row(a, b, h, q0, row);
 #pragma unroll
-      for (int j = 0; j < kMaxHeadDim / 8; ++j)
+      for (int j = 0; j < kMaxHd / 8; ++j)
         if (j < ndim) dst[tc + 8 * j] = o[i][j] * inv;
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16, head_dim 64 or 128: TMA, mbarrier ring, wgmma, warp specialisation
+// bf16, head_dim 64, 128 and 256: TMA, mbarrier ring, wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int kHKeys = 128;          // keys per k tile
-constexpr int kHStages = 3;          // K/V ring depth
+constexpr int kHKeys = 128;          // keys per k tile (head_dim 64, 128)
+constexpr int kHStages = 3;          // K/V ring depth (head_dim 64, 128)
 constexpr int kTurn = 1;             // named barriers 1, 2: whose turn
 constexpr int kStaged = 3;           // named barriers 3, 4: output staged
 constexpr int kHThreads = 384;       // 2 consumer warpgroups + 1 producer
 constexpr int kHConsumers = 256;
+// head_dim 256: a 64 x 256 fp32 O accumulator is 128 registers a thread,
+// so the block is the two consumer warpgroups alone (256 threads, up to 255
+// registers each; a producer warpgroup would cap every thread at 168) and
+// warp 0 also loads.  64-key tiles in a ring of 2 keep Q (64 KB) and the
+// ring (2 x 64 KB) within the 227 KB a block may use.
+constexpr int kWKeys = 64;
+constexpr int kWStages = 2;
+constexpr int kWThreads = 256;
 
 struct HArgs {
   void* out;
@@ -484,26 +505,168 @@ struct HArgs {
 
 // Shared-memory plan of one block, all offsets from a 1024-aligned base:
 // Q [2 warpgroups][HD/64 panels][64 rows][128 B], then the ring of K and
-// V tiles [stage][HD/64 panels][kHKeys rows][128 B], then the mbarriers.
-template <int HD>
+// V tiles [stage][HD/64 panels][KEYS rows][128 B], then the mbarriers.
+template <int HD, int KEYS, int STAGES>
 struct HPlan {
   static constexpr int kPanels = HD / 64;
   static constexpr int kQPanel = 64 * 128;
-  static constexpr int kKVPanel = kHKeys * 128;
+  static constexpr int kKVPanel = KEYS * 128;
   static constexpr int kQBytes = 2 * kPanels * kQPanel;
   static constexpr int kKVStage = kPanels * kKVPanel;
   static constexpr int kK = kQBytes;
-  static constexpr int kV = kK + kHStages * kKVStage;
-  static constexpr int kBars = kV + kHStages * kKVStage;
-  static constexpr int kSmem = kBars + (1 + 3 * kHStages) * 8 + 1024;
+  static constexpr int kV = kK + STAGES * kKVStage;
+  static constexpr int kBars = kV + STAGES * kKVStage;
+  static constexpr int kSmem = kBars + (1 + 3 * STAGES) * 8 + 1024;
 };
+
+// The online softmax of one tile of KEYS keys (first key kb) for a
+// consumer thread's rows r0 and r1 of its warpgroup (positions pw0 .. pw1):
+// sc holds S = Q K^T on the wgmma accumulator layout.  Scores go to the
+// log2 domain, masked only where the tile crosses the causal diagonal,
+// the window's lower edge or Sk, by one compact loop over per-row key
+// bounds (key live iff lo < key <= hi): a per-element branch around
+// per-element bounds made the unmasked path jump over the masked code 64
+// times a tile, which cost more in instruction fetch than both products
+// together.  Updates m and l, rescales O and leaves P in pa as PV's bf16
+// A operand.
+template <int KEYS, int HD>
+__device__ __forceinline__ void online_softmax(
+    const HArgs& a, int kb, int pw0, int pw1, int r0, int r1, int tq,
+    float* sc, uint32_t* pa, float* o, float& m0, float& m1, float& l0,
+    float& l1) {
+  const bool edge = (a.causal && kb + KEYS - 1 > pw0) || kb + KEYS > a.Sk ||
+                    (a.window > 0 && kb <= pw1 - a.window);
+  if (edge) {
+    const int p0 = pw0 + r0 / a.G, p1 = pw0 + r1 / a.G;
+    const int hi0 = a.causal ? min(p0, a.Sk - 1) : a.Sk - 1;
+    const int hi1 = a.causal ? min(p1, a.Sk - 1) : a.Sk - 1;
+    const int lo0 = a.window > 0 ? p0 - a.window : -1;
+    const int lo1 = a.window > 0 ? p1 - a.window : -1;
+    const int k0 = kb + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < KEYS / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + (e & 1);
+        const bool lv = e < 2 ? (key > lo0 && key <= hi0)
+                              : (key > lo1 && key <= hi1);
+        sc[4 * j + e] = lv ? sc[4 * j + e] * a.scale_log2 : -INFINITY;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < KEYS / 2; ++i) sc[i] *= a.scale_log2;
+  }
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < KEYS / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  // a row with no live key yet keeps m = -1e30: its scores are -inf, so
+  // exp2 gives exactly 0 and alpha is 1
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  const float al0 = hopper::exp2_approx(m0 - mn0);
+  const float al1 = hopper::exp2_approx(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < KEYS / 8; ++j) {
+    const float p0 = hopper::exp2_approx(sc[4 * j] - mn0);
+    const float p1 = hopper::exp2_approx(sc[4 * j + 1] - mn0);
+    const float p2 = hopper::exp2_approx(sc[4 * j + 2] - mn1);
+    const float p3 = hopper::exp2_approx(sc[4 * j + 3] - mn1);
+    sum0 += p0 + p1;
+    sum1 += p2 + p3;
+    // n-tile j holds keys 8j..8j+7: a0/a1 of step j/2 if j is even, a2/a3
+    // if odd
+    pa[4 * (j / 2) + 2 * (j % 2)] = hopper::pack_bf16(p0, p1);
+    pa[4 * (j / 2) + 2 * (j % 2) + 1] = hopper::pack_bf16(p2, p3);
+  }
+  l0 = l0 * al0 + sum0;              // this thread's columns; quad-summed
+  l1 = l1 * al1 + sum1;              // at the end
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    o[4 * j] *= al0;
+    o[4 * j + 1] *= al0;
+    o[4 * j + 2] *= al1;
+    o[4 * j + 3] *= al1;
+  }
+}
+
+// A consumer thread's part of its warpgroup's epilogue, after the
+// warpgroup's last product: l summed over the quad, the log-sum-exp if
+// asked for, and the normalized bf16 output tile staged in the
+// warpgroup's Q panels (qw; 16-byte chunks XOR-swizzled by row so the
+// quad's 4-byte writes do not conflict), then stored as whole rows.
+template <int HD>
+__device__ __forceinline__ void store_output(
+    const HArgs& a, const float* o, float m0, float m1, float l0, float l1,
+    char* qw, int r0, int r1, int tq, int pw0, int rows, int b, int h,
+    int wg, int tid) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (a.lse != nullptr && tq == 0) {
+    // m is the row's max in the log2 domain, l its sum of exp2(s - m)
+    const int p0 = pw0 + r0 / a.G, p1 = pw0 + r1 / a.G;
+    const long hb = (long)b * a.H + (long)h * a.G;
+    if (r0 < rows && p0 < a.Sq)
+      a.lse[(hb + r0 % a.G) * a.Sq + p0] = m0 + log2f(l0);
+    if (r1 < rows && p1 < a.Sq)
+      a.lse[(hb + r1 % a.G) * a.Sq + p1] = m1 + log2f(l1);
+  }
+  constexpr int kRowBytes = HD * 2;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    const int c = (j ^ (r0 & 7)) * 16 + 4 * tq;   // r1 & 7 == r0 & 7
+    *reinterpret_cast<uint32_t*>(qw + r0 * kRowBytes + c) =
+        hopper::pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+    *reinterpret_cast<uint32_t*>(qw + r1 * kRowBytes + c) =
+        hopper::pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+  }
+  hopper::named_sync(kStaged + wg, 128);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+  constexpr int kChunks = HD / 8;
+  for (int i = tid % 128; i < 64 * kChunks; i += 128) {
+    const int r = i / kChunks, c = i - r * kChunks;
+    const int pos = pw0 + r / a.G, g = r - (r / a.G) * a.G;
+    if (r < rows && pos < a.Sq)
+      *reinterpret_cast<uint4*>(
+          out + (((long)b * a.Sq + pos) * a.H + (long)h * a.G + g) * HD +
+          c * 8) = *reinterpret_cast<const uint4*>(
+          qw + r * kRowBytes + ((c ^ (r & 7)) * 16));
+  }
+}
+
+// Rows past G * qt of each Q panel (1 of 64 at G = 7, 4 at G = 6) are
+// never written by TMA: zero them so the unused rows compute on zeros.
+__device__ __forceinline__ void zero_q_pad(char* q_s, int panels, int rows,
+                                           int tid, int nthreads) {
+  const int pad = (64 - rows) * 8;   // 16-byte chunks per panel
+  for (int i = tid; i < panels * pad; i += nthreads) {
+    const int panel = i / pad, c = i - panel * pad;
+    *reinterpret_cast<uint4*>(q_s + panel * 64 * 128 + rows * 128 + c * 16) =
+        make_uint4(0, 0, 0, 0);
+  }
+}
 
 template <int HD>
 __global__ void __launch_bounds__(kHThreads, 1)
 flash_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap, HArgs a) {
-  using P = HPlan<HD>;
+  using P = HPlan<HD, kHKeys, kHStages>;
   extern __shared__ char smem_raw[];
   char* base = hopper::align1024(smem_raw);
   char* q_s = base;
@@ -534,14 +697,7 @@ flash_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
       hopper::mbar_init(&empty[s], kHConsumers);
     }
   }
-  // rows past G * qt of each Q panel (1 of 64 at G = 7, 4 at G = 6) are
-  // never written by TMA: zero them so the unused rows compute on zeros
-  const int pad = (64 - rows) * 8;   // 16-byte chunks per panel
-  for (int i = tid; i < 2 * P::kPanels * pad; i += kHThreads) {
-    const int panel = i / pad, c = i - panel * pad;
-    *reinterpret_cast<uint4*>(q_s + panel * P::kQPanel + rows * 128 + c * 16) =
-        make_uint4(0, 0, 0, 0);
-  }
+  zero_q_pad(q_s, 2 * P::kPanels, rows, tid, kHThreads);
   hopper::fence_proxy_async();
   hopper::fence_barrier_init();
   __syncthreads();
@@ -628,78 +784,8 @@ flash_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
     auto softmax = [&](int it) {
       hopper::wgmma_wait<0>();
       hopper::fence_operands<kHKeys / 2>(sc);
-      const int kb = (first + it) * kHKeys;
-      // scores to the log2 domain; mask only tiles that cross the causal
-      // diagonal, the window's lower edge or Sk.  The mask is one compact
-      // loop over per-row key bounds (key live iff lo < key <= hi): a
-      // per-element branch around per-element bounds made the unmasked
-      // path jump over the masked code 64 times a tile, which cost more in
-      // instruction fetch than both products together
-      const bool edge = (a.causal && kb + kHKeys - 1 > pw0) ||
-                        kb + kHKeys > a.Sk ||
-                        (a.window > 0 && kb <= pw1 - a.window);
-      if (edge) {
-        const int p0 = pw0 + r0 / a.G, p1 = pw0 + r1 / a.G;
-        const int hi0 = a.causal ? min(p0, a.Sk - 1) : a.Sk - 1;
-        const int hi1 = a.causal ? min(p1, a.Sk - 1) : a.Sk - 1;
-        const int lo0 = a.window > 0 ? p0 - a.window : -1;
-        const int lo1 = a.window > 0 ? p1 - a.window : -1;
-        const int k0 = kb + 2 * tq;
-#pragma unroll
-        for (int j = 0; j < kHKeys / 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = k0 + 8 * j + (e & 1);
-            const bool lv = e < 2 ? (key > lo0 && key <= hi0)
-                                  : (key > lo1 && key <= hi1);
-            sc[4 * j + e] = lv ? sc[4 * j + e] * a.scale_log2 : -INFINITY;
-          }
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < kHKeys / 2; ++i) sc[i] *= a.scale_log2;
-      }
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kHKeys / 8; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
-        mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      // a row with no live key yet keeps m = -1e30: its scores are -inf,
-      // so exp2 gives exactly 0 and alpha is 1
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float al0 = hopper::exp2_approx(m0 - mn0);
-      const float al1 = hopper::exp2_approx(m1 - mn1);
-      m0 = mn0;
-      m1 = mn1;
-      float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < kHKeys / 8; ++j) {
-        const float p0 = hopper::exp2_approx(sc[4 * j] - mn0);
-        const float p1 = hopper::exp2_approx(sc[4 * j + 1] - mn0);
-        const float p2 = hopper::exp2_approx(sc[4 * j + 2] - mn1);
-        const float p3 = hopper::exp2_approx(sc[4 * j + 3] - mn1);
-        sum0 += p0 + p1;
-        sum1 += p2 + p3;
-        // n-tile j holds keys 8j..8j+7: a0/a1 of step j/2 if j is even,
-        // a2/a3 if odd
-        pa[4 * (j / 2) + 2 * (j % 2)] = hopper::pack_bf16(p0, p1);
-        pa[4 * (j / 2) + 2 * (j % 2) + 1] = hopper::pack_bf16(p2, p3);
-      }
-      l0 = l0 * al0 + sum0;          // this thread's columns; quad-summed
-      l1 = l1 * al1 + sum1;          // at the end
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        o[4 * j] *= al0;
-        o[4 * j + 1] *= al0;
-        o[4 * j + 2] *= al1;
-        o[4 * j + 3] *= al1;
-      }
+      online_softmax<kHKeys, HD>(a, (first + it) * kHKeys, pw0, pw1, r0, r1,
+                                 tq, sc, pa, o, m0, m1, l0, l1);
     };
 
     // Pingpong: the warpgroups take turns at the tensor cores (named
@@ -730,47 +816,140 @@ flash_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
     hopper::named_arrive(kTurn + 1 - wg, 256);
     if (wg == 0) hopper::named_sync(kTurn, 256);
 
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-    }
-    const float inv0 = 1.f / fmaxf(l0, 1e-30f);
-    const float inv1 = 1.f / fmaxf(l1, 1e-30f);
-    if (a.lse != nullptr && tq == 0) {
-      // m is the row's max in the log2 domain, l its sum of exp2(s - m)
-      const int p0 = pw0 + r0 / a.G, p1 = pw0 + r1 / a.G;
-      const long hb = (long)b * a.H + (long)h * a.G;
-      if (r0 < rows && p0 < a.Sq)
-        a.lse[(hb + r0 % a.G) * a.Sq + p0] = m0 + log2f(l0);
-      if (r1 < rows && p1 < a.Sq)
-        a.lse[(hb + r1 % a.G) * a.Sq + p1] = m1 + log2f(l1);
-    }
-    // stage the bf16 tile in this warpgroup's Q panels (its last product
-    // has completed), 16-byte chunks XOR-swizzled by row so the quad's
-    // 4-byte writes do not conflict, then store whole rows
-    constexpr int kRowBytes = HD * 2;
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      const int c = (j ^ (r0 & 7)) * 16 + 4 * tq;   // r1 & 7 == r0 & 7
-      *reinterpret_cast<uint32_t*>(qw + r0 * kRowBytes + c) =
-          hopper::pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-      *reinterpret_cast<uint32_t*>(qw + r1 * kRowBytes + c) =
-          hopper::pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
-    }
-    hopper::named_sync(kStaged + wg, 128);
-    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
-    constexpr int kChunks = HD / 8;
-    for (int i = tid % 128; i < 64 * kChunks; i += 128) {
-      const int r = i / kChunks, c = i - r * kChunks;
-      const int pos = pw0 + r / a.G, g = r - (r / a.G) * a.G;
-      if (r < rows && pos < a.Sq)
-        *reinterpret_cast<uint4*>(
-            out + (((long)b * a.Sq + pos) * a.H + (long)h * a.G + g) * HD +
-            c * 8) = *reinterpret_cast<const uint4*>(
-            qw + r * kRowBytes + ((c ^ (r & 7)) * 16));
+    store_output<HD>(a, o, m0, m1, l0, l1, qw, r0, r1, tq, pw0, rows, b, h,
+                     wg, tid);
+  }
+}
+
+// head_dim 256: two consumer warpgroups and no producer warpgroup (see
+// kWThreads).  Warp 0 loads: lane 0 issues every TMA load, and the warp
+// waits until both warpgroups have released a stage before it refills it,
+// one tile ahead of the products.  Each warpgroup runs its own loop
+// (S = Q K^T with wgmma m64n64k16, the online softmax, O += P V as two
+// m64n128k16 halves of the 256 dims), so the warp schedulers, not named
+// barriers, interleave one warpgroup's softmax with the other's products.
+__global__ void __launch_bounds__(kWThreads, 1)
+flash_hopper256_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, HArgs a) {
+  constexpr int HD = 256;
+  using P = HPlan<HD, kWKeys, kWStages>;
+  extern __shared__ char smem_raw[];
+  char* base = hopper::align1024(smem_raw);
+  char* q_s = base;
+  char* k_s = base + P::kK;
+  char* v_s = base + P::kV;
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(base + P::kBars);
+  uint64_t* full_k = q_bar + 1;
+  uint64_t* full_v = full_k + kWStages;
+  uint64_t* empty = full_v + kWStages;
+
+  const int qtile = gridDim.x - 1 - blockIdx.x;    // longest first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qtile * 2 * a.qt;
+  const int qlast = min(q0 + 2 * a.qt, a.Sq) - 1;
+  const int first =
+      (a.window > 0 ? max(0, q0 - a.window + 1) : 0) / kWKeys;
+  const int last = (a.causal ? min(qlast, a.Sk - 1) : a.Sk - 1) / kWKeys;
+  const int nt = last - first + 1;
+  const int rows = a.G * a.qt;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    hopper::mbar_init(q_bar, 1);
+    for (int s = 0; s < kWStages; ++s) {
+      hopper::mbar_init(&full_k[s], 1);
+      hopper::mbar_init(&full_v[s], 1);
+      hopper::mbar_init(&empty[s], kWThreads);
     }
   }
+  zero_q_pad(q_s, 2 * P::kPanels, rows, tid, kWThreads);
+  hopper::fence_proxy_async();
+  hopper::fence_barrier_init();
+  __syncthreads();
+
+  const int wg = tid / 128, w = (tid % 128) / 32, lane = tid % 32;
+  const bool loader = tid < 32;
+  // tile it into stage it % kWStages, once both warpgroups released it
+  auto load = [&](int it) {
+    const int s = it % kWStages, ph = (it / kWStages) & 1;
+    hopper::mbar_wait(&empty[s], ph ^ 1);
+    if (lane == 0) {
+      const int key0 = (first + it) * kWKeys;
+      hopper::mbar_expect_tx(&full_k[s], P::kKVStage);
+      for (int p = 0; p < P::kPanels; ++p)
+        hopper::tma_load_4d(k_s + s * P::kKVStage + p * P::kKVPanel, &kmap,
+                            &full_k[s], 64 * p, h, key0, b);
+      hopper::mbar_expect_tx(&full_v[s], P::kKVStage);
+      for (int p = 0; p < P::kPanels; ++p)
+        hopper::tma_load_4d(v_s + s * P::kKVStage + p * P::kKVPanel, &vmap,
+                            &full_v[s], 64 * p, h, key0, b);
+    }
+  };
+  if (loader) {
+    if (lane == 0) {
+      hopper::mbar_expect_tx(q_bar, 2 * P::kPanels * rows * 128);
+      for (int g = 0; g < 2; ++g)
+        for (int p = 0; p < P::kPanels; ++p)
+          hopper::tma_load_4d(q_s + (g * P::kPanels + p) * P::kQPanel, &qmap,
+                              q_bar, 64 * p, h * a.G, q0 + g * a.qt, b);
+    }
+    for (int it = 0; it < kWStages - 1 && it < nt; ++it) load(it);
+  }
+
+  const int gq = lane >> 2, tq = lane & 3;
+  const int r0 = 16 * w + gq, r1 = r0 + 8;       // this thread's two rows
+  const int pw0 = q0 + wg * a.qt;                // warpgroup's positions
+  const int pw1 = min(pw0 + a.qt, a.Sq) - 1;
+  char* qw = q_s + wg * P::kPanels * P::kQPanel;
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
+  float sc[kWKeys / 2];
+  uint32_t pa[kWKeys / 4];
+  hopper::mbar_wait(q_bar, 0);
+
+  for (int it = 0; it < nt; ++it) {
+    if (loader && it + kWStages - 1 < nt) load(it + kWStages - 1);
+    const int s = it % kWStages, ph = (it / kWStages) & 1;
+    char* ks = k_s + s * P::kKVStage;
+    char* vs = v_s + s * P::kKVStage;
+    hopper::mbar_wait(&full_k[s], ph);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int p = kk / 4, off = (kk % 4) * 32;
+      hopper::wgmma_ss_n64<0>(
+          sc, hopper::desc_sw128(qw + p * P::kQPanel + off, 16, 1024),
+          hopper::desc_sw128(ks + p * P::kKVPanel + off, 16, 1024), kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands<kWKeys / 2>(sc);
+    online_softmax<kWKeys, HD>(a, (first + it) * kWKeys, pw0, pw1, r0, r1,
+                               tq, sc, pa, o, m0, m1, l0, l1);
+    hopper::mbar_wait(&full_v[s], ph);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kWKeys / 16; ++kc) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        hopper::wgmma_rs_n128<1>(
+            o + 64 * half, pa + 4 * kc,
+            hopper::desc_sw128(vs + 2 * half * P::kKVPanel + kc * 16 * 128,
+                               P::kKVPanel, 1024), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands<HD / 2>(o);
+    hopper::fence_operands<kWKeys / 4>(pa);
+    hopper::mbar_arrive(&empty[s]);
+  }
+
+  store_output<HD>(a, o, m0, m1, l0, l1, qw, r0, r1, tq, pw0, rows, b, h,
+                   wg, tid);
 }
 
 template <int HD>
@@ -778,7 +957,9 @@ cudaError_t launch_hopper(const void* q, const void* k, const void* v,
                           void* out, float* lse, int B, int Sq, int Sk,
                           int H, int KV, int causal, int window, float scale,
                           cudaStream_t stream) {
-  using P = HPlan<HD>;
+  constexpr bool kWide = HD == 256;
+  constexpr int kKeys_ = kWide ? kWKeys : kHKeys;
+  using P = HPlan<HD, kKeys_, kWide ? kWStages : kHStages>;
   HArgs a;
   a.out = out;
   a.lse = lse;
@@ -802,7 +983,7 @@ cudaError_t launch_hopper(const void* q, const void* k, const void* v,
                           (uint64_t)B};
   const uint64_t ksd[3] = {HD * e, (uint64_t)KV * HD * e,
                            (uint64_t)Sk * KV * HD * e};
-  const uint32_t kbx[4] = {64, 1, kHKeys, 1};
+  const uint32_t kbx[4] = {64, 1, kKeys_, 1};
   CUtensorMap qm, km, vm;
   cudaError_t err = hopper::make_tensor_map(&qm, 4, q, qd, qs, qb);
   if (err == cudaSuccess)
@@ -810,13 +991,19 @@ cudaError_t launch_hopper(const void* q, const void* k, const void* v,
   if (err == cudaSuccess)
     err = hopper::make_tensor_map(&vm, 4, v, kd, ksd, kbx);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_hopper_kernel<HD>,
+  const auto kernel = [] {
+    if constexpr (kWide)
+      return &flash_hopper256_kernel;
+    else
+      return &flash_hopper_kernel<HD>;
+  }();
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              P::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + 2 * a.qt - 1) / (2 * a.qt), KV, B);
-  flash_hopper_kernel<HD><<<grid, kHThreads, P::kSmem, stream>>>(qm, km, vm,
-                                                                 a);
+  kernel<<<grid, kWide ? kWThreads : kHThreads, P::kSmem, stream>>>(qm, km,
+                                                                    vm, a);
   return cudaGetLastError();
 }
 
@@ -837,9 +1024,10 @@ cudaError_t launch(Kernel kernel, const Args& a, int B, size_t smem,
 
 // dtype: 0 = float32, 1 = bfloat16.  q, out: (B, Sq, H, hd); k, v:
 // (B, Sk, KV, hd); all contiguous and 16-byte aligned; H / KV <= 64;
-// head_dim a multiple of 8, at most 128.  Every query row must hold at
-// least one live key (the wrapper checks).  Returns the cudaError_t of the
-// launch (0 = success).
+// head_dim a multiple of 8, at most 256 (the register tiles are sized for
+// 128 or 256, the smaller that holds head_dim).  Every query row must hold
+// at least one live key (the wrapper checks).  Returns the cudaError_t of
+// the launch (0 = success).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int B, int Sq,
                                    int Sk, int H, int KV, int hd, int causal,
@@ -870,22 +1058,24 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     const size_t smem = sizeof(__nv_bfloat16) *
         ((size_t)(kRows + kKeys) * (hdp + kPadBf16) +
          (size_t)hd * (kKeys + kPadBf16));
-    return (int)launch(flash_bf16_kernel, a, B, smem, s);
+    return (int)(hd <= 128 ? launch(flash_bf16_kernel<128>, a, B, smem, s)
+                           : launch(flash_bf16_kernel<256>, a, B, smem, s));
   }
   if (dtype == 0) {
     const size_t smem = sizeof(float) *
         ((size_t)(kRows + kKeys) * (hd + 1) + (size_t)kKeys * hd +
          (size_t)kRows * (kKeys + 1) + 2 * (size_t)kRows);
-    return (int)launch(flash_f32_kernel, a, B, smem, s);
+    return (int)(hd <= 128 ? launch(flash_f32_kernel<128>, a, B, smem, s)
+                           : launch(flash_f32_kernel<256>, a, B, smem, s));
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// bf16 q, k, v with head_dim 64 or 128 through the TMA/wgmma kernel; the
-// rest of the contract as flash_attention_fwd.  `lse`, if not null, is a
-// float32 (B, H, Sq) buffer that receives each row's log-sum-exp in base 2
-// (the natural one times log2(e)).  Returns the cudaError_t of building
-// the tensor maps and of the launch (0 = success).
+// bf16 q, k, v with head_dim 64, 128 or 256 through the TMA/wgmma
+// kernels; the rest of the contract as flash_attention_fwd.  `lse`, if not
+// null, is a float32 (B, H, Sq) buffer that receives each row's
+// log-sum-exp in base 2 (the natural one times log2(e)).  Returns the
+// cudaError_t of building the tensor maps and of the launch (0 = success).
 extern "C" int flash_attention_hopper_fwd(const void* q, const void* k,
                                           const void* v, void* out,
                                           void* lse, int B, int Sq, int Sk,
@@ -897,6 +1087,9 @@ extern "C" int flash_attention_hopper_fwd(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (hd == 256)
+    return (int)launch_hopper<256>(q, k, v, out, l, B, Sq, Sk, H, KV, causal,
+                                   window, scale, s);
   if (hd == 128)
     return (int)launch_hopper<128>(q, k, v, out, l, B, Sq, Sk, H, KV, causal,
                                    window, scale, s);

@@ -14,8 +14,9 @@ it.
 * :func:`flash_attention_cuda` launches ``csrc/flash_attention.cu`` (the
   Hopper kernels that replace ``flash_attention_pallas``) and counts its
   launches in ``flash_attention_cuda.launches``.  bf16 at head_dim 64 or
-  128 (every Qwen2.5-Math layer) goes to the TMA/wgmma kernel; other bf16
-  head dims to the ``mma.sync`` kernel and fp32 to the CUDA-core kernel,
+  128 (every Qwen2.5-Math layer) goes to the TMA/wgmma kernel, bf16 at 256
+  (the Gemma families) to its 256-wide variant; other bf16 head dims to
+  the ``mma.sync`` kernel and fp32 to the CUDA-core kernel,
   chosen from dtype and shape before the launch.  Called directly it is
   forward-only: an input that requires a gradient raises.
   With ``return_lse`` the TMA/wgmma kernel also returns each row's
@@ -52,7 +53,10 @@ from repro_torch.kernels import build, streams
 
 NEG = -1e30
 MAX_GROUP = 64        # query heads per kv head (the kernel's 64 query rows)
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
+# the backward kernels' register tiles hold head_dim 128 at most; training
+# at head_dim 256 (the Gemma families) has no kernel yet, and raises
+BWD_MAX_HEAD_DIM = 128
 LOG2E = 1.4426950408889634
 # the Hopper backward's dK/dV blocks: 128 keys, swept in 64-query items;
 # the plan packs them into waves of one block per SM of the card, and sums
@@ -135,7 +139,8 @@ def flash_attention_bwd_plain(q, k, v, out, dout, *, causal=True,
             dv.to(v.dtype))
 
 
-HOPPER_HEAD_DIMS = (64, 128)   # bf16 head dims of the TMA/wgmma kernel
+HOPPER_HEAD_DIMS = (64, 128, 256)  # bf16 head dims of the TMA/wgmma kernels
+HOPPER_BWD_HEAD_DIMS = (64, 128)   # and of the TMA/wgmma backward
 
 
 def _library():
@@ -162,7 +167,7 @@ def uses_hopper_bwd_kernel(dtype, head_dim: int) -> bool:
     """Whether :func:`flash_attention_bwd_cuda` sends these inputs to the
     TMA/wgmma backward, which takes the forward's log-sum-exp (else the
     ``mma.sync`` or CUDA-core kernels, which rebuild it)."""
-    return uses_hopper_kernel(dtype, head_dim)
+    return dtype == torch.bfloat16 and head_dim in HOPPER_BWD_HEAD_DIMS
 
 
 def bwd_split_plan(B: int, Sq: int, Sk: int, H: int, KV: int, *,
@@ -271,7 +276,7 @@ def flash_attention_cuda(q, k, v, *, causal=True, window: int = 0,
     """Launch the CUDA kernel on the current stream; same contract as
     :func:`flash_attention_plain`.  q, k and v are float32 or bfloat16 of
     one dtype (made contiguous), ``H / KV <= 64``, head_dim a multiple of 8
-    up to 128, and every query row must have a live key.  With
+    up to 256, and every query row must have a live key.  With
     ``return_lse`` (the TMA/wgmma route only, :func:`uses_hopper_kernel`)
     also each row's log-sum-exp in base 2, float32 (B, H, Sq): the natural
     one times :data:`LOG2E`, the unit the Hopper backward takes.  Raises
@@ -323,7 +328,9 @@ flash_attention_cuda.launches = 0
 def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal=True,
                              window: int = 0, scale=None, lse=None):
     """Launch the backward kernels on the current stream; same contract as
-    :func:`flash_attention_bwd_plain`, and the forward's limits.  All five
+    :func:`flash_attention_bwd_plain`, and the forward's limits with
+    head_dim up to :data:`BWD_MAX_HEAD_DIM` (above it, NotImplementedError:
+    no backward kernel takes head_dim 256 yet).  All five
     tensors are float32 or bfloat16 of one dtype (made contiguous).
 
     Where :func:`uses_hopper_bwd_kernel` holds, ``lse`` is required: the
@@ -340,6 +347,11 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal=True,
                              f"{tuple(q.shape)} on {q.device}), got "
                              f"{t.dtype}, {tuple(t.shape)} on {t.device}")
     _check_limits(who, B, Sq, Sk, H, KV, hd, window, q.device)
+    if hd > BWD_MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"{who}: no backward kernel for head_dim {hd} (the kernels take "
+            f"up to {BWD_MAX_HEAD_DIM}); training at head_dim 256 is not "
+            f"ported yet")
     hopper = uses_hopper_bwd_kernel(q.dtype, hd)
     if hopper and (lse is None or lse.shape != (B, H, Sq)
                    or lse.dtype != torch.float32 or lse.device != q.device):

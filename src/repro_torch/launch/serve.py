@@ -10,6 +10,8 @@ continuous-batching scheduler.
     PYTHONPATH=src python -m repro_torch.launch.serve --config qwen2-moe
     PYTHONPATH=src python -m repro_torch.launch.serve --config qwen3
     PYTHONPATH=src python -m repro_torch.launch.serve --config rwkv6-3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --config gemma3
+    PYTHONPATH=src python -m repro_torch.launch.serve --config recurrentgemma
     PYTHONPATH=src python -m repro_torch.launch.serve --config rwkv6-3b \
         --device cpu --layers 2 --requests 2 --max-steps 1 --max-step-tokens 4
 
@@ -63,6 +65,14 @@ have ``rwkv6-3b``'s shape (the PRM adds the reward head), with seeds 0, 1
 and 2.  The repository registers only this one RWKV model, so the triple
 covers the RWKV serving path (the WKV6 scan kernel in every layer) and
 says nothing about GSI's speed-up: its draft costs what its target does.
+``--config gemma3`` and ``--config recurrentgemma`` serve the two Gemma
+families the same way, each one model's shape as draft, target and PRM:
+``gemma3-1b`` (sliding-window and global attention at head_dim 256, a
+vocabulary of 262,144; about 6 GB of bf16 weights for the three) and
+``recurrentgemma-9b`` (two RG-LRU layers per local-attention layer; about
+56 GB of bf16 weights for the three, so on one 80 GB card only).  Their
+vocabularies differ, so neither drafts for the other.  A hybrid stack
+turns prefix sharing off, as an RWKV one does.
 ``toy`` is a small fp32 triple.  With ``--train-steps N`` (``toy`` only)
 the CLI first trains it on the synthetic arithmetic task, as the
 reference's CLI does (:func:`train_triple`: the draft for N // 2 steps,
@@ -143,16 +153,19 @@ def accuracy(task, problems, res) -> float:
     return correct / max(1, len(problems))
 
 
-def rwkv_triple():
-    """``rwkv6-3b`` as draft and target, and as the PRM with a reward head
-    (``rwkv6-3b-prm``)."""
-    cfg = get_config("rwkv6-3b")
-    return cfg, cfg, dataclasses.replace(cfg, name="rwkv6-3b-prm",
+def self_triple(name: str):
+    """One registered model as draft and target, and as the PRM with a
+    reward head (``<name>-prm``): the triple of a family whose models share
+    no tokenizer with the Qwen PRM."""
+    cfg = get_config(name)
+    return cfg, cfg, dataclasses.replace(cfg, name=f"{name}-prm",
                                          reward_head=True)
 
 
 TRIPLES = {"qwen2.5-math": lambda: qwen25_math.TRIPLE, "toy": toy_triple,
-           "rwkv6-3b": rwkv_triple,
+           "rwkv6-3b": lambda: self_triple("rwkv6-3b"),
+           "gemma3": lambda: self_triple("gemma3-1b"),
+           "recurrentgemma": lambda: self_triple("recurrentgemma-9b"),
            "qwen2-moe": lambda: (qwen25_math.DRAFT, qwen2_moe_a27b.CONFIG,
                                  qwen25_math.PRM),
            "qwen3": lambda: (qwen3.DRAFT, qwen3.TARGET, qwen25_math.PRM)}

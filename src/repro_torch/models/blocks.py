@@ -1,23 +1,23 @@
 """Decoder blocks: pre-norm self-attention + SwiGLU or MoE FFN
-(``full``/``local``) and RWKV-6 time-mix + channel-mix (``rwkv``, the ssm
-family).
+(``full``/``local``), pre-norm RG-LRU + FFN (``recurrent``, the hybrid
+family) and RWKV-6 time-mix + channel-mix (``rwkv``, the ssm family).
 
 A port of ``repro.models.blocks`` for these kinds, in the train, prefill
 and decode modes.  A config with experts (``num_experts > 0``) gets the
 mixture-of-experts FFN of :mod:`repro_torch.models.moe` in every
-attention block, never a dense one.  Recurrent, cross and encoder blocks
-belong to later slices and raise.
+attention or recurrent block, never a dense one.  Cross and encoder
+blocks belong to later slices and raise.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models import moe, rwkv
+from repro_torch.models import lru, moe, rwkv
 from repro_torch.models.common import (ffn_apply, ffn_specs, norm_spec,
                                        rms_norm)
 
-KINDS = ("full", "local", "rwkv")
+KINDS = ("full", "local", "recurrent", "rwkv")
 
 
 def check_kind(kind: str) -> None:
@@ -33,7 +33,11 @@ def block_specs(cfg, kind: str) -> dict:
         return rwkv.rwkv_block_specs(cfg)
     d = cfg.d_model
     out = {"ln1": norm_spec(d), "ln2": norm_spec(d)}
-    out.update({f"attn.{k}": s for k, s in attn.attn_specs(cfg).items()})
+    if kind == "recurrent":
+        out.update({f"rec.{k}": s
+                    for k, s in lru.recurrent_specs(cfg).items()})
+    else:
+        out.update({f"attn.{k}": s for k, s in attn.attn_specs(cfg).items()})
     ffn = moe.moe_specs(cfg) if cfg.num_experts else ffn_specs(d, cfg.d_ff)
     out.update({f"ffn.{k}": s for k, s in ffn.items()})
     return out
@@ -43,11 +47,13 @@ def init_block_cache(cfg, kind: str, batch: int, max_seq: int, *, device,
                      pages: int = 0, page_size: int = 0,
                      kv_dtype=None) -> dict:
     """Zeroed decode cache of one block; ``pages > 0`` selects page pools
-    stored as ``kv_dtype`` for attention.  RWKV state stays dense per slot
-    in either layout."""
+    stored as ``kv_dtype`` for attention.  RWKV and RG-LRU state stays
+    dense per slot in either layout."""
     check_kind(kind)
     if kind == "rwkv":
         return rwkv.init_rwkv_state(cfg, batch, device)
+    if kind == "recurrent":
+        return lru.init_lru_state(cfg, batch, device)
     if pages:
         return attn.init_paged_self_cache(cfg, pages, page_size, device,
                                           kv_dtype)
@@ -75,9 +81,12 @@ def block_apply(cfg, kind: str, p, x, *, mode: str, positions, freqs,
     ``decode`` writes the new state into ``cache`` in place, keeping the
     old one in rows where ``live`` (B,) is False: the scan writes the
     ``wkv`` leaf itself, and the two token-shift leaves are frozen here.
+    ``recurrent`` runs its RG-LRU from ``cache`` (zeros when None) with the
+    same returns, a decode step writing ``h`` and ``conv`` in place under
+    ``live``.
 
-    ``p`` maps ``ln1``, ``ln2`` and ``attn``/``ffn`` or ``tm``/``cm`` to
-    the block's weights.
+    ``p`` maps ``ln1``, ``ln2`` and ``attn``/``rec``/``ffn`` or
+    ``tm``/``cm`` to the block's weights.
     """
     if kind == "rwkv":
         state = cache if cache is not None else rwkv.init_rwkv_state(
@@ -93,10 +102,18 @@ def block_apply(cfg, kind: str, p, x, *, mode: str, positions, freqs,
             return x, cache, 0.0
         return x, new, 0.0
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    y, cache = attn.self_attention(
-        cfg, p["attn"], h, kind=kind, mode=mode, positions=positions,
-        freqs=freqs, cache=cache, window_override=window_override,
-        max_seq=max_seq, pt=pt, pos32=pos32)
+    if kind == "recurrent":
+        state = cache if cache is not None else lru.init_lru_state(
+            cfg, x.shape[0], x.device)
+        y, cache = lru.recurrent_block(cfg, p["rec"], h, state, live=live,
+                                       in_place=mode == "decode")
+        if mode == "train":
+            cache = None
+    else:
+        y, cache = attn.self_attention(
+            cfg, p["attn"], h, kind=kind, mode=mode, positions=positions,
+            freqs=freqs, cache=cache, window_override=window_override,
+            max_seq=max_seq, pt=pt, pos32=pos32)
     x = x + y
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.num_experts:

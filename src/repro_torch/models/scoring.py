@@ -13,17 +13,18 @@ Dtypes follow ``jnp``'s promotion: a dequantized (fp32) cache view under
 bf16 activations promotes the attention output, and from there the rest of
 the pass, to fp32.  An RWKV layer repeats its O(1) state n ways and runs
 its block over the L + 1 feeds, as the reference does (one WKV6 scan
-launch with T = L + 1 on the card).  A config with experts runs the MoE
+launch with T = L + 1 on the card); an RG-LRU (``recurrent``) layer does
+the same through its scan.  A config with experts runs the MoE
 FFN over all ``B * n * (L + 1)`` feeds of a layer in one call, as the
 reference does, so the experts' capacity is shared by every candidate.
-Recurrent and cross kinds raise, as the port's blocks do.
+Cross and encoder kinds raise, as the port's blocks do.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models import moe, rwkv
+from repro_torch.models import lru, moe, rwkv
 from repro_torch.models.blocks import check_kind
 from repro_torch.models.common import (apply_rope, embed_tokens, ffn_apply,
                                        matmul, rms_norm)
@@ -102,13 +103,17 @@ def score_block(cfg, kind: str, p, x, *, cache, pos, n: int, freqs,
                 window_override: int = 0):
     """One decoder block in score mode; returns x (no cache writes)."""
     check_kind(kind)
-    if kind == "rwkv":
+    if kind in ("rwkv", "recurrent"):    # the slot's state, n ways
         state = {k: v.repeat_interleave(n, dim=0) for k, v in cache.items()}
+    if kind == "rwkv":
         return rwkv.rwkv_block(cfg, p, x, state)[0]
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + score_attention(cfg, p["attn"], h, cache=cache, pos=pos, n=n,
-                            kind=kind, freqs=freqs,
-                            window_override=window_override)
+    if kind == "recurrent":
+        x = x + lru.recurrent_block(cfg, p["rec"], h, state)[0]
+    else:
+        x = x + score_attention(cfg, p["attn"], h, cache=cache, pos=pos,
+                                n=n, kind=kind, freqs=freqs,
+                                window_override=window_override)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.num_experts:
         return x + moe.moe_ffn(cfg, p["ffn"], h)[0]
@@ -122,8 +127,8 @@ def score_candidates(model, cache, pending, pos, cand_tokens, *,
 
     cand_tokens: (B, n, L) PAD-padded; pending/pos: (B,) engine invariant
     (the cache holds positions < pos; ``pending`` sits at pos, not yet
-    cached); ``cache`` a list of per-layer {'k','v'} (B, S, KV, hd) or RWKV
-    state dicts, a dense cache or :func:`repro_torch.serving.engine.
+    cached); ``cache`` a list of per-layer {'k','v'} (B, S, KV, hd), RWKV
+    or RG-LRU state dicts, a dense cache or :func:`repro_torch.serving.engine.
     paged_view` of a paged one.
 
     Returns logp (B, n) — log pi(candidate | prefix) — and, with

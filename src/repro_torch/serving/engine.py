@@ -5,7 +5,8 @@ layer: dense rows ``{"k","v"}`` shaped ``(B, S, KV, hd)`` or page pools
 ``{"kp","vp"}`` shaped ``(P, ps, KV, hd)`` addressed through a block table
 (plus ``{"ks","vs"}`` ``(P, KV)`` per-page scales for int8/fp8 pools, which
 travel with their pages); an RWKV layer keeps dense per-slot state
-``{"tm_prev","wkv","cm_prev"}`` in either layout.
+``{"tm_prev","wkv","cm_prev"}`` and an RG-LRU layer ``{"h","conv"}`` in
+either layout.
 
 * Dense branching (``repeat_cache``) copies each slot's rows n times, row
   ``b*n+j`` being candidate j of request b.
@@ -97,8 +98,8 @@ def paged_view(cache, pt):
     ``(B, nblk1 * ps, KV, hd)`` (absolute positions).  Quantized pools are
     dequantized on the way out, every row of logical block j carrying block
     j's page scale, so they come out float32; other pools keep their dtype.
-    Dense leaves (an RWKV layer's state) pass through as they are.  Read by
-    the shared-prefix scoring pass; decode never builds it."""
+    Dense leaves (an RWKV or RG-LRU layer's state) pass through as they
+    are.  Read by the shared-prefix scoring pass; decode never builds it."""
     B, nblk = pt.shape
     ptc = pt.long()
 

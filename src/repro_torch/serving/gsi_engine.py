@@ -13,9 +13,10 @@ pi_B and the PRM run the step-level loop:
 
 The same engine, re-parameterized, runs every baseline of the paper:
 ``gsi | gsi_norej | rsd | sbon_s | sbon_b``, on dense or paged caches,
-over attention or RWKV-6 stacks (an RWKV layer keeps dense per-slot state
-in either layout, and cross-request prefix sharing turns itself off unless
-all three stacks are attention-only, as in the reference).
+over attention, hybrid RG-LRU or RWKV-6 stacks (a recurrent layer keeps
+dense per-slot state in either layout, and cross-request prefix sharing
+turns itself off unless all three stacks are attention-only, as in the
+reference).
 Paged pools may be stored as bf16, int8 or fp8 (``kv_dtype``; quantized
 pools carry per-page scales), the draft's weights may be rounded through
 int8 at load (``quantize_draft``), and ``shared_scoring`` scores the n
@@ -382,7 +383,8 @@ class GSIServingEngine:
     def _prefix_supported(self) -> bool:
         """Sharing is exact iff every layer of all three models keeps its
         serving state in the paged (position-addressed) KV pools: an RWKV
-        layer's state summarises the whole prefix and cannot be spliced."""
+        or RG-LRU layer's state summarises the whole prefix and cannot be
+        spliced."""
         return all(k in ("full", "local")
                    for m in (self.draft, self.target, self.prm)
                    for k in m.kinds)
@@ -537,12 +539,14 @@ class GSIServingEngine:
         pool's capacity at the engine's ``kv_dtype`` (page payload at the
         pool's storage dtype, per-page scales counted apart), keyed as the
         reference's report on one device.  Only attention layers count, as
-        in the reference: an RWKV layer's O(1) state is not paged."""
+        in the reference: an RWKV or RG-LRU layer's O(1) state is not
+        paged."""
         g = self.gcfg
         models = (self.draft, self.target, self.prm)
 
         def attn_layers(model):
-            return [k for k in model.kinds if k != "rwkv"]
+            return [k for k in model.kinds
+                    if k not in ("rwkv", "recurrent")]
 
         def row_bytes(model, dtype=None):
             cfg = model.cfg

@@ -137,10 +137,13 @@ def _stack(pattern, window):
     cfgs = (base, target, prm)
     params = [random_params(c, i, "cpu") for i, c in enumerate(cfgs)]
     gen = torch.Generator().manual_seed(100)
-    for p in params:              # decays that carry the WKV state
+    for p in params:              # decays that carry the recurrent state
         for name, t in p.items():
             if name.endswith(".tm.decay_base"):
                 t.copy_(torch.empty(t.shape).uniform_(-6.0, -0.5,
+                                                      generator=gen))
+            if name.endswith(".rec.lam"):       # RG-LRU decays that carry
+                t.copy_(torch.empty(t.shape).uniform_(-9.0, -4.0,
                                                       generator=gen))
     return None, None, cfgs, params
 
@@ -149,10 +152,12 @@ def _stack(pattern, window):
     (("full",), 0),
     (("full", "local"), 12),
     ("rwkv", 0),
+    (("recurrent", "full"), 0),
 ])
 def test_async_equals_sync_across_stacks(pattern, window):
-    """full / sliding-window / RWKV-6 stacks (RWKV turns prefix sharing
-    off, and its state is written in place under the live mask)."""
+    """full / sliding-window / RWKV-6 / hybrid RG-LRU stacks (RWKV and
+    RG-LRU turn prefix sharing off, and their state is written in place
+    under the live mask)."""
     stack = _stack(pattern, window)
     prompts = [_prompt(PRE_A, [33 + i, 34, 4]) for i in range(4)]
     budgets = [1, 2, 2, 1]

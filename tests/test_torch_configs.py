@@ -4,7 +4,8 @@ Every architecture the port registers equals the reference's field by
 field, and a ``decode_step`` of its ``reduced_config`` on the reference's
 weights (carried across by the numpy bridge) gives the reference's logits
 within 1e-5 of their scale, dense cache, three steps.  The serving CLI's
-triples name registered configs on one tokenizer.
+triples name registered configs on one tokenizer; a family with no
+tokenizer shared with the Qwen PRM serves one model's shape three times.
 """
 import dataclasses
 
@@ -26,10 +27,10 @@ from repro_torch.models.bridge import params_from_numpy
 
 torch.set_num_threads(1)
 RTOL = 1e-5
-PORTED = ("deepseek-7b", "kimi-k2-1t-a32b", "phi3-medium-14b",
+PORTED = ("deepseek-7b", "gemma3-1b", "kimi-k2-1t-a32b", "phi3-medium-14b",
           "qwen2-moe-a2.7b", "qwen2.5-math-1.5b", "qwen2.5-math-7b",
-          "qwen2.5-math-prm-7b", "qwen3-1.7b", "qwen3-14b", "rwkv6-3b",
-          "smollm-135m")
+          "qwen2.5-math-prm-7b", "qwen3-1.7b", "qwen3-14b",
+          "recurrentgemma-9b", "rwkv6-3b", "smollm-135m")
 
 
 def test_registry_and_tuples_match_reference():
@@ -82,3 +83,16 @@ def test_serve_triples(triple, names):
     cut = serve.build_triple(triple, layers=2)
     assert all(c.num_layers == 2 and c.d_model == f.d_model
                for c, f in zip(cut, cfgs))
+
+
+@pytest.mark.parametrize("triple,name", [("rwkv6-3b", "rwkv6-3b"),
+                                         ("gemma3", "gemma3-1b"),
+                                         ("recurrentgemma",
+                                          "recurrentgemma-9b")])
+def test_self_triples(triple, name):
+    """One model's shape as draft, target and PRM (the reward head
+    added): each family keeps its own vocabulary."""
+    draft, target, prm = serve.build_triple(triple)
+    assert draft == target == get_config(name)
+    assert prm.name == f"{name}-prm" and prm.reward_head
+    assert dataclasses.replace(prm, name=name, reward_head=False) == draft

@@ -2,19 +2,21 @@
 
 Paged attention (fp32 and bf16 pools, and fp32 queries over bf16 pools),
 quantized paged attention (int8 and fp8-e4m3 codes under fp32 and bf16
-queries); both also at the split plan's shapes (the engine's 33-column
-table with positions up to 527, B = KV = 1, G = 16, windows that leave
-splits empty, head_dim 8, 40 and 256, pages of 4, 8 and 32 rows),
-bitwise deterministic, on two streams at once, and captured in a CUDA
-graph; the fused log-softmax gather (bf16/bf16 and fp32/bf16 through
+queries), both also at head_dim 256 with G = 16 and 4 (the Gemma
+families' decode shapes) and at the split plan's shapes (the engine's
+33-column table with positions up to 527, B = KV = 1, G = 16, windows
+that leave splits empty, head_dim 8, 40 and 256, pages of 4, 8 and 32
+rows), bitwise deterministic, on two streams at once, and captured in a
+CUDA graph; the fused log-softmax gather (bf16/bf16 and fp32/bf16 through
 the TMA/wgmma kernel, fp32 h as three bf16 parts; fp32/fp32; W row-major
 and transposed; ragged tokens, depth and vocabulary strips), and
 full-sequence flash attention (fp32 and bf16; GQA groups 1, 2, 6, 7 and
-64; head_dim 16, 40, 64 and 128, bf16 at 64 and 128 through the TMA/wgmma
-kernel; windows shorter and longer than the key tile; ragged Sq and Sk,
-Sk > Sq non-causal), which refuses inputs that require a gradient when
-called directly, and its backward kernel (fp32 and bf16; the same
-groups, head dims, windows and ragged shapes; bitwise deterministic;
+64; head_dim 16, 40, 64, 128 and 256, bf16 at 64, 128 and 256 through
+the TMA/wgmma kernels; windows shorter and longer than the key tile;
+ragged Sq and Sk, Sk > Sq non-causal), which refuses inputs that require
+a gradient when called directly, and its backward kernel (fp32 and bf16;
+the same groups, head dims up to 128, windows and ragged shapes; head_dim
+256 refused; bitwise deterministic;
 through the autograd Function of ``ops.flash_attention``; one toy train
 step on the card against the CPU), and the WKV6 scan
 (head dims 32 and 64; T = 1, 17 and 1000; bf16 and fp32 r/k/v; spread
@@ -455,6 +457,77 @@ def test_flash_hopper_kernel_matches_plain(cuda_device, hd, H, KV, causal,
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 2e-2, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 2e-5)])
+@pytest.mark.parametrize("H,KV", [(4, 1), (16, 1)])   # gemma3, recurrentgemma
+@pytest.mark.parametrize("causal,window,Sq,Sk", [
+    (True, 0, 300, 300), (True, 8, 300, 300), (True, 100, 300, 300),
+    (False, 0, 150, 333)])
+def test_flash_head_dim_256_matches_plain(cuda_device, dtype, tol, H, KV,
+                                          causal, window, Sq, Sk):
+    """head_dim 256: bf16 through the 256-wide TMA/wgmma kernel (64-key
+    tiles: window 8 leaves late rows' first tile wholly masked, 100 spans
+    two), fp32 through the CUDA-core kernel's 256-wide instance; asked for
+    its log-sum-exp, the bf16 kernel's output is the same bits."""
+    from repro_torch.kernels.flash_attention import (LOG2E,
+                                                     uses_hopper_kernel)
+    assert uses_hopper_kernel(dtype, 256) == (dtype == torch.bfloat16)
+    q, k, v = flash_case(H + window + Sk, B=2, Sq=Sq, Sk=Sk, H=H, KV=KV,
+                         hd=256, dtype=dtype, device=cuda_device)
+    before = flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want, lse = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                      return_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol, err
+    if dtype == torch.bfloat16:
+        again, lse2 = flash_attention_cuda(q, k, v, causal=causal,
+                                           window=window, return_lse=True)
+        torch.cuda.synchronize()
+        assert torch.equal(again, got)
+        assert (lse2 / LOG2E - lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_flash_backward_refuses_head_dim_256(cuda_device):
+    """No backward kernel takes head_dim 256: the autograd Function's
+    backward raises on the card, with no plain fallback."""
+    q, k, v = flash_case(1, B=1, Sq=64, Sk=64, H=4, KV=1, hd=256,
+                         dtype=torch.bfloat16, device=cuda_device)
+    q.requires_grad_()
+    out = ops.flash_attention(q, k, v)
+    with pytest.raises(NotImplementedError, match="head_dim 256"):
+        out.float().sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("window", [0, 8])
+@pytest.mark.parametrize("H,KV", [(16, 1), (4, 1)])     # G = 16 and 4
+def test_paged_kernels_head_dim_256(cuda_device, dtype, tol, window, H, KV):
+    """The Gemma families' decode shapes: head_dim 256 at G = 16
+    (recurrentgemma's local layers) and 4 (gemma3), bf16 or fp32 pools and
+    int8 codes."""
+    q, kp, vp, pt, pos = [t.to(cuda_device) for t in paged_case(
+        H + window + 256, H=H, KV=KV, hd=256)]
+    qd, kd, vd = (t.to(dtype) for t in (q, kp, vp))
+    got = ops.paged_attention(qd, kd, vd, pt, pos, window=window)
+    want = paged_attention_plain(qd, kd, vd, pt, pos, window=window)
+    codes = quantize_pools(kp, vp, "int8")
+    got_q = ops.paged_attention_quant(qd, codes[0], codes[1], codes[2],
+                                      codes[3], pt, pos, window=window)
+    want_q = paged_attention_quant_plain(qd, codes[0], codes[1], codes[2],
+                                         codes[3], pt, pos, window=window)
+    torch.cuda.synchronize()
+    for a, b in ((got, want), (got_q, want_q)):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol, err
 
 
 @pytest.mark.cuda

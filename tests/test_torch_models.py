@@ -164,7 +164,7 @@ def test_random_params_are_seeded_and_shaped(tiny_triple):
 def test_unported_kinds_and_modes_raise(stack):
     _, _, tcfg, model = stack
     with pytest.raises(NotImplementedError):
-        block_specs(tcfg, "recurrent")
+        block_specs(tcfg, "cross")
     x = torch.zeros(1, 4, tcfg.d_model)
     # train/prefill are ported (tests/test_torch_forward.py); encoder
     # sources are not, and a mode the reference lacks is refused

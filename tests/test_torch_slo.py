@@ -133,7 +133,8 @@ def test_chunked_prefill_identity_dense(triple):
 
 def _stack(pattern, window):
     """A triple with the port's own seeded weights: full,
-    full + local, or the reduced rwkv6-3b (decays that carry the state)."""
+    full + local, recurrent + full (RG-LRU decays that carry the state),
+    or the reduced rwkv6-3b (decays that carry the state)."""
     if pattern == "rwkv":
         base = reduced_config(get_config("rwkv6-3b"), vocab=64)
     else:
@@ -154,6 +155,9 @@ def _stack(pattern, window):
             if name.endswith(".tm.decay_base"):
                 t.copy_(torch.empty(t.shape).uniform_(-6.0, -0.5,
                                                       generator=gen))
+            if name.endswith(".rec.lam"):       # RG-LRU decays that carry
+                t.copy_(torch.empty(t.shape).uniform_(-9.0, -4.0,
+                                                      generator=gen))
     return None, None, cfgs, params
 
 
@@ -161,10 +165,11 @@ def _stack(pattern, window):
     (("full",), 0),
     (("full", "local"), 12),
     ("rwkv", 0),
+    (("recurrent", "full"), 0),
 ])
 def test_chunked_identity_across_stacks(pattern, window):
-    """Sliding windows and the RWKV state advance the same whether the
-    prompt arrives in one commit or in chunks."""
+    """Sliding windows and the RWKV and RG-LRU states advance the same
+    whether the prompt arrives in one commit or in chunks."""
     stack = _stack(pattern, window)
     prompts = [_prompt(PRE_A, [33 + i, 34, 4]) for i in range(3)]
     budgets = [1, 2, 1]
