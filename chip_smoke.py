@@ -47,7 +47,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    sequence it binds; paged and int8 paged attention under bf16 and fp32
    queries; the gather at both vocabularies (262,144 and 256,000, tied
    bf16 embeddings, bf16 and fp32 h) held to float64 log-probs; each
-   timed, beside SDPA at head_dim 256 for flash.  Each
+   timed, beside SDPA at head_dim 256 for flash; then flash attention
+   with ``causal=False`` at the cross-attention families' shapes
+   (llama-3.2-vision-11b's cross layers, Sq 512 over Sk 6,404 keys, H
+   32/8, hd 128; seamless-m4t-medium's encoder, S 1,024, H 16/16, hd 64,
+   and its cross layers, 512 over 1,024), bf16, on N(0, 1) inputs and on
+   a tail case whose softmax the last 4 keys decide (a dropped tail or
+   padding let in fails it), elementwise within 2^-5 of each value plus
+   2e-2 of the output's deviation, its log-sum-exp asked for giving the
+   same bits, timed beside SDPA (``is_causal=False``), and its backward at
+   the two seamless shapes on both inputs (within 2^-5 of each value plus
+   5e-3 of the largest gradient), twice bitwise, timed beside SDPA's
+   backward.  Each
    kernel's time
    beside its bound, the plain version's time and, where one exists, one
    PyTorch library call computing the same function (a yardstick the port
@@ -149,9 +160,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    of each, the gather twice) and holds them against the decode path
    (printing the counted bf16 run's own gap as a control, then in fp32
    activations over the same weights).
-   Then, once those weights are freed, the Gemma families at full width
-   and depth, each one model's shape as draft, target and PRM (seeded
-   random bf16 weights, every RG-LRU ``lam`` overwritten so the state
+   Then, once those weights are freed, the Gemma families at full width,
+   ``GEMMA_LAYERS`` deep (13 of gemma3's 26, 19 of recurrentgemma's 38;
+   a ``reduced:`` line), each one model's shape as draft, target and PRM
+   (seeded random bf16 weights, every RG-LRU ``lam`` overwritten so the state
    carries; 4 requests on 4 slots, at most 2 steps of 16 tokens, each run
    at a threshold calibrated among its own first-step selected tilted
    rewards): run gsi-gemma3 (gemma3-1b over bf16 pages) and run
@@ -164,12 +176,38 @@ Phases, each printing its own lines; any failure exits non-zero:
    each, the gather twice) and holds them against the decode path in fp32
    activations (the bf16 gap printed and required above the tolerance as
    a control, as score-rwkv does); then, once those weights are freed,
-   the recurrentgemma-9b triple (about 52.5 GiB, the memory printed
-   before and after): run gsi-rgemma (paged local layers beside dense
-   RG-LRU state, prefix sharing off, checked; paged launches = its 12
+   the recurrentgemma-9b triple (about 29.2 GiB at 19 layers, the memory
+   printed before and after): run gsi-rgemma (paged local layers beside
+   dense RG-LRU state, prefix sharing off, checked; paged launches = its 6
    attention layers x paged decode_step calls) and run score-rgemma (flash
    once per attention layer of each call; the RG-LRU state prefill leaves
    against the one decode carries).
+   Then, once those weights are freed, the cross-attention families at
+   full width and depth, each one model's shape as draft, target and PRM
+   (seeded random bf16 weights, seeded N(0, 1) sources): run agree-vision
+   (llama-3.2-vision-11b, 40 layers, a cross layer every 5th, about 56.5
+   GiB for the three) puts 3 prompts of 240 tokens over a (3, 6404, 4096)
+   source through prefill, 16 dense decode_steps from its cache (the
+   cross KV read back from there), forward, score and the PRM's
+   reward_at_end, with flash launched once per attention call of each
+   full-sequence call (causal and non-causal counted apart), the gather
+   once and nothing else; then the same calls in fp32 activations over
+   the same weights hold prefill and decode logits to forward's, score
+   to forward's log-softmax and the reward to the PRM's decode path
+   within CROSS_TOL (the bf16 gaps printed), and a second source must
+   move the logits by ten times that; run gsi-vision serves 4 text-only
+   requests (2 steps of 16 tokens, n 4) at a calibrated threshold on 4
+   slots, seeded N(0, 1) cross KV written into each admitted slot (the
+   engine takes no source; zero cross KV would hide a dropped cross
+   layer), the first step's rewards under a second seed's cross KV
+   required to move by more than 1e-2 as the control; it
+   must accept and fall back, launches the paged kernel 40 x paged
+   decode_step calls times and turns prefix sharing off, and prints its
+   peak memory; then
+   agree-seamless (its 12-layer encoder over (3, 1024, 1024) frames) and
+   gsi-seamless the same way, and run t5 trains seamless-m4t-medium
+   (lm_loss with a source, B 4 x S 512, 3 steps, fp32 AdamW) with flash's
+   forward and backward each launched 36 x 3 times.
 4b. agreement — a toy fp32 triple at temperature 0: paged (kernel) against
    dense (plain attention) serving on the card, bf16 pages under its fp32
    activations (the kernel's fp32-query, bf16-pool instance) on the card
@@ -206,7 +244,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    within tolerance; (t4) the serving CLI's ``--train-steps`` path:
    ``train_triple`` on the card, then GSI serving of synthetic problems,
    with falling losses, accuracy and an accept rate strictly between 0
-   and 1.
+   and 1 (run t5 runs in phase 4, with the cross-attention weights).
 
 The line before the last is ``{"kernels": [...]}``: every ported kernel
 with its largest error in phase 3, its timings and its launch count from the
@@ -219,7 +257,8 @@ the depth of runs (a), (d) and (b) (``QWEN_LAYERS`` by default, 0 for the
 published 28; never a width, never run (c), score-prm, the RWKV runs or
 the Gemma runs), whose threshold is then calibrated at that depth as the
 MoE runs' is, and says so on a ``reduced:`` line; the MoE runs are
-``MOE_LAYERS`` deep.
+``MOE_LAYERS`` deep, the Gemma runs ``GEMMA_LAYERS``, the cross-attention
+runs at full depth.
 """
 from __future__ import annotations
 
@@ -322,8 +361,10 @@ SLO_R0_STEPS = 5
 # 1118.8 s of its 1200, H100 80GB HBM3, 700 W; at 7, with the fleet
 # phase added at 7 too, the Qwen phases alone took 687.4 s of a run on the
 # same card, the SLO runs 105 s, the fleet 144.7 s and the three Qwen
-# profiles 91 s, so all three went to 4)
-PROFILE_LAYERS = 4
+# profiles 91 s, so all three went to 4; at 4, with the cross-attention
+# phase added, the five profiles took 82 s of a 1062.8 s run on a slower
+# machine, so 2)
+PROFILE_LAYERS = 2
 # depth of the SLO runs and the warm-cache check (0: the published 28): at
 # 28 layers they took 287 s of a chip run (H100 80GB HBM3, 700 W), at 14
 # 192 s of the run above, at 4 61 s of that 1173.8 s run, so 2; widths
@@ -348,9 +389,9 @@ FLEET_PAGES = 64
 # runs gsi-moe and gsi-moe-async: the seed of their prompts, of the
 # serving generator and of the MoE layer check's input; the depth of all
 # three models (the published 24 and 28 took 106 s of that 1173.8 s
-# chip run; widths never cut)
+# chip run, 12 took 40.8 s of the 1062.8 s one; widths never cut)
 MOE_SEED = 4
-MOE_LAYERS = 12
+MOE_LAYERS = 6
 # the MoE layer check, bf16 against fp32 from the same weights and the
 # same bf16-rounded input, over the rows that both route to the same
 # experts: the bf16 side rounds the router's weights and top-k weights,
@@ -1007,21 +1048,29 @@ def time_logprob(torch, what, h, w, labels, vocab):
             "bound_by": bound_by, "library_ms": library_ms}
 
 
-def flash_case(torch, *, B, S, H, KV, dtype, seed, hd=128):
-    """q (B,S,H,hd), k/v (B,S,KV,hd): N(0, 1), as rope'd projections of
-    normed hidden states are about."""
+def flash_case(torch, *, B, S, H, KV, dtype, seed, hd=128, Sk=None):
+    """q (B,S,H,hd), k/v (B,Sk,KV,hd) (Sk defaults to S): N(0, 1), as
+    rope'd projections of normed hidden states are about."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    Sk = S if Sk is None else Sk
     return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+            for shape in ((B, S, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd))]
 
 
-def bound_flash(q, k, window):
-    """Least time for one causal call: 4 * hd flops per live (query head,
-    key) pair at the tensor-core (bf16) or CUDA-core (fp32) rate, against
-    q, k, v and the output moved once at the HBM rate."""
+def live_pairs(S, Sk, window, causal):
+    """(query, key) pairs a call computes: every one of S x Sk when not
+    causal, else those with key <= query (and within the window)."""
+    if not causal:
+        return S * Sk
+    return sum(min(i + 1, window) if window else i + 1 for i in range(S))
+
+
+def bound_flash(q, k, window, causal=True):
+    """Least time for one call: 4 * hd flops per live (query head, key)
+    pair at the tensor-core (bf16) or CUDA-core (fp32) rate, against q, k,
+    v and the output moved once at the HBM rate."""
     B, S, H, hd = q.shape
-    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
-    ops = 4 * B * H * hd * pairs
+    ops = 4 * B * H * hd * live_pairs(S, k.shape[1], window, causal)
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     t_bytes = nbytes / H100_BYTES_PER_S
     t_ops = ops / PEAK_OPS[str(q.dtype)]
@@ -1103,27 +1152,30 @@ def phase_kernels_flash(torch):
             "launches": 0, "max_abs_err": max_err, **got}
 
 
-def time_flash(torch, what, sets, iters):
-    """Time the flash kernel, its plain version and SDPA (``is_causal``,
-    ``enable_gqa``, over (B, H, S, hd) copies) cycling over ``sets``;
-    print them beside the bound and return them as a kernel row's
-    fields."""
+def time_flash(torch, what, sets, iters, causal=True):
+    """Time the flash kernel, its plain version and SDPA (``is_causal`` as
+    ``causal``, ``enable_gqa``, over (B, H, S, hd) copies) cycling over
+    ``sets``; print them beside the bound and return them as a kernel
+    row's fields."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
-    ms, ms_host = time_ms(torch, lambda *a: flash_attention_cuda(*a), sets,
-                          iters=iters)
+    ms, ms_host = time_ms(torch, lambda *a: flash_attention_cuda(
+        *a, causal=causal), sets, iters=iters)
     plain_ms, plain_host = time_ms(
-        torch, lambda *a: flash_attention_plain(*a), sets, iters=1)
+        torch, lambda *a: flash_attention_plain(*a, causal=causal), sets,
+        iters=1)
     lib_sets = [[t.transpose(1, 2).contiguous() for t in st] for st in sets]
     library_ms, library_host = time_ms(
         torch, lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), lib_sets, iters=iters)
-    bound_ms, bound_by = bound_flash(sets[0][0], sets[0][1], 0)
+            q, k, v, is_causal=causal, enable_gqa=True), lib_sets,
+        iters=iters)
+    bound_ms, bound_by = bound_flash(sets[0][0], sets[0][1], 0, causal)
     print(f"flash_attention timing ({what}, {len(sets)} input sets), "
           f"device-only ms per call: kernel {ms:.4f}, bound {bound_ms:.4f} "
           f"({bound_by}), plain {plain_ms:.4f}, library "
-          f"(scaled_dot_product_attention is_causal enable_gqa, (B,H,S,hd)) "
+          f"(scaled_dot_product_attention is_causal={causal} enable_gqa, "
+          f"(B,H,S,hd)) "
           f"{library_ms:.4f}; back to back from the host: kernel "
           f"{ms_host:.4f}, plain {plain_host:.4f}, library "
           f"{library_host:.4f}", flush=True)
@@ -1131,15 +1183,14 @@ def time_flash(torch, what, sets, iters):
             "bound_by": bound_by, "library_ms": library_ms}
 
 
-def bound_flash_bwd(q, k, window):
-    """Least time for one causal backward call: five products of 2 * hd
-    flops per live (query head, key) pair (2.5 times the forward's count)
-    at the tensor-core (bf16) or CUDA-core (fp32) rate, against q, k, v,
-    the output and its gradient read once and dq, dk, dv written once at
-    the HBM rate."""
+def bound_flash_bwd(q, k, window, causal=True):
+    """Least time for one backward call: five products of 2 * hd flops per
+    live (query head, key) pair (2.5 times the forward's count) at the
+    tensor-core (bf16) or CUDA-core (fp32) rate, against q, k, v, the
+    output and its gradient read once and dq, dk, dv written once at the
+    HBM rate."""
     B, S, H, hd = q.shape
-    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
-    ops = 5 * 2 * B * H * hd * pairs
+    ops = 5 * 2 * B * H * hd * live_pairs(S, k.shape[1], window, causal)
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
     t_bytes = nbytes / H100_BYTES_PER_S
     t_ops = ops / PEAK_OPS[str(q.dtype)]
@@ -1147,60 +1198,67 @@ def bound_flash_bwd(q, k, window):
                                        else "operations")
 
 
-def flash_bwd_case(torch, *, B, S, H, KV, hd, dtype, window, seed):
+def flash_bwd_case(torch, *, B, S, H, KV, hd, dtype, window, seed,
+                   causal=True, Sk=None):
     """(q, k, v, out, dout) and the backward's keyword arguments: q, k, v
-    and dO N(0, 1) in ``dtype``; where the TMA/wgmma backward takes the
-    inputs, out and the base-2 log-sum-exp from the forward kernel (as a
-    train step passes them), else out from the plain forward.  Both
-    backwards see the same out."""
+    (Sk keys, default S) and dO N(0, 1) in ``dtype``; where the TMA/wgmma
+    backward takes the inputs, out and the base-2 log-sum-exp from the
+    forward kernel (as a train step passes them), else out from the plain
+    forward.  Both backwards see the same out."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_cuda, flash_attention_plain, uses_hopper_bwd_kernel)
     q, k, v = flash_case(torch, B=B, S=S, H=H, KV=KV, hd=hd, dtype=dtype,
-                         seed=seed)
+                         seed=seed, Sk=Sk)
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
     if uses_hopper_bwd_kernel(dtype, hd):
         out, lse = flash_attention_cuda(q, k, v, window=window,
-                                        return_lse=True)
+                                        causal=causal, return_lse=True)
         return (q, k, v, out, dout), {"lse": lse}
-    return (q, k, v, flash_attention_plain(q, k, v, window=window),
-            dout), {}
+    return (q, k, v, flash_attention_plain(q, k, v, window=window,
+                                           causal=causal), dout), {}
 
 
-def time_flash_bwd(torch, tag, S, H, KV):
+def time_flash_bwd(torch, tag, S, H, KV, hd=128, causal=True, Sk=None):
     """Device ms per call of the backward kernel, its plain version and
-    SDPA's backward at (B 4, S, H, KV, hd 128, bf16, causal), and the
-    bound; two input sets cycled (about 50 MB each at the target's
-    heads)."""
+    SDPA's backward at (B 4, S queries, Sk keys (default S), H, KV, hd,
+    bf16, ``causal``), and the bound; two input sets cycled (about 50 MB
+    each at the target's heads)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_bwd_plain)
-    cases = [flash_bwd_case(torch, B=4, S=S, H=H, KV=KV, hd=128,
-                            dtype=torch.bfloat16, window=0, seed=400 + i)
+    cases = [flash_bwd_case(torch, B=4, S=S, H=H, KV=KV, hd=hd,
+                            dtype=torch.bfloat16, window=0, seed=400 + i,
+                            causal=causal, Sk=Sk)
              for i in range(2)]
     sets = [(*args, i) for i, (args, _) in enumerate(cases)]
     ms, ms_host = time_ms(torch, lambda q, k, v, o, d, i:
                           flash_attention_bwd_cuda(q, k, v, o, d,
+                                                   causal=causal,
                                                    **cases[i][1]),
                           sets, iters=10)
-    plain_ms, _ = time_ms(torch, lambda *a: flash_attention_bwd_plain(*a),
-                          [args for args, _ in cases], iters=2)
+    plain_ms, _ = time_ms(torch, lambda *a: flash_attention_bwd_plain(
+        *a, causal=causal), [args for args, _ in cases], iters=2)
     lib_sets = []
     for (q, k, v, _, dout), _ in cases:
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                              enable_gqa=True)
         lib_sets.append((out, qt, kt, vt, dout.transpose(1, 2).contiguous()))
     library_ms, library_host = time_ms(
         torch, lambda o, a, b, c, d: torch.autograd.grad(
             o, (a, b, c), d, retain_graph=True), lib_sets, iters=10)
-    bound_ms, bound_by = bound_flash_bwd(cases[0][0][0], cases[0][0][1], 0)
-    print(f"flash_attention_bwd timing, {tag} (B=4 S={S} H={H} KV={KV} "
-          f"hd=128 bf16 causal), device-only ms per call: kernel {ms:.4f}, "
+    bound_ms, bound_by = bound_flash_bwd(cases[0][0][0], cases[0][0][1], 0,
+                                         causal)
+    Sk = S if Sk is None else Sk
+    print(f"flash_attention_bwd timing, {tag} (B=4 S={S} Sk={Sk} H={H} "
+          f"KV={KV} hd={hd} bf16 causal={causal}), device-only ms per "
+          f"call: kernel {ms:.4f}, "
           f"bound {bound_ms:.4f} ({bound_by}), plain {plain_ms:.4f}, "
           f"library (the backward of scaled_dot_product_attention "
-          f"is_causal enable_gqa, (B,H,S,hd), alone) {library_ms:.4f}; "
+          f"is_causal={causal} enable_gqa, (B,H,S,hd), alone) "
+          f"{library_ms:.4f}; "
           f"back to back from the host: kernel {ms_host:.4f}, library "
           f"{library_host:.4f}", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1666,13 +1724,168 @@ def phase_kernels_gemma(torch, rows):
         del sets, lib_sets
 
 
+# non-causal flash attention at the cross-attention and encoder families'
+# shapes: tag -> (B, Sq, Sk, H, KV, hd); the backward is checked and timed
+# at the two seamless shapes (run t5 trains them; llama-vision trains on
+# the CPU only).  Their limit, elementwise: CROSS_RTOL of the value (four
+# bf16 ulps at most: each side rounds its own fp32 result to bf16, and the
+# plain forward rounds P first) plus a floor for values near zero,
+# CROSS_STD of the forward's standard deviation or CROSS_BWD_MAX of the
+# largest gradient (the backward rounds P and dS, terms of that size, to
+# bf16 before they cancel).  A run of this script (H100 80GB HBM3, 700 W)
+# used 0.490-0.655 of it in the forward and 0.178-0.467 in the backward,
+# on N(0, 1) inputs and the tail case alike; a dropped tail or padding let
+# in uses more than ten times it on the tail case (held on the CPU by
+# tests/test_torch_cuda.py::test_cross_tail_case_fails_a_faulty_tail)
+CROSS_SHAPES = {"llama-cross": (4, 512, 6404, 32, 8, 128),
+                "seamless-enc": (4, 1024, 1024, 16, 16, 64),
+                "seamless-cross": (4, 512, 1024, 16, 16, 64)}
+CROSS_BWD = ("seamless-enc", "seamless-cross")
+CROSS_RTOL, CROSS_STD, CROSS_BWD_MAX = 2 ** -5, 2e-2, 5e-3
+
+
+def cross_tail_case(torch, *, B, S, Sk, H, KV, hd, seed, tail=4):
+    """``flash_case`` in bf16 with every query's softmax decided by the
+    last ``tail`` keys: q's first lane 8 and each key's first lane set so
+    that the tail scores about 1, every other key about 10, below a key of
+    zeros (a tile's zero-filled padding).  Dropping the tail, or letting
+    the padding into the softmax, moves the output by about its size."""
+    q, k, v = flash_case(torch, B=B, S=S, Sk=Sk, H=H, KV=KV, hd=hd,
+                         dtype=torch.bfloat16, seed=seed)
+    lane = hd ** 0.5 / 8.0              # score = 8 * lane * k0 / sqrt(hd)
+    q[..., 0] = 8.0
+    k[:, :Sk - tail, :, 0] = -10.0 * lane
+    k[:, Sk - tail:, :, 0] = -1.0 * lane
+    return q, k, v
+
+
+def cross_limit_used(got, want, *, bwd=False):
+    """The largest share of the cross checks' limit that ``got`` uses
+    (above 1 fails): ``CROSS_RTOL`` of each value plus ``CROSS_STD`` of
+    ``want``'s standard deviation, or for gradients (``bwd``)
+    ``CROSS_BWD_MAX`` of their largest."""
+    g, w = got.float(), want.float()
+    floor = CROSS_BWD_MAX * w.abs().max() if bwd else CROSS_STD * w.std()
+    return ((g - w).abs() / (CROSS_RTOL * w.abs() + floor)).max().item()
+
+
+def phase_kernels_cross(torch, rows):
+    """Phase 3 at the cross and encoder shapes: flash attention with
+    ``causal=False`` (bf16 through the TMA/wgmma kernel; llama-vision's
+    cross layers at Sk = 6404, 100 full 64-key tiles and a tail of 4,
+    seamless's encoder at Sq = Sk = 1024 and its cross layers at 512 over
+    1024) against its plain version within the cross checks' limit, on
+    N(0, 1) inputs and on the tail case (whose softmax the last 4 keys
+    decide), its log-sum-exp asked for giving the same bits, then timed
+    beside the operation bound, the plain version and SDPA
+    (``is_causal=False``, ``enable_gqa``); the backward at the seamless
+    shapes against its plain version on both inputs, twice bitwise, then
+    timed beside SDPA's backward.  Timings go into the flash rows of
+    ``rows`` under the shape's tag; ``max_abs_err`` takes the largest
+    error."""
+    print("== phase 3: non-causal flash attention at the cross-attention "
+          "and encoder shapes vs the plain versions", flush=True)
+    from repro_torch.kernels.flash_attention import (
+        LOG2E, flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_attention_cuda, flash_attention_plain, uses_hopper_bwd_kernel,
+        uses_hopper_kernel)
+    by = {r["name"]: r for r in rows}
+    bf16 = torch.bfloat16
+    for tag, (B, Sq, Sk, H, KV, hd) in CROSS_SHAPES.items():
+        check(uses_hopper_kernel(bf16, hd), f"flash {tag}: unexpected "
+              f"kernel choice")
+        for inputs in ("N(0, 1)", "tail case"):
+            text = (f"{tag} B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} "
+                    f"bf16 causal=False, {inputs}")
+            if inputs == "tail case":
+                q, k, v = cross_tail_case(torch, B=B, S=Sq, Sk=Sk, H=H,
+                                          KV=KV, hd=hd, seed=Sq + Sk + H)
+            else:
+                q, k, v = flash_case(torch, B=B, S=Sq, Sk=Sk, H=H, KV=KV,
+                                     hd=hd, dtype=bf16, seed=Sq + Sk + H)
+            got = flash_attention_cuda(q, k, v, causal=False)
+            again, lse = flash_attention_cuda(q, k, v, causal=False,
+                                              return_lse=True)
+            want, want_lse = flash_attention_plain(q, k, v, causal=False,
+                                                   return_lse=True)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), f"flash {text}: "
+                  f"non-finite kernel output")
+            err = (got.float() - want.float()).abs().max().item()
+            used = cross_limit_used(got, want)
+            lse_err = (lse / LOG2E - want_lse).abs().max().item()
+            same = torch.equal(got, again)
+            print(f"flash_attention {text}: max_abs_err={err:.3e}, "
+                  f"{used:.3f} of the limit ({CROSS_RTOL:.4f} x |value| + "
+                  f"{CROSS_STD:.0e} x std {want.float().std().item():.3e})"
+                  f"; with its log-sum-exp the output is bitwise the same: "
+                  f"{same}, lse max_abs_err={lse_err:.3e} (tol 1e-3)",
+                  flush=True)
+            check(used <= 1, f"flash {text}: error {err} past the limit "
+                  f"({used:.3f} of it)")
+            check(same and lse_err <= 1e-3, f"flash {text}: with its "
+                  f"log-sum-exp the output differs or the lse is off by "
+                  f"{lse_err}")
+            by["flash_attention"]["max_abs_err"] = max(
+                by["flash_attention"]["max_abs_err"], err)
+            del got, again, lse, want, want_lse
+            if tag not in CROSS_BWD:
+                del q, k, v
+                continue
+            check(uses_hopper_bwd_kernel(bf16, hd), f"flash_attention_bwd "
+                  f"{text}: unexpected kernel choice")
+            out, lse = flash_attention_cuda(q, k, v, causal=False,
+                                            return_lse=True)
+            gen = torch.Generator(device="cuda").manual_seed(Sq + Sk + hd)
+            dout = torch.randn(q.shape, generator=gen,
+                               device="cuda").to(bf16)
+            args = (q, k, v, out, dout)
+            got = flash_attention_bwd_cuda(*args, causal=False, lse=lse)
+            again = flash_attention_bwd_cuda(*args, causal=False, lse=lse)
+            want = flash_attention_bwd_plain(*args, causal=False)
+            torch.cuda.synchronize()
+            errs = []
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                check(g.dtype == bf16 and g.shape == w.shape
+                      and bool(torch.isfinite(g).all()),
+                      f"flash_attention_bwd {text}: bad {name}")
+                err = (g.float() - w.float()).abs().max().item()
+                used = cross_limit_used(g, w, bwd=True)
+                check(used <= 1, f"flash_attention_bwd {text} {name}: "
+                      f"error {err} past the limit ({used:.3f} of it)")
+                errs.append(f"{name} {err:.3e}, {used:.3f} of the limit "
+                            f"(largest {w.float().abs().max().item():.3e})")
+                by["flash_attention_bwd"]["max_abs_err"] = max(
+                    by["flash_attention_bwd"]["max_abs_err"], err)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            print(f"flash_attention_bwd {text}: max_abs_err "
+                  f"{'; '.join(errs)} (limit {CROSS_RTOL:.4f} x |value| + "
+                  f"{CROSS_BWD_MAX:.0e} x largest); two calls bitwise "
+                  f"equal: {same}", flush=True)
+            check(same, f"flash_attention_bwd {text}: two calls differ")
+            del q, k, v, out, lse, dout, args, got, again, want
+        sets = [flash_case(torch, B=B, S=Sq, Sk=Sk, H=H, KV=KV, hd=hd,
+                           dtype=bf16, seed=700 + i + H) for i in range(2)]
+        timed = time_flash(torch, f"{tag} B={B} Sq={Sq} Sk={Sk} H={H} "
+                           f"KV={KV} hd={hd} bf16 causal=False", sets,
+                           iters=10, causal=False)
+        by["flash_attention"].update(
+            {f"{tag}_{key}": val for key, val in timed.items()})
+        del sets
+        if tag in CROSS_BWD:
+            timed = time_flash_bwd(torch, tag, Sq, H, KV, hd=hd,
+                                   causal=False, Sk=Sk)
+            by["flash_attention_bwd"].update(
+                {f"{tag}_{key}": val for key, val in timed.items()})
+
+
 def instrument(torch, model, tag, acc):
     """Count ``model``'s paged decode steps and time each one (host clock
     around the call, and CUDA events on the stream)."""
     orig = model.decode_step
     acc[tag] = {"calls": 0, "paged_calls": 0, "host_s": 0.0, "events": [],
                 "layers": len(model.layers),
-                "attn_layers": kernel_layers(model, "flash_attention")}
+                "attn_layers": kernel_layers(model, "paged_attention")}
 
     def timed(cache, tokens, positions, **kw):
         rec = acc[tag]
@@ -1692,11 +1905,20 @@ def instrument(torch, model, tag, acc):
 
 
 def kernel_layers(model, kernel):
-    """The layers of ``model`` whose every full-sequence or paged call runs
-    ``kernel``: attention layers for flash (and the paged kernels), RWKV
-    layers for the WKV6 scan; an RG-LRU layer runs neither."""
-    kinds = ("full", "local") if kernel != "rwkv6_scan" else ("rwkv",)
-    return sum(k in kinds for k in model.kinds)
+    """Launches of ``kernel`` in one full-sequence call (flash attention,
+    the WKV6 scan) or one paged ``decode_step`` (the paged kernels) of
+    ``model``: one per attention layer for the paged kernels (a cross
+    layer's self half included) and for flash, which a cross layer's cross
+    step launches once more and a config's encoder once per layer of its
+    own (it runs in every full-sequence call of a cross stack); one per
+    RWKV layer for the scan; an RG-LRU layer runs neither."""
+    if kernel == "rwkv6_scan":
+        return sum(k == "rwkv" for k in model.kinds)
+    n = sum(k in ("full", "local", "cross") for k in model.kinds)
+    if kernel == "flash_attention":
+        cross = model.kinds.count("cross")
+        n += cross + (model.cfg.encoder_layers if cross else 0)
+    return n
 
 
 def counters(torch):
@@ -1722,16 +1944,20 @@ def only(launches, **want):
 
 
 def serve_run(torch, name, cfgs, params, g, count, seed, acc, sync=True,
-              **kw):
+              cross_kv=None, **kw):
     """Serve ``count`` requests through a fresh engine (paged unless ``kw``
     says otherwise), lock-step or pipelined (``sync``), with every launch
-    counter zeroed just before and read just after; returns the result."""
+    counter zeroed just before and read just after, and seeded cross KV
+    written at each admission where ``cross_kv`` gives a seed
+    (:func:`seed_cross_kv`); returns the result."""
     from repro_torch.launch import serve
     from repro_torch.serving import GSIServingEngine, gsi_engine
     from repro_torch.models import scoring
     engine = GSIServingEngine(*cfgs, *params, g, mode="gsi", max_seq=512,
                               device="cuda",
                               **{"paged": True, "page_size": 16, **kw})
+    if cross_kv is not None:
+        seed_cross_kv(torch, engine, cross_kv)
     rec = acc.setdefault(name, {})
     for tag, model in (("draft", engine.draft), ("target", engine.target),
                        ("prm", engine.prm)):
@@ -2771,18 +2997,48 @@ def moe_layer_bytes(cfg):
                 + 3 * d * cfg.num_shared_experts * ff)
 
 
-def step_threshold(torch, label, cfgs, params, g, prompts, seed, **kw):
-    """A threshold among a run's own first-step selected tilted rewards:
-    one engine step of the same prompts with the same seed, slots and
-    engine options ``kw`` draws the same candidates (no threshold changes a
-    first step), and the midpoint of the widest gap between two rows'
-    selected values makes the run accept at least one step and fall back
-    on another."""
+def seed_cross_kv(torch, engine, seed):
+    """Make ``engine.admit`` write seeded N(0, 1) values into the admitted
+    slots' ``ck``/``cv`` in every cross layer of the three models.  The
+    engine takes no source, so they are otherwise zero and every cross step
+    outputs 0, which a dropped cross layer would match; with them the
+    engine's cross path (branching the cross KV, each branch's and shared
+    scoring's cross step over it, row resets) moves the rewards.  A slot's
+    values depend on (seed, slot) alone, so a run and its calibration see
+    the same ones."""
+    import numpy as np
+    admit = engine.admit
+
+    def admitted(state, mask, *a, **k):
+        state = admit(state, mask, *a, **k)
+        for slot in np.nonzero(np.asarray(mask, bool))[0].tolist():
+            gen = torch.Generator(device="cuda").manual_seed(
+                1000 * seed + slot)
+            for name in sorted(state["caches"]):
+                for layer in state["caches"][name]:
+                    for leaf in ("ck", "cv") if "ck" in layer else ():
+                        row = layer[leaf][slot]
+                        row.copy_(torch.randn(row.shape, generator=gen,
+                                              device="cuda"))
+        return state
+
+    engine.admit = admitted
+
+
+def first_step_rewards(torch, cfgs, params, g, prompts, seed, cross_kv=None,
+                       **kw):
+    """A run's first-step selected tilted rewards, one per prompt: one
+    engine step of the same prompts with the same seed, slots and engine
+    options ``kw`` draws the same candidates as the run's first step (no
+    threshold changes a first step); ``cross_kv`` seeds the slots' cross
+    KV as :func:`serve_run` does."""
     from repro_torch.launch import serve
     from repro_torch.serving import GSIServingEngine, gsi_engine
     engine = GSIServingEngine(*cfgs, *params, dataclasses.replace(
         g, max_steps=1), mode="gsi", max_seq=512, device="cuda",
         **{"paged": True, "page_size": 16, **kw})
+    if cross_kv is not None:
+        seed_cross_kv(torch, engine, cross_kv)
     first = []
     select = gsi_engine.gsi_select
 
@@ -2798,7 +3054,16 @@ def step_threshold(torch, label, cfgs, params, g, prompts, seed, **kw):
     finally:
         gsi_engine.gsi_select = select
     del engine
-    return gap_threshold(f"run {label} calibration", first, len(prompts))
+    return first
+
+
+def step_threshold(torch, label, cfgs, params, g, prompts, seed, **kw):
+    """A threshold among a run's own first-step selected tilted rewards
+    (:func:`first_step_rewards`): the midpoint of the widest gap between
+    two rows' selected values makes the run accept at least one step and
+    fall back on another."""
+    return gap_threshold(f"run {label} calibration", first_step_rewards(
+        torch, cfgs, params, g, prompts, seed, **kw), len(prompts))
 
 
 def moe_layer_check(torch, cfg, params, rows):
@@ -3096,6 +3361,13 @@ def phase_rwkv(torch):
 GEMMA_SEED = 6
 GEMMA_REQUESTS = 4
 GEMMA_LONG = (520, 560)
+# the Gemma runs' depth, about half the published 26 and 38 (widths never
+# cut): at full depth the five runs took 268 s of a 1062.8 s chip run
+# (H100 80GB HBM3, 700 W, a slower machine) once the cross-attention
+# phase was added; 13 layers keep gemma3's 5 local : 1 global pattern
+# twice and a local remainder layer, 19 keep recurrentgemma's 6
+# (recurrent, recurrent, local) blocks and a recurrent remainder
+GEMMA_LAYERS = {"gemma3": 13, "recurrentgemma": 19}
 
 
 def carry_lru(torch, params, seed):
@@ -3115,20 +3387,38 @@ def carry_lru(torch, params, seed):
     return lo, hi
 
 
-def gemma_serve(torch, name, cfgs, params, g, acc, **kw):
-    """One Gemma serving run at a threshold calibrated among its own
-    first-step selected tilted rewards; checks that it both accepts and
-    falls back, that the paged kernel of its pool dtype launched attention
-    layers x paged decode_step calls times and the gather once per
-    score_candidates call (2 x draft phases) with shared scoring, nothing
-    else, and that a hybrid stack turned prefix sharing off."""
+def family_serve(torch, name, cfgs, params, g, acc, cross_kv=None, **kw):
+    """One serving run of a Gemma or cross-attention triple at a threshold
+    calibrated among its own first-step selected tilted rewards (with
+    ``cross_kv``, seeded cross KV written into every admitted slot, and
+    the first step's rewards under the next seed's as the control, which
+    must differ by more than 1e-2); checks that it both accepts and falls
+    back,
+    that the paged kernel of its pool dtype launched attention layers
+    (a cross layer's self half included) x paged decode_step calls times
+    and the gather once per score_candidates call (2 x draft phases) with
+    shared scoring, nothing else, and that a hybrid or cross stack turned
+    prefix sharing off."""
     from repro_torch.launch import serve
     prompts = serve.random_prompts(GEMMA_REQUESTS, seed=GEMMA_SEED,
                                    vocab=cfgs[0].vocab_size, lo=24, hi=72)
-    g = dataclasses.replace(g, threshold_u=step_threshold(
-        torch, name, cfgs, params, g, prompts, GEMMA_SEED, **kw))
+    first = first_step_rewards(torch, cfgs, params, g, prompts, GEMMA_SEED,
+                               cross_kv=cross_kv, **kw)
+    if cross_kv is not None:
+        other = first_step_rewards(torch, cfgs, params, g, prompts,
+                                   GEMMA_SEED, cross_kv=cross_kv + 1, **kw)
+        moved = max(abs(a - b) for a, b in zip(first, other))
+        print(f"run {name}: seeded N(0, 1) cross KV in every admitted "
+              f"slot; first-step selected tilted rewards "
+              f"{[round(r, 4) for r in first]}, under the next seed's "
+              f"cross KV {[round(r, 4) for r in other]} (control: moved "
+              f"{moved:.4f}, must pass 1e-2)", flush=True)
+        check(moved > 1e-2, f"{name}: other cross KV moved the first "
+              f"step's rewards by only {moved}")
+    g = dataclasses.replace(g, threshold_u=gap_threshold(
+        f"run {name} calibration", first, len(prompts)))
     res = serve_run(torch, name, cfgs, params, g, GEMMA_REQUESTS,
-                    GEMMA_SEED, acc, **kw)
+                    GEMMA_SEED, acc, cross_kv=cross_kv, **kw)
     rec = acc[name]
     report_run(name, res, rec, cfgs[0].vocab_size)
     for tag, r in rec.items():
@@ -3149,11 +3439,12 @@ def gemma_serve(torch, name, cfgs, params, g, acc, **kw):
           f"{name}: {stats.accepted} of {stats.decisions} decisions "
           f"accepted; the run must take both the accept and the fallback "
           f"branch")
-    hybrid = any(k == "recurrent" for k in cfgs[0].layer_pattern)
+    hybrid = any(k in ("recurrent", "cross") for k in cfgs[0].layer_pattern)
     check(res["prefix_cache"] == (not hybrid)
           and (not hybrid or res["prefix"]["hits"] == 0),
           f"{name}: prefix sharing {res['prefix_cache']}, hits "
-          f"{res['prefix']['hits']}; a hybrid stack must turn it off")
+          f"{res['prefix']['hits']}; a hybrid or cross stack must turn it "
+          f"off")
     paged = "paged_attention_quant" if kw.get("kv_dtype") == "int8" \
         else "paged_attention"
     want = sum(r["attn_layers"] * r["paged_calls"] for r in rec.values())
@@ -3189,14 +3480,15 @@ def long_prompts(res, vocab):
 
 
 def phase_gemma(torch):
-    """The Gemma families at full width and depth: runs gsi-gemma3 (bf16
-    pages), gsi-gemma3-int8-shared (int8 pages, shared scoring, the int8
-    draft) and score-gemma3 (sequences of 550-600 tokens), then, once those
-    weights are freed, gsi-rgemma (paged local layers beside dense RG-LRU
-    state, prefix sharing off) and score-rgemma.  Returns the launches of
-    each kernel over the five runs."""
+    """The Gemma families at full width, ``GEMMA_LAYERS`` deep: runs
+    gsi-gemma3 (bf16 pages), gsi-gemma3-int8-shared (int8 pages, shared
+    scoring, the int8 draft) and score-gemma3 (sequences of 550-600
+    tokens), then, once those weights are freed, gsi-rgemma (paged local
+    layers beside dense RG-LRU state, prefix sharing off) and
+    score-rgemma.  Returns the launches of each kernel over the five
+    runs."""
     print("== phase 4: the Gemma families at full gemma3-1b and "
-          "recurrentgemma-9b width and depth", flush=True)
+          "recurrentgemma-9b width", flush=True)
     from repro_torch.config import GSIConfig
     from repro_torch.launch import serve
     from repro_torch.models import param_specs, random_params
@@ -3205,7 +3497,11 @@ def phase_gemma(torch):
     total = dict.fromkeys(("paged_attention", "paged_attention_quant",
                            "logprob_gather", "flash_attention"), 0)
     for family in ("gemma3", "recurrentgemma"):
-        cfgs = serve.build_triple(family)
+        cfgs = serve.build_triple(family, layers=GEMMA_LAYERS[family])
+        print(f"reduced: the {family} runs cut to {GEMMA_LAYERS[family]} "
+              f"layers in all three models (published "
+              f"{serve.build_triple(family)[0].num_layers}); widths "
+              f"unchanged", flush=True)
         for c in cfgs:
             laid = sum(math.prod(s.shape) for s in param_specs(c).values())
             print(f"model {c.name}: layers={c.num_layers} pattern="
@@ -3233,11 +3529,11 @@ def phase_gemma(torch):
                   f"{max(r[1] for r in ranges):.4f}]", flush=True)
         acc = {}
         if family == "gemma3":
-            res = gemma_serve(torch, "gsi-gemma3", cfgs, params, g, acc)
+            res = family_serve(torch, "gsi-gemma3", cfgs, params, g, acc)
             total["paged_attention"] += res["launches"]["paged_attention"]
-            int8 = gemma_serve(torch, "gsi-gemma3-int8-shared", cfgs, params,
-                               g, acc, kv_dtype="int8", shared_scoring=True,
-                               quantize_draft=True)
+            int8 = family_serve(torch, "gsi-gemma3-int8-shared", cfgs,
+                                params, g, acc, kv_dtype="int8",
+                                shared_scoring=True, quantize_draft=True)
             total["paged_attention_quant"] += \
                 int8["launches"]["paged_attention_quant"]
             total["logprob_gather"] += int8["launches"]["logprob_gather"]
@@ -3246,7 +3542,7 @@ def phase_gemma(torch):
                 long_prompts(res, cfgs[0].vocab_size), "flash_attention",
                 agree_dtype="float32", tols=(LP_TOL, REWARD_TOL, LOGIT_TOL))
         else:
-            res = gemma_serve(torch, "gsi-rgemma", cfgs, params, g, acc)
+            res = family_serve(torch, "gsi-rgemma", cfgs, params, g, acc)
             total["paged_attention"] += res["launches"]["paged_attention"]
             scored = phase_score(
                 torch, "score-rgemma", cfgs, params, res, "flash_attention",
@@ -3259,6 +3555,246 @@ def phase_gemma(torch):
               flush=True)
         del params, res, acc
         release(torch)
+    return total
+
+
+# phase_cross: the seed of its sources and prompts; the agreement runs'
+# prompts, prompt tokens and decode steps; their tolerance in fp32
+# activations over the bf16 weights (logits and log-probs; rewards) for
+# both sides of every comparison running fp32 products in other orders
+# (flash's CUDA-core kernel in the full-sequence calls, the dense decode
+# einsum in decode): 1e-5 seen in llama-vision's logits of scale 5 in a
+# first chip run (H100 80GB HBM3, 700 W), where LOGIT_TOL's 0.1 would be
+# of the order of what a second source moves (0.15: a random N(0, 1)
+# source's 6,404 keys get a near-uniform softmax, so a cross layer adds
+# about their mean); run t5's steps.  gsi-vision runs on 4 slots: its
+# peak was 70.26 GiB of the card's 80 in a first chip run (H100 80GB
+# HBM3, 700 W): 56.51 GiB of weights and 0.195 GiB of cross KV a row and
+# model, of which a draft phase holds 4 x (1 + n) rows a model
+CROSS_SEED = 9
+CROSS_AGREE = (3, 240, 16)
+CROSS_TOL = 1e-3
+CROSS_TRAIN_STEPS = 3
+
+
+def cross_source(torch, cfg, B, seed):
+    """A seeded N(0, 1) source of the config's length, bf16 on the card:
+    patch embeddings (B, cross_source_seq, d) or frame embeddings (B,
+    encoder_seq, d), what the stubbed frontends would hand over."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    S = cfg.encoder_seq or cfg.cross_source_seq
+    return torch.randn((B, S, cfg.d_model), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+
+
+def cross_calls(torch, target, prm, toks, src):
+    """The model-level calls of a cross family on one batch: prefill of
+    the prompt, decode steps from its cache (cross KV read back from
+    there), forward over prompt and steps, score and the PRM's reward at
+    the end, all with ``src``.  Returns each call's output."""
+    B, S = toks.shape
+    P = S - CROSS_AGREE[2]
+    pf, cache = target.prefill(toks[:, :P], source=src, max_seq=S)
+    dec = [target.decode_step(cache, toks[:, t:t + 1],
+                              torch.full((B,), t, device="cuda"))
+           for t in range(P, S)]
+    logits = target.forward(toks, source=src)[0]
+    lengths = torch.full((B,), S, device="cuda")
+    return {"prefill": pf, "decode": torch.stack(dec, dim=1),
+            "forward": logits, "score": target.score(toks, source=src),
+            "reward": prm.reward_at_end(toks, lengths, source=src)}
+
+
+def cross_agreement(torch, label, cfgs, params):
+    """llama-vision's or seamless's target and PRM at full width and depth
+    on one batch of CROSS_AGREE's prompts over a seeded source: the calls
+    of :func:`cross_calls` counted in bf16 (flash once per attention call
+    of each full-sequence call, split into causal and non-causal launches;
+    the gather once; the paged kernels never: decode here is dense), then
+    held in fp32 activations over the same weights: prefill and decode
+    logits to forward's, score to forward's log-softmax, the reward to the
+    PRM's decode path; the bf16 gaps printed as the control that the fp32
+    comparison is the one able to see a fault.  A second source must move
+    forward's logits by far more than the tolerance, CROSS_TOL (a dropped
+    cross layer would not).  Returns the launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.rewards import PRM
+    B, P, T = CROSS_AGREE
+    cfg = cfgs[1]
+    V = cfg.vocab_size
+    gen = torch.Generator(device="cuda").manual_seed(CROSS_SEED)
+    toks = torch.randint(3, V, (B, P + T), generator=gen, device="cuda")
+    src = cross_source(torch, cfg, B, CROSS_SEED)
+    target = Model(cfg, params[1])
+    prm = PRM(cfgs[2], params[2], device="cuda")
+    flash = {True: 0, False: 0}
+    dispatch = ops.flash_attention
+
+    def split(q, k, v, *, causal=True, **kw):
+        flash[bool(causal)] += 1
+        return dispatch(q, k, v, causal=causal, **kw)
+
+    wrappers = counters(torch)
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    ops.flash_attention = split
+    t0 = time.perf_counter()
+    try:
+        out = cross_calls(torch, target, prm, toks, src)
+        torch.cuda.synchronize()
+    finally:
+        ops.flash_attention = dispatch
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    per_call = kernel_layers(target, "flash_attention")
+    want = 3 * per_call + kernel_layers(prm.model, "flash_attention")
+    cross = target.kinds.count("cross")
+    print(f"run {label}: {B} prompts of {P} tokens over a source of "
+          f"{tuple(src.shape)}, {T} dense decode_steps, forward, score and "
+          f"reward_at_end over {P + T} tokens (bf16): wall {wall:.2f} s; "
+          f"kernel launches {launches}; flash per full-sequence call "
+          f"{per_call} ({len(target.kinds)} self-attention, {cross} cross"
+          f", {cfg.encoder_layers if cross else 0} encoder), 4 calls: want "
+          f"{want}; flash causal {flash[True]}, non-causal {flash[False]}",
+          flush=True)
+    check(only(launches, flash_attention=want, logprob_gather=1)
+          and flash[True] + flash[False] == want
+          and flash[False] == 4 * (cross + cfg.encoder_layers),
+          f"{label}: launches {launches}, flash causal {flash[True]} "
+          f"non-causal {flash[False]}; want flash_attention = {want}, "
+          f"logprob_gather = 1, no other kernel")
+    for name, t in out.items():
+        check(bool(torch.isfinite(t).all()), f"{label}: {name} not finite")
+    check(out["score"].shape == (B, P + T - 1) and out["reward"].shape == (B,)
+          and float(out["reward"].min()) >= 0
+          and float(out["reward"].max()) <= 1,
+          f"{label}: bad score or reward shapes, or rewards outside [0, 1]")
+
+    def gaps(o):
+        full = o["forward"][..., :V].float()
+        lsm = torch.log_softmax(full[:, :-1], dim=-1).gather(
+            -1, toks[:, 1:, None])[..., 0]
+        return {"prefill": (o["prefill"][:, :V].float()
+                            - full[:, P - 1]).abs().max().item(),
+                "decode": (o["decode"][..., :V].float()
+                           - full[:, P:]).abs().max().item(),
+                "score": (o["score"] - lsm).abs().max().item()}
+
+    bf16 = gaps(out)
+    print(f"run {label} control (bf16 activations, the counted run): "
+          f"prefill logits vs forward {bf16['prefill']:.5f}, decode steps "
+          f"from the prefill cache vs forward {bf16['decode']:.5f}, score "
+          f"vs forward's log-softmax {bf16['score']:.5f}; the agreement "
+          f"below runs in float32 activations", flush=True)
+    del out
+    fp32 = [dataclasses.replace(c, dtype="float32") for c in cfgs]
+    target = Model(fp32[1], params[1])
+    prm = PRM(fp32[2], params[2], device="cuda")
+    out = cross_calls(torch, target, prm, toks, src)
+    err = gaps(out)
+    _, cache = prm.model.prefill(toks[:, :-1], source=src, max_seq=P + T)
+    _, h = prm.model.decode_step(cache, toks[:, -1:],
+                                 torch.full((B,), P + T - 1, device="cuda"),
+                                 return_hidden=True)
+    err["reward"] = (out["reward"]
+                     - prm.model.reward_from_hidden(h)).abs().max().item()
+    del cache, h
+    other = target.forward(toks, source=cross_source(
+        torch, cfg, B, CROSS_SEED + 1))[0][..., :V]
+    moved = (other - out["forward"][..., :V]).abs().max().item()
+    full = out["forward"][..., :V]
+    print(f"run {label} (float32 activations over the bf16 weights): "
+          f"prefill last-token logits vs forward max_abs_err="
+          f"{err['prefill']:.2e}, {T} decode steps from the prefill cache "
+          f"vs forward {err['decode']:.2e}, logits in "
+          f"[{full.min().item():.2f}, {full.max().item():.2f}]; score vs "
+          f"forward's log-softmax {err['score']:.2e}; reward_at_end vs the "
+          f"PRM's decode path {err['reward']:.2e}, rewards "
+          f"{[round(x, 4) for x in out['reward'].tolist()]} (tol "
+          f"{CROSS_TOL:.0e} each); control: a second source moves "
+          f"forward's logits by {moved:.4f} (required above "
+          f"{10 * CROSS_TOL:.0e})", flush=True)
+    for what, e in err.items():
+        check(e <= CROSS_TOL, f"{label}: {what} error {e} > {CROSS_TOL}")
+    check(moved > 10 * CROSS_TOL, f"{label}: a second source moved the "
+          f"logits by only {moved}")
+    del out, other, target, prm, src
+    release(torch)
+    return launches
+
+
+def phase_cross(torch):
+    """The cross-attention families at full width and depth, each one
+    model's shape as draft, target and PRM (seeded random bf16 weights):
+    llama-3.2-vision-11b (run agree-vision, then gsi-vision) and, once
+    those weights are freed, seamless-m4t-medium (agree-seamless,
+    gsi-seamless and the train step t5 with a source).  The GSI runs serve
+    text-only requests, as the reference's engine does, with seeded
+    N(0, 1) cross KV written into each admitted slot (else zero, so every
+    cross step would output 0) and a second seed's as the control.
+    Returns the launches of each kernel over the runs."""
+    print("== phase 4: the cross-attention families at full "
+          "llama-3.2-vision-11b and seamless-m4t-medium width and depth",
+          flush=True)
+    import numpy as np
+    from repro_torch.config import GSIConfig
+    from repro_torch.data.lm import lm_batches
+    from repro_torch.launch import serve
+    from repro_torch.models import param_specs, random_params
+    t_phase = time.perf_counter()
+    g = GSIConfig(n=4, beta=20.0, temperature=0.7, max_step_tokens=16,
+                  max_steps=2, min_step_reward=0.0)
+    total = dict.fromkeys(("paged_attention", "logprob_gather",
+                           "flash_attention", "flash_attention_bwd"), 0)
+    for family in ("llama-vision", "seamless"):
+        cfgs = serve.build_triple(family)
+        c = cfgs[0]
+        laid = sum(math.prod(s.shape) for s in param_specs(c).values())
+        print(f"model {c.name}: layers={c.num_layers} pattern="
+              f"{'/'.join(c.layer_pattern)} encoder_layers="
+              f"{c.encoder_layers} source="
+              f"{c.encoder_seq or c.cross_source_seq} d={c.d_model} heads="
+              f"{c.num_heads}/{c.num_kv_heads} hd={c.head_dim} ffn="
+              f"{c.d_ff} vocab={c.vocab_size} params~"
+              f"{c.param_count() / 1e9:.2f}B (as laid out {laid / 1e9:.2f}B)"
+              f", three of them (the PRM with a reward head)", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = [random_params(c, i, "cuda") for i, c in enumerate(cfgs)]
+        torch.cuda.synchronize()
+        print(f"random bf16 weights of the {family} triple on the card: "
+              f"{time.perf_counter() - t0:.1f} s; memory_allocated "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB",
+              flush=True)
+        agree = cross_agreement(torch, f"agree-{family}", cfgs, params)
+        elapsed(f"run agree-{family}")
+        acc = {}
+        name = "gsi-vision" if family == "llama-vision" else "gsi-seamless"
+        res = family_serve(torch, name, cfgs, params, g, acc,
+                           cross_kv=CROSS_SEED)
+        print(f"max_memory_allocated ({family} runs) "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+              flush=True)
+        for k in total:
+            total[k] += agree[k] + res["launches"][k]
+        del params, res, acc
+        release(torch)
+        if family == "seamless":
+            cfg = cfgs[0]
+            batch = next(lm_batches(cfg.vocab_size, 4, 512, seed=0))
+            rng = np.random.default_rng(CROSS_SEED)
+            batch["source"] = rng.standard_normal(
+                (4, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+            t5 = train_run(torch, "t5", cfg, batch, lr=T1_LR,
+                           steps=CROSS_TRAIN_STEPS)
+            for k in ("flash_attention", "flash_attention_bwd"):
+                total[k] += t5[k]
+            elapsed("run t5")
+        release(torch)
+    print(f"phase_cross seconds: {time.perf_counter() - t_phase:.1f}",
+          flush=True)
     return total
 
 
@@ -3345,8 +3881,8 @@ def phase_score(torch, run, full, params, served, kernel, *,
     comparison run again with activations of that dtype over the same
     weights, and the counted run's own gap must exceed the log-prob
     tolerance (the control that shows the comparison needs them)."""
-    print(f"== phase 4: run {run} (full-sequence passes at full width "
-          f"and depth)", flush=True)
+    print(f"== phase 4: run {run} (full-sequence passes at full width)",
+          flush=True)
     draft, target, prm = scoring_models(full, params)
     toks, lengths, prompt = finished_sequences(torch, served)
     B, S = toks.shape
@@ -3836,19 +4372,22 @@ TOY_TRAIN_STEPS = 300
 TOY_SERVE_THRESHOLD = 0.5
 
 
-def train_run(torch, tag, cfg, batch, *, lr, prm=False, seed=0):
-    """``TRAIN_STEPS`` steps of a fresh :class:`Trainer` (seeded random
-    bf16 weights, fp32 AdamW state, peak rate ``lr``, warmup 1) on one
-    fixed batch, with every
-    launch counter zeroed just before and read just after; prints the
-    losses, the step time and the memory, checks the losses are finite and
-    fall, and returns the launches."""
+def train_run(torch, tag, cfg, batch, *, lr, prm=False, seed=0,
+              steps=TRAIN_STEPS):
+    """``steps`` steps of a fresh :class:`Trainer` (seeded random bf16
+    weights, fp32 AdamW state, peak rate ``lr``, warmup 1) on one fixed
+    batch (with a ``source`` for a cross stack), with every launch counter
+    zeroed just before and read just after; prints the losses, the step
+    time and the memory, checks the losses are finite and fall and that
+    flash's forward and backward each launched once per attention call of
+    a step (:func:`kernel_layers`) times ``steps``, and returns the
+    launches."""
     from repro_torch.config import TrainConfig
     from repro_torch.train import Trainer
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     tr = Trainer(cfg, TrainConfig(learning_rate=lr, warmup_steps=1,
-                                  total_steps=TRAIN_STEPS, seed=seed),
+                                  total_steps=steps, seed=seed),
                  prm=prm, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in tr.params.values())
@@ -3862,7 +4401,7 @@ def train_run(torch, tag, cfg, batch, *, lr, prm=False, seed=0):
     for fn in wrappers.values():
         fn.launches = 0
     losses, secs = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         m = tr.step(batch)
         losses.append(float(m["loss"]))          # synchronizes the device
@@ -3881,10 +4420,11 @@ def train_run(torch, tag, cfg, batch, *, lr, prm=False, seed=0):
           f"launches {launches}", flush=True)
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
           f"{tag}: losses {losses} not finite and falling")
-    want = cfg.num_layers * TRAIN_STEPS
+    want = kernel_layers(tr.model, "flash_attention") * steps
     check(only(launches, flash_attention=want, flash_attention_bwd=want),
           f"{tag}: launches {launches}; want flash_attention = "
-          f"flash_attention_bwd = layers x steps = {want}, no other kernel")
+          f"flash_attention_bwd = attention calls x steps = {want}, no "
+          f"other kernel")
     del tr, m
     torch.cuda.empty_cache()
     return launches
@@ -4051,6 +4591,7 @@ def main() -> int:
                 phase_kernels_logprob(torch), phase_kernels_flash(torch),
                 phase_kernels_flash_bwd(torch), phase_kernels_rwkv(torch)]
         phase_kernels_gemma(torch, rows)
+        phase_kernels_cross(torch, rows)
         elapsed("phases 1-3")
         launches = phase_main(torch, args.layers)
         release(torch)
@@ -4075,6 +4616,9 @@ def main() -> int:
         print(f"launches over the Gemma runs: {gemma}", flush=True)
         for name, n in gemma.items():
             launches[name] += n
+        cross = phase_cross(torch)
+        elapsed("the cross-attention runs")
+        print(f"launches over the cross-attention runs: {cross}", flush=True)
         phase_agreement(torch)
         phase_agreement_full(torch)
         phase_agreement_rwkv(torch)
@@ -4082,9 +4626,14 @@ def main() -> int:
         train = phase_train(torch)
         launches["flash_attention"] += train["flash_attention"]
         launches["flash_attention_bwd"] = train["flash_attention_bwd"]
-        print(f"flash_attention launches over its paths: score-prm "
+        print(f"flash_attention launches over its paths: score-prm and the "
+              f"Gemma scoring runs "
               f"{launches['flash_attention'] - train['flash_attention']} + "
-              f"training {train['flash_attention']}", flush=True)
+              f"training {train['flash_attention']} + the cross-attention "
+              f"runs {cross['flash_attention']} (t5 "
+              f"{cross['flash_attention_bwd']} of them)", flush=True)
+        for name, n in cross.items():
+            launches[name] += n
         for row in rows:
             row["launches"] = launches[row["name"]]
     except SmokeFailure as e:

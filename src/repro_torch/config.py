@@ -90,12 +90,12 @@ class ModelConfig:
         return tuple(self.layer_pattern[:rem])
 
     def param_count(self) -> int:
-        """Approximate parameter count (embedding + blocks) of the families
-        the port builds: dense and MoE attention stacks, hybrid RG-LRU
-        stacks and RWKV (``ssm``) stacks, counted as the reference counts
-        them (MoE: the real experts and the router, not the padding experts
-        the layout adds; a recurrent block: 3 d w + 8 w, though its specs
-        hold 5 d w, the reference's count)."""
+        """Approximate parameter count (embedding + blocks + encoder),
+        counted as the reference counts it (MoE: the real experts and the
+        router, not the padding experts the layout adds; a recurrent block:
+        3 d w + 8 w, though its specs hold 5 d w; a cross block: two
+        attention blocks, its norms uncounted; an encoder layer: 4 d^2 +
+        3 d d_ff, whatever the head layout)."""
         d, ff, v = self.d_model, self.d_ff, self.vocab_size
         total = v * d * (1 if self.tie_embeddings else 2)
         pattern = list(self.layer_pattern) * self.pattern_repeats \
@@ -105,17 +105,21 @@ class ModelConfig:
                 # r,k,v,o projections + decay/mix params; channel-mix
                 total += 4 * d * d + 6 * d + 2 * d * int(3.5 * d)
                 continue
+            attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
             if kind == "recurrent":
                 w = self.lru_width
                 total += 2 * d * w + w * d + 2 * w * 4
+            elif kind == LAYER_CROSS:
+                total += 2 * attn              # self + cross
             else:
-                total += d * self.q_dim + 2 * d * self.kv_dim \
-                    + self.q_dim * d
+                total += attn
             if self.num_experts:
                 total += (self.num_experts + self.num_shared_experts) \
                     * 3 * d * self.moe_d_ff + d * self.num_experts
             else:
                 total += 3 * d * ff
+        if self.encoder_layers:
+            total += self.encoder_layers * (4 * d * d + 3 * d * ff)
         return int(total)
 
 

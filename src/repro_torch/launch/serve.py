@@ -12,16 +12,19 @@ continuous-batching scheduler.
     PYTHONPATH=src python -m repro_torch.launch.serve --config rwkv6-3b
     PYTHONPATH=src python -m repro_torch.launch.serve --config gemma3
     PYTHONPATH=src python -m repro_torch.launch.serve --config recurrentgemma
+    PYTHONPATH=src python -m repro_torch.launch.serve --config llama-vision
+    PYTHONPATH=src python -m repro_torch.launch.serve --config seamless
     PYTHONPATH=src python -m repro_torch.launch.serve --config rwkv6-3b \
         --device cpu --layers 2 --requests 2 --max-steps 1 --max-step-tokens 4
 
 The real checkpoints are not in the repository, so weights are random
 (seeded): the run exercises the serving path at the published widths, and
 its tokens carry no meaning.  ``--layers`` cuts the depth of all three
-models equally; widths are never cut.  Serving is pipelined by default
-(``--async``, as in the reference): the scheduler keeps one step ticket in
-flight and harvests and admits while it runs, and prints an ``async
-pipeline: overlap_fraction=...`` line; ``--sync`` selects the lock-step
+models equally (an encoder's too, to at most that many layers); widths are
+never cut.  Serving is pipelined by default (``--async``, as in the
+reference): the scheduler keeps one step ticket in flight and harvests
+and admits while it runs, and prints an ``async pipeline:
+overlap_fraction=...`` line; ``--sync`` selects the lock-step
 loop (identical tokens).  ``--kv-dtype`` (with ``--paged``) picks the page
 storage format and ``--quantize-draft`` rounds the draft's weights through
 int8, as in the reference's CLI.  ``--tp`` raises.
@@ -73,6 +76,14 @@ vocabulary of 262,144; about 6 GB of bf16 weights for the three) and
 56 GB of bf16 weights for the three, so on one 80 GB card only).  Their
 vocabularies differ, so neither drafts for the other.  A hybrid stack
 turns prefix sharing off, as an RWKV one does.
+``--config llama-vision`` (``llama-3.2-vision-11b``: a cross-attention
+layer every 5th of 40, over 6,404 patch embeddings; about 56.5 GiB of bf16
+weights for the three, so on one 80 GB card only) and ``--config
+seamless`` (``seamless-m4t-medium``: 12 decoder layers that all
+cross-attend to a 12-layer encoder's output over 1,024 frames) serve the
+cross-attention families the same way.  Their requests are text-only, as
+in the reference's engine, which takes no source: each slot's cross KV
+stays zero, and prefix sharing is off for such stacks.
 ``toy`` is a small fp32 triple.  With ``--train-steps N`` (``toy`` only)
 the CLI first trains it on the synthetic arithmetic task, as the
 reference's CLI does (:func:`train_triple`: the draft for N // 2 steps,
@@ -166,6 +177,8 @@ TRIPLES = {"qwen2.5-math": lambda: qwen25_math.TRIPLE, "toy": toy_triple,
            "rwkv6-3b": lambda: self_triple("rwkv6-3b"),
            "gemma3": lambda: self_triple("gemma3-1b"),
            "recurrentgemma": lambda: self_triple("recurrentgemma-9b"),
+           "llama-vision": lambda: self_triple("llama-3.2-vision-11b"),
+           "seamless": lambda: self_triple("seamless-m4t-medium"),
            "qwen2-moe": lambda: (qwen25_math.DRAFT, qwen2_moe_a27b.CONFIG,
                                  qwen25_math.PRM),
            "qwen3": lambda: (qwen3.DRAFT, qwen3.TARGET, qwen25_math.PRM)}
@@ -173,10 +186,12 @@ TRIPLES = {"qwen2.5-math": lambda: qwen25_math.TRIPLE, "toy": toy_triple,
 
 def build_triple(name: str, *, layers: int = 0):
     """The named config triple; ``layers > 0`` cuts every model's depth to
-    ``layers`` (never a width)."""
+    ``layers`` (its encoder's to at most that), never a width."""
     cfgs = TRIPLES[name]()
     if layers:
-        cfgs = tuple(dataclasses.replace(c, num_layers=layers) for c in cfgs)
+        cfgs = tuple(dataclasses.replace(
+            c, num_layers=layers,
+            encoder_layers=min(c.encoder_layers, layers)) for c in cfgs)
     return cfgs
 
 

@@ -1,17 +1,25 @@
-"""GQA self-attention: full-sequence (train/prefill) and decode modes.
+"""GQA attention: self-attention in full-sequence (train/prefill) and
+decode modes, and cross-attention to a source sequence.
 
-A port of ``repro.models.attention`` for the self-attention kinds.
+A port of ``repro.models.attention``.
 
 * ``train`` / ``prefill``: full-sequence causal (or sliding-window)
-  attention through :func:`repro_torch.kernels.ops.flash_attention`, so a
-  CUDA tensor reaches the hand-written flash kernel; ``prefill`` also
-  returns the layer's dense cache, padded to capacity or, for a local
-  layer whose window is shorter than the prefill, as a ring buffer.
+  attention, or bidirectional (``causal=False``, the encoder's), through
+  :func:`repro_torch.kernels.ops.flash_attention`, so a CUDA tensor
+  reaches the hand-written flash kernel; ``prefill`` also returns the
+  layer's dense cache, padded to capacity or, for a local layer whose
+  window is shorter than the prefill, as a ring buffer.
 * ``decode``: one token against the cache, updated **in place**: the dense
   rows of the request's own slot, or the page-pool rows the block table
   resolves ``pos`` to.  Every paged call goes through
   :func:`repro_torch.kernels.ops.paged_attention` (or
   ``paged_attention_quant`` for int8/fp8 pools).
+* Cross-attention (``cross`` layers): keys and values projected from the
+  source with no RoPE (:func:`compute_cross_kv`), cached once per request
+  as dense ``ck``/``cv`` rows; the queries of a full sequence attend to
+  them through the flash kernel with ``causal=False`` (Sq != Sk), a
+  decode step's one query through the plain GQA einsum, as the reference
+  computes both.
 """
 from __future__ import annotations
 
@@ -47,7 +55,8 @@ def gqa_attention(q, k, v, mask, scale):
 
 
 def _cache_len(cfg, kind: str, max_seq: int) -> int:
-    if kind == "local" or (cfg.serve_window_override and kind == "full"):
+    if kind == "local" or (cfg.serve_window_override
+                           and kind in ("full", "cross")):
         w = cfg.window_size if kind == "local" else cfg.serve_window_override
         return min(w, max_seq)
     return max_seq
@@ -84,11 +93,13 @@ def init_paged_self_cache(cfg, total_pages: int, page_size: int, device,
 
 def self_attention(cfg, p, x, *, kind: str, mode: str, positions, freqs,
                    cache=None, window_override: int = 0, max_seq: int = 0,
-                   pt=None, pos32=None):
+                   pt=None, pos32=None, causal: bool = True):
     """Returns ``(out, cache)``.
 
     positions: (S,) for train/prefill (shared across the batch), (B,) for
-    decode; ``freqs`` the model's RoPE frequencies.  ``train`` returns no
+    decode; ``freqs`` the model's RoPE frequencies; ``causal=False`` (the
+    encoder's layers) lets every position see every other in the
+    full-sequence modes.  ``train`` returns no
     cache, ``prefill`` a new dense ``{'k','v'}`` cache of capacity
     ``max_seq`` (default S), ``decode`` the given cache, written in place:
     ``pt`` (B, nblk1) selects the paged path when it holds page pools
@@ -112,8 +123,8 @@ def self_attention(cfg, p, x, *, kind: str, mode: str, positions, freqs,
         q = apply_rope(q, pos, freqs)
         k = apply_rope(k, pos, freqs)
         # the flash kernel on a CUDA tensor (no switch sends it elsewhere),
-        # its plain version, the reference's causal-mask einsum, on the CPU
-        out = ops.flash_attention(q, k, v, causal=True, window=window,
+        # its plain version, the reference's masked einsum, on the CPU
+        out = ops.flash_attention(q, k, v, causal=causal, window=window,
                                   scale=scale)
         if mode == "prefill":
             cache = _fill_cache(cfg, kind, k, v, max_seq or S)
@@ -233,3 +244,43 @@ def _decode_mask(sk: int, positions, *, ring: bool):
         return (slots <= pos)[:, None]
     filled = (slots <= pos) | (pos >= sk)
     return filled[:, None]
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (vlm / enc-dec): kv from a source sequence, cached once
+# ---------------------------------------------------------------------------
+
+def cross_attn_specs(cfg):
+    return attn_specs(cfg)
+
+
+def compute_cross_kv(cfg, p, source):
+    """source: (B, S_src, d) -> ``{'ck','cv'}`` (B, S_src, KV, hd), no RoPE."""
+    B, S, d = source.shape
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    k = source @ p["wk"].reshape(d, KV * hd).to(source.dtype)
+    v = source @ p["wv"].reshape(d, KV * hd).to(source.dtype)
+    return {"ck": k.reshape(B, S, KV, hd), "cv": v.reshape(B, S, KV, hd)}
+
+
+def cross_attention(cfg, p, x, cross_kv, *, decode: bool = False):
+    """x (B, Sq, d) attends to every cached source position: the flash
+    kernel with ``causal=False`` on a CUDA tensor (its plain version on the
+    CPU) for a full sequence, the plain GQA einsum for a decode step's one
+    query (``decode``), as the port's dense decode path computes it."""
+    B, Sq, d = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim
+    scale = hd ** -0.5
+    q = (x @ p["wq"].reshape(d, H * hd).to(x.dtype)).reshape(B, Sq, H, hd)
+    # one dtype for the kernel, as jnp promotes (fp32 queries of a pass
+    # over dequantized pages read bf16 cross KV exactly in fp32)
+    dt = torch.promote_types(q.dtype, cross_kv["ck"].dtype)
+    q = q.to(dt)
+    ck, cv = cross_kv["ck"].to(dt), cross_kv["cv"].to(dt)
+    if decode:
+        mask = torch.ones((1, Sq, ck.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        out = gqa_attention(q, ck, cv, mask, scale)
+    else:
+        out = ops.flash_attention(q, ck, cv, causal=False, scale=scale)
+    return out.reshape(B, Sq, H * hd) @ p["wo"].reshape(H * hd, d).to(dt)

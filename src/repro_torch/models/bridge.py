@@ -5,10 +5,13 @@
 the scanned ``blocks/p{i}`` leaves are unstacked along their leading layer
 dim, and every weight keeps its reference layout (an attention block's
 ``attn``/``ffn`` leaves, a MoE block's ``ffn.router``, ``ffn.we_*`` over
-the padded experts and ``ffn.shared_*``, and an RWKV block's ``tm``/``cm``
-leaves alike).
-``cache_to_numpy`` goes the other way for caches (K/V rows, page pools, or
-an RWKV layer's ``tm_prev``/``wkv``/``cm_prev``), so a test can compare the
+the padded experts and ``ffn.shared_*``, a cross block's ``lnx`` and
+``xattn`` leaves, and an RWKV block's ``tm``/``cm`` leaves alike); the
+encoder's stacked ``encoder/blocks`` leaves become ``encoder.blocks.{i}.*``
+beside ``encoder.final_ln``.
+``cache_to_numpy`` goes the other way for caches (K/V rows, page pools, a
+cross layer's ``ck``/``cv``, or an RWKV layer's
+``tm_prev``/``wkv``/``cm_prev``), so a test can compare the
 port's per-layer caches with the reference's stacked cache pytree leaf by
 leaf.
 """
@@ -48,6 +51,12 @@ def params_from_numpy(cfg, tree, device="cpu") -> dict:
         for name, leaf in _block_leaves(tree[group][key]):
             out[f"layers.{i}.{name}"] = _tensor(
                 leaf if index is None else leaf[index], device)
+    if cfg.encoder_layers:
+        enc = tree["encoder"]
+        for name, leaf in _block_leaves(enc["blocks"]):
+            for i in range(cfg.encoder_layers):
+                out[f"encoder.blocks.{i}.{name}"] = _tensor(leaf[i], device)
+        out["encoder.final_ln"] = _tensor(enc["final_ln"], device)
     if cfg.reward_head:
         out["reward_head.w"] = _tensor(tree["reward_head"]["w"], device)
         out["reward_head.b"] = _tensor(tree["reward_head"]["b"], device)
@@ -58,7 +67,7 @@ def cache_to_numpy(cfg, cache) -> dict:
     """The port's per-layer cache list -> the reference's cache pytree
     layout (``{"blocks": {"p{i}": stacked leaves}, "rem": {...}}``) as
     float32 numpy arrays.  Any per-layer leaves convert: dense decode rows,
-    page pools with their scales, RWKV state, and the caches
+    page pools with their scales, cross KV, RWKV state, and the caches
     ``Model.prefill`` returns (padded to capacity, or ring buffers for
     window layers)."""
     groups: dict = {"blocks": {}, "rem": {}}

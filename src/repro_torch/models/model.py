@@ -1,18 +1,25 @@
 """The decoder model as an ``nn.Module``: full-sequence passes and decode
 steps over dense or paged KV.
 
-A port of ``repro.models.model.Model`` for the attention stacks, with a
-dense or a mixture-of-experts FFN, and the RWKV-6 (``ssm``) stacks:
+A port of ``repro.models.model.Model`` for every family: attention stacks
+with a dense or a mixture-of-experts FFN, hybrid RG-LRU stacks, RWKV-6
+(``ssm``) stacks, and stacks with cross-attention layers to a source
+(``vlm``: patch embeddings; ``audio``: an encoder's output over frame
+embeddings):
 
-* ``forward(tokens)`` — (B,S) tokens -> (logits (B,S,V), aux), ``aux``
-  the layers' summed MoE load-balance loss (0.0 without experts);
-* ``hidden(tokens)`` — final hidden states (B,S,d);
-* ``prefill(tokens, max_seq=0)`` — last-token logits (B,V) and per-layer
-  dense caches (an RWKV layer's state dict) that ``decode_step`` continues
+* ``encode(frames)`` — the bidirectional encoder stack over (B, S_enc, d)
+  frame embeddings, then its final norm (configs with ``encoder_layers``);
+* ``forward(tokens, source=None)`` — (B,S) tokens -> (logits (B,S,V),
+  aux), ``aux`` the layers' summed MoE load-balance loss (0.0 without
+  experts);
+* ``hidden(tokens, source=None)`` — final hidden states (B,S,d);
+* ``prefill(tokens, source=None, max_seq=0)`` — last-token logits (B,V)
+  and per-layer dense caches (an RWKV layer's state dict; a cross layer's
+  ``ck``/``cv`` beside its ``k``/``v``) that ``decode_step`` continues
   from;
-* ``score(tokens)`` — log pi(tokens[t] | tokens[<t]) for t >= 1, (B,S-1),
-  through the fused vocabulary gather;
-* ``reward(tokens)`` — the PRM head at every position, (B,S);
+* ``score(tokens, source=None)`` — log pi(tokens[t] | tokens[<t]) for
+  t >= 1, (B,S-1), through the fused vocabulary gather;
+* ``reward(tokens, source=None)`` — the PRM head at every position, (B,S);
 * ``decode_step(cache, tokens, positions, pt=None, live=None)`` — one
   token per row; the cache (a list with one dict per layer) is updated in
   place, and ``live`` (B,) freezes the recurrent state of rows where it is
@@ -21,21 +28,29 @@ dense or a mixture-of-experts FFN, and the RWKV-6 (``ssm``) stacks:
   page pools;
 * ``reward_from_hidden(h)`` — the PRM head.
 
+A ``source`` (B, S_src, d), where the config has an encoder, runs through
+``encode`` first (which casts it to the activation dtype); else it keeps
+its dtype, as in the reference, so an fp32 source over a bf16 model gives
+fp32 cross KV and the cross step promotes.  Every cross layer projects it
+to its cross KV.  A stack without a cross layer ignores a
+source, as the reference does.
+
 Every attention layer of the full-sequence passes goes through the flash
-kernel on a CUDA tensor, and every RWKV layer of every pass (decode steps
-included) through the WKV6 scan kernel.  A model built with
+kernel on a CUDA tensor (an encoder layer and the cross step of a cross
+layer with ``causal=False``), and every RWKV layer of every pass (decode
+steps included) through the WKV6 scan kernel.  A model built with
 ``trainable=True`` holds parameters that require a gradient, and its
 ``forward``, ``hidden`` and ``reward`` then build an autograd graph when
 grad mode is on (flash attention through its backward kernel on the card;
 the scan has no backward kernel yet, so an RWKV model trains on the CPU
 only).  The serving entry points (``prefill``, ``score``, ``decode_step``,
-``reward_from_hidden``) always run under ``torch.no_grad()``.  Encoder
-``source`` inputs raise (no cross-attention family is ported).
+``reward_from_hidden``) always run under ``torch.no_grad()``.
 
 Parameters keep the reference's per-weight layouts (``wq (d,H,hd)``,
-``wo (H,hd,d)``, ...) under flat names such as ``layers.3.attn.wq`` or
-``layers.3.tm.wr``; layer ``L`` is the ``L``-th layer the reference applies
-(see :func:`layer_slots`).
+``wo (H,hd,d)``, ...) under flat names such as ``layers.3.attn.wq``,
+``layers.3.xattn.wq`` or ``layers.3.tm.wr``; layer ``L`` is the ``L``-th
+layer the reference applies (see :func:`layer_slots`).  The encoder's are
+``encoder.blocks.{i}.*`` and ``encoder.final_ln``.
 """
 from __future__ import annotations
 
@@ -45,7 +60,7 @@ from torch import nn
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import blocks
-from repro_torch.models.common import (embed_specs, embed_tokens,
+from repro_torch.models.common import (adtype, embed_specs, embed_tokens,
                                        init_params, norm_spec, rms_norm,
                                        rope_freqs, spec, unembed)
 
@@ -83,6 +98,11 @@ def param_specs(cfg: ModelConfig) -> dict:
     for i, (kind, *_) in enumerate(layer_slots(cfg)):
         for k, s in blocks.block_specs(cfg, kind).items():
             out[f"layers.{i}.{k}"] = s
+    for i in range(cfg.encoder_layers):
+        for k, s in blocks.block_specs(cfg, "enc").items():
+            out[f"encoder.blocks.{i}.{k}"] = s
+    if cfg.encoder_layers:
+        out["encoder.final_ln"] = norm_spec(cfg.d_model)
     if cfg.reward_head:
         out["reward_head.w"] = spec((cfg.d_model, 1), ("embed", None))
         out["reward_head.b"] = spec((1,), (None,), "zeros")
@@ -156,6 +176,16 @@ class Model(nn.Module):
             self.layers.append(Block(kind, {
                 k[len(pre):]: v for k, v in tensors.items()
                 if k.startswith(pre)}, trainable))
+        if cfg.encoder_layers:
+            self.encoder = nn.Module()
+            self.encoder.blocks = nn.ModuleList()
+            for i in range(cfg.encoder_layers):
+                pre = f"encoder.blocks.{i}."
+                self.encoder.blocks.append(Block("enc", {
+                    k[len(pre):]: v for k, v in tensors.items()
+                    if k.startswith(pre)}, trainable))
+            self.encoder.final_ln = _param(tensors["encoder.final_ln"],
+                                           trainable)
         if cfg.reward_head:
             self.reward_head = nn.ParameterDict(
                 {"w": _param(tensors["reward_head.w"], trainable),
@@ -169,7 +199,8 @@ class Model(nn.Module):
         return self.final_ln.device
 
     def _run_stack(self, x, *, mode, positions, cache=None, max_seq=0,
-                   window_override=0, pt=None, pos32=None, live=None):
+                   window_override=0, pt=None, pos32=None, live=None,
+                   source=None):
         """Every layer in ``mode``, then the final norm; returns the hidden
         states, the per-layer caches the blocks return and the layers'
         summed auxiliary loss (0.0 without experts)."""
@@ -181,18 +212,44 @@ class Model(nn.Module):
                 freqs=self.rope_freqs,
                 cache=None if cache is None else cache[i],
                 window_override=window_override, max_seq=max_seq, pt=pt,
-                pos32=pos32, live=live)
+                pos32=pos32, live=live, source=source)
             caches.append(c)
             aux = aux + a
         return rms_norm(x, self.final_ln, cfg.norm_eps), caches, aux
 
+    def encode(self, frames):
+        """The encoder stack over frame embeddings (B, S_enc, d): every
+        ``enc`` layer in train mode (bidirectional flash attention), then
+        the encoder's final norm -> the source the cross layers read."""
+        cfg = self.cfg
+        x = torch.as_tensor(frames, device=self.device).to(adtype(cfg))
+        positions = torch.arange(x.shape[1], device=x.device)
+        for blk in self.encoder.blocks:
+            x, _, _ = blocks.block_apply(cfg, "enc", blk, x, mode="train",
+                                         positions=positions,
+                                         freqs=self.rope_freqs)
+        return rms_norm(x, self.encoder.final_ln, cfg.norm_eps)
+
+    def _source(self, source):
+        """The source the cross layers read: None for a stack without a
+        cross layer (a given source is ignored), else ``source`` on the
+        model's device, in its own dtype as the reference keeps it (the
+        cross step promotes), or through ``encode`` when the config has an
+        encoder."""
+        if "cross" not in self.kinds:
+            return None
+        if source is None:
+            raise ValueError(f"{self.cfg.name}: its cross layers need a "
+                             f"source (B, S_src, d)")
+        if self.cfg.encoder_layers:
+            return self.encode(source)
+        return torch.as_tensor(source, device=self.device)
+
     def _full_sequence(self, tokens, source, **kw):
-        if source is not None:
-            raise NotImplementedError(
-                "encoder / cross-attention sources are not ported yet")
+        source = self._source(source)
         x = embed_tokens(self.cfg, self.embed, tokens)
         positions = torch.arange(tokens.shape[1], device=x.device)
-        return self._run_stack(x, positions=positions, **kw)
+        return self._run_stack(x, positions=positions, source=source, **kw)
 
     def forward(self, tokens, *, source=None):
         """Training-shaped forward: (B,S) tokens -> (logits (B,S,V), aux),
@@ -209,7 +266,8 @@ class Model(nn.Module):
     def prefill(self, tokens, *, source=None, max_seq: int = 0):
         """(B,S) tokens -> (last-token logits (B,V), cache): one dense
         ``{'k','v'}`` cache per attention layer with ``max_seq`` (default S)
-        rows, or a ring buffer for a sliding-window layer, and the state
+        rows, or a ring buffer for a sliding-window layer, plus the cross
+        KV ``ck``/``cv`` (B, S_src, KV, hd) of a cross layer, and the state
         dict of each RWKV layer, which ``decode_step`` continues from at
         position S."""
         cfg = self.cfg
@@ -243,7 +301,8 @@ class Model(nn.Module):
         """One serving step: tokens (B,1), positions (B,) -> logits (B,V).
 
         Writes each attention layer's K/V for ``positions`` and each RWKV
-        layer's new state into ``cache`` in place; ``live`` (B,) bool keeps
+        layer's new state into ``cache`` in place (a cross layer reads its
+        ``ck``/``cv`` from there and writes none); ``live`` (B,) bool keeps
         the old RWKV state of rows where it is False (finished requests,
         slots passing through an admission), as the reference's freeze.
         ``pt`` (B, nblk1) int32 routes every attention layer through the

@@ -16,14 +16,17 @@ its block over the L + 1 feeds, as the reference does (one WKV6 scan
 launch with T = L + 1 on the card); an RG-LRU (``recurrent``) layer does
 the same through its scan.  A config with experts runs the MoE
 FFN over all ``B * n * (L + 1)`` feeds of a layer in one call, as the
-reference does, so the experts' capacity is shared by every candidate.
-Cross and encoder kinds raise, as the port's blocks do.
+reference does, so the experts' capacity is shared by every candidate.  A
+``cross`` layer scores its self-attention as a ``full`` one, then its
+cross step attends to the slot's cached ``ck``/``cv`` repeated n ways
+(through the flash kernel with ``causal=False`` on a CUDA tensor).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models import attention as attn
 from repro_torch.models import lru, moe, rwkv
 from repro_torch.models.blocks import check_kind
 from repro_torch.models.common import (apply_rope, embed_tokens, ffn_apply,
@@ -112,8 +115,13 @@ def score_block(cfg, kind: str, p, x, *, cache, pos, n: int, freqs,
         x = x + lru.recurrent_block(cfg, p["rec"], h, state)[0]
     else:
         x = x + score_attention(cfg, p["attn"], h, cache=cache, pos=pos,
-                                n=n, kind=kind, freqs=freqs,
+                                n=n, kind="full" if kind == "cross"
+                                else kind, freqs=freqs,
                                 window_override=window_override)
+    if kind == "cross":
+        h = rms_norm(x, p["lnx"], cfg.norm_eps)
+        ckv = {k: cache[k].repeat_interleave(n, dim=0) for k in ("ck", "cv")}
+        x = x + attn.cross_attention(cfg, p["xattn"], h, ckv)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.num_experts:
         return x + moe.moe_ffn(cfg, p["ffn"], h)[0]

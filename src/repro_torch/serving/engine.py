@@ -5,8 +5,11 @@ layer: dense rows ``{"k","v"}`` shaped ``(B, S, KV, hd)`` or page pools
 ``{"kp","vp"}`` shaped ``(P, ps, KV, hd)`` addressed through a block table
 (plus ``{"ks","vs"}`` ``(P, KV)`` per-page scales for int8/fp8 pools, which
 travel with their pages); an RWKV layer keeps dense per-slot state
-``{"tm_prev","wkv","cm_prev"}`` and an RG-LRU layer ``{"h","conv"}`` in
-either layout.
+``{"tm_prev","wkv","cm_prev"}``, an RG-LRU layer ``{"h","conv"}`` and a
+cross layer its cross KV ``{"ck","cv"}`` ``(B, S_src, KV, hd)`` beside its
+self-attention rows or pools, in either layout.  The engine takes no
+source, so its ``ck``/``cv`` stay the zeros ``init_cache`` makes (the
+requests are text-only, as in the reference).
 
 * Dense branching (``repeat_cache``) copies each slot's rows n times, row
   ``b*n+j`` being candidate j of request b.
@@ -73,7 +76,8 @@ def branch_cache(cache, n: int, pt, pos, scratch_ids, page_size: int):
     Each branch's first scratch page receives the content of the committed
     page holding ``pos`` (so in-page committed rows below ``pos`` stay
     visible while the branch writes land in scratch).  Pools are updated in
-    place and shared; dense leaves repeat as in the dense engine.
+    place and shared; dense leaves (recurrent state, cross KV) repeat as in
+    the dense engine.
     """
     B = scratch_ids.shape[0]
     blk = (pos // page_size)[:, None]
@@ -99,7 +103,8 @@ def paged_view(cache, pt):
     dequantized on the way out, every row of logical block j carrying block
     j's page scale, so they come out float32; other pools keep their dtype.
     Dense leaves (an RWKV or RG-LRU layer's state) pass through as they
-    are.  Read by the shared-prefix scoring pass; decode never builds it."""
+    are, as do a cross layer's ``ck``/``cv``.  Read by the shared-prefix
+    scoring pass; decode never builds it."""
     B, nblk = pt.shape
     ptc = pt.long()
 

@@ -384,7 +384,7 @@ class GSIServingEngine:
         """Sharing is exact iff every layer of all three models keeps its
         serving state in the paged (position-addressed) KV pools: an RWKV
         or RG-LRU layer's state summarises the whole prefix and cannot be
-        spliced."""
+        spliced, and a cross layer keeps dense per-slot cross KV."""
         return all(k in ("full", "local")
                    for m in (self.draft, self.target, self.prm)
                    for k in m.kinds)

@@ -8,7 +8,11 @@ kernel in every attention layer on the card), ``torch.autograd.grad``
 gives the gradients, and :class:`~repro_torch.optim.AdamW` writes the new
 parameters into the model's own tensors.  A model with experts adds
 ``router_aux_weight`` times its layers' summed load-balance loss to the LM
-loss, as the reference does.
+loss, as the reference does.  A model with cross layers trains on batches
+that carry a ``source`` (patch or frame embeddings, (B, S_src, d)),
+through ``make_train_step(..., with_source=True)``: the encoder and every
+cross layer's non-causal attention go through flash attention's forward
+and backward kernels on the card too.
 """
 from __future__ import annotations
 
@@ -71,11 +75,16 @@ def _make_step(model: Model, tcfg: TrainConfig, loss_fn) -> Callable:
     return train_step
 
 
-def make_train_step(model: Model, tcfg: TrainConfig) -> Callable:
+def make_train_step(model: Model, tcfg: TrainConfig,
+                    with_source: bool = False) -> Callable:
     """``(params, opt_state, batch) -> (params, opt_state, metrics)`` for
     the LM loss; ``params`` is ``dict(model.named_parameters())``, updated
     in place (the reference's step takes the config and returns new
-    arrays)."""
+    arrays).  ``with_source`` passes ``batch["source"]`` to the model."""
+    if with_source:
+        def loss(model, batch):
+            return lm_loss(model, batch, source=batch["source"])
+        return _make_step(model, tcfg, loss)
     return _make_step(model, tcfg, lm_loss)
 
 
@@ -90,7 +99,8 @@ class Trainer:
 
     Starts from ``params`` (a flat dict, copied onto ``device``) when given,
     else from ``random_params(cfg, tcfg.seed, device)``.  Batches are dicts
-    of numpy arrays (or tensors) moved to the device each step.
+    of numpy arrays (or tensors) moved to the device each step.  A model
+    with cross layers trains the LM loss on each batch's ``source``.
     """
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, *, prm=False,
@@ -107,13 +117,15 @@ class Trainer:
         self.params = dict(self.model.named_parameters())
         self.opt = AdamW(tcfg)
         self.opt_state = self.opt.init(self.params)
-        step = make_prm_train_step if prm else make_train_step
-        self._step = step(self.model, tcfg)
+        self._step = make_prm_train_step(self.model, tcfg) if prm \
+            else make_train_step(self.model, tcfg,
+                                 with_source="cross" in self.model.kinds)
         self.history = []
 
     def _batch(self, batch: dict) -> dict:
         """A numpy batch as tensors on the device: token ids as int64,
-        masks and labels as float32."""
+        masks, labels and the source as float32 (the model casts a source
+        to its activation dtype)."""
         out = {}
         for k, v in batch.items():
             t = torch.as_tensor(v)

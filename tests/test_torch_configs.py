@@ -27,10 +27,11 @@ from repro_torch.models.bridge import params_from_numpy
 
 torch.set_num_threads(1)
 RTOL = 1e-5
-PORTED = ("deepseek-7b", "gemma3-1b", "kimi-k2-1t-a32b", "phi3-medium-14b",
-          "qwen2-moe-a2.7b", "qwen2.5-math-1.5b", "qwen2.5-math-7b",
-          "qwen2.5-math-prm-7b", "qwen3-1.7b", "qwen3-14b",
-          "recurrentgemma-9b", "rwkv6-3b", "smollm-135m")
+PORTED = ("deepseek-7b", "gemma3-1b", "kimi-k2-1t-a32b",
+          "llama-3.2-vision-11b", "phi3-medium-14b", "qwen2-moe-a2.7b",
+          "qwen2.5-math-1.5b", "qwen2.5-math-7b", "qwen2.5-math-prm-7b",
+          "qwen3-1.7b", "qwen3-14b", "recurrentgemma-9b", "rwkv6-3b",
+          "seamless-m4t-medium", "smollm-135m")
 
 
 def test_registry_and_tuples_match_reference():
@@ -88,7 +89,11 @@ def test_serve_triples(triple, names):
 @pytest.mark.parametrize("triple,name", [("rwkv6-3b", "rwkv6-3b"),
                                          ("gemma3", "gemma3-1b"),
                                          ("recurrentgemma",
-                                          "recurrentgemma-9b")])
+                                          "recurrentgemma-9b"),
+                                         ("llama-vision",
+                                          "llama-3.2-vision-11b"),
+                                         ("seamless",
+                                          "seamless-m4t-medium")])
 def test_self_triples(triple, name):
     """One model's shape as draft, target and PRM (the reward head
     added): each family keeps its own vocabulary."""

@@ -13,7 +13,9 @@ and transposed; ragged tokens, depth and vocabulary strips), and
 full-sequence flash attention (fp32 and bf16; GQA groups 1, 2, 6, 7 and
 64; head_dim 16, 40, 64, 128 and 256, bf16 at 64, 128 and 256 through
 the TMA/wgmma kernels; windows shorter and longer than the key tile;
-ragged Sq and Sk, Sk > Sq non-causal), which refuses inputs that require
+ragged Sq and Sk, Sk > Sq non-causal; the cross and encoder families'
+non-causal shapes up to Sk 6404, on N(0, 1) inputs and on a case whose
+softmax the last 4 keys decide), which refuses inputs that require
 a gradient when called directly, and its backward kernel (fp32 and bf16;
 the same groups, head dims up to 128, windows and ragged shapes; head_dim
 256 refused; bitwise deterministic;
@@ -30,7 +32,9 @@ launches the flash kernel once per layer and the gather once; a toy RWKV
 model's ``score`` and ``decode_step`` launch the scan once per layer.
 
 These tests need an NVIDIA GPU and nvcc: a CUDA kernel has no CPU mode, so
-elsewhere they skip.  The file imports neither JAX nor ``repro``, so it runs
+elsewhere they skip.  Two cases run on the CPU too: they show that the
+cross shapes' tail case fails a kernel that drops the 4 keys past the
+last full tile or lets a tile's padding into the softmax.  The file imports neither JAX nor ``repro``, so it runs
 on a machine that has only the port (``--noconftest``: the shared
 ``conftest.py`` imports JAX; the ``cuda`` marker is registered in
 ``pyproject.toml``):
@@ -596,6 +600,105 @@ def test_flash_backward_kernel_matches_plain(cuda_device, dtype, tol, causal,
         assert torch.equal(g, a)
         scale = max(w.float().abs().max().item(), 1.0)
         assert (g.float() - w.float()).abs().max().item() <= tol * scale
+
+
+# the cross-attention and encoder families' non-causal shapes: (B, Sq, Sk,
+# H, KV, hd) of llama-3.2-vision-11b's cross layers (Sk 6404: 100 full
+# 64-key tiles and a tail of 4), seamless-m4t-medium's encoder and its
+# cross layers
+CROSS_SHAPES = {"llama-cross": (4, 512, 6404, 32, 8, 128),
+                "seamless-enc": (4, 1024, 1024, 16, 16, 64),
+                "seamless-cross": (4, 512, 1024, 16, 16, 64)}
+# their limit, elementwise: four bf16 ulps of the value at most (each side
+# rounds its own fp32 result to bf16, and the plain forward rounds P first)
+# plus a floor for values near zero: a share of the forward's standard
+# deviation, or of the largest gradient (the backward rounds P and dS,
+# terms of that size, to bf16 before they cancel).  chip_smoke.py's same
+# checks used 0.490-0.655 of it in the forward and 0.178-0.467 in the
+# backward on an H100 80GB HBM3 (700 W), N(0, 1) inputs and the tail case
+# alike
+CROSS_RTOL, CROSS_STD, CROSS_BWD_MAX = 2 ** -5, 2e-2, 5e-3
+
+
+def cross_tail_case(seed, *, B, Sq, Sk, H, KV, hd, device, tail=4):
+    """``flash_case`` in bf16 with every query's softmax decided by the
+    last ``tail`` keys: q's first lane 8 and each key's first lane set so
+    that the tail scores about 1, every other key about 10, below a key of
+    zeros (a tile's zero-filled padding).  Dropping the tail, or letting
+    the padding into the softmax, moves the output by about its size."""
+    q, k, v = flash_case(seed, B=B, Sq=Sq, Sk=Sk, H=H, KV=KV, hd=hd,
+                         dtype=torch.bfloat16, device=device)
+    lane = hd ** 0.5 / 8.0              # score = 8 * lane * k0 / sqrt(hd)
+    q[..., 0] = 8.0
+    k[:, :Sk - tail, :, 0] = -10.0 * lane
+    k[:, Sk - tail:, :, 0] = -1.0 * lane
+    return q, k, v
+
+
+def cross_limit_used(got, want, *, bwd=False):
+    """The largest share of the cross checks' limit that ``got`` uses
+    (above 1 fails): ``CROSS_RTOL`` of each value plus ``CROSS_STD`` of
+    ``want``'s standard deviation, or for gradients (``bwd``)
+    ``CROSS_BWD_MAX`` of their largest."""
+    g, w = got.float(), want.float()
+    floor = CROSS_BWD_MAX * w.abs().max() if bwd else CROSS_STD * w.std()
+    return ((g - w).abs() / (CROSS_RTOL * w.abs() + floor)).max().item()
+
+
+@pytest.mark.parametrize("fault", ["tail dropped", "padding let in"])
+def test_cross_tail_case_fails_a_faulty_tail(fault):
+    """Runs on the CPU: the tail case at llama-vision's Sk 6404 (4 keys
+    past the last full 64-key tile) moves the plain output past the cross
+    checks' limit by far when the 4 tail keys are dropped or when the
+    last tile's 60 zero keys join the softmax, so a kernel with either
+    fault fails ``test_flash_cross_shapes_match_plain`` and the smoke's
+    check."""
+    q, k, v = cross_tail_case(5, B=1, Sq=64, Sk=6404, H=8, KV=2, hd=128,
+                              device="cpu")
+    want = flash_attention_plain(q, k, v, causal=False)
+    if fault == "tail dropped":
+        k2, v2 = k[:, :-4], v[:, :-4]
+    else:
+        pad = torch.zeros((1, 60, 2, 128), dtype=torch.bfloat16)
+        k2, v2 = torch.cat([k, pad], 1), torch.cat([v, pad], 1)
+    assert cross_limit_used(flash_attention_plain(q, k2, v2, causal=False),
+                            want) > 10
+    assert cross_limit_used(flash_attention_plain(q.float(), k.float(),
+                                                  v.float(), causal=False),
+                            want) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["random", "tail"])
+@pytest.mark.parametrize("shape", list(CROSS_SHAPES))
+def test_flash_cross_shapes_match_plain(cuda_device, shape, inputs):
+    """bf16 through the TMA/wgmma kernel with ``causal=False`` at Sq !=
+    Sk, as ``ops.flash_attention`` routes a cross or encoder layer, on
+    N(0, 1) inputs and on the tail case; the backward at the two seamless
+    shapes (its training shapes) against the plain backward; each within
+    the cross checks' limit."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain)
+    B, Sq, Sk, H, KV, hd = CROSS_SHAPES[shape]
+    make = flash_case if inputs == "random" else cross_tail_case
+    kw = dict(dtype=torch.bfloat16) if inputs == "random" else {}
+    q, k, v = make(Sq + Sk + hd, B=B, Sq=Sq, Sk=Sk, H=H, KV=KV, hd=hd,
+                   device=cuda_device, **kw)
+    before = flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, causal=False)
+    want = flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert cross_limit_used(got, want) <= 1
+    if shape == "llama-cross":
+        return
+    out, lse = flash_attention_cuda(q, k, v, causal=False, return_lse=True)
+    dout = torch.randn(q.shape, device=cuda_device).to(torch.bfloat16)
+    grads = flash_attention_bwd_cuda(q, k, v, out, dout, causal=False,
+                                     lse=lse)
+    for g, w in zip(grads, flash_attention_bwd_plain(q, k, v, out, dout,
+                                                     causal=False)):
+        assert cross_limit_used(g, w, bwd=True) <= 1
 
 
 @pytest.mark.cuda

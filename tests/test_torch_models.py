@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro.config import ModelConfig
+from repro.models import blocks as jblocks
 from repro.models import build_model
 from repro_torch.config import ModelConfig as TModelConfig
 from repro_torch.models import Model, param_specs, random_params
@@ -162,14 +163,23 @@ def test_random_params_are_seeded_and_shaped(tiny_triple):
 
 
 def test_unported_kinds_and_modes_raise(stack):
-    _, _, tcfg, model = stack
+    cfg, _, tcfg, model = stack
+    # the cross kind is ported: the reference's names and shapes (its
+    # values in tests/test_torch_cross.py)
+    want = {".".join(p.key for p in path): tuple(s.shape)
+            for path, s in jax.tree_util.tree_flatten_with_path(
+                jblocks.block_specs(cfg, "cross"),
+                is_leaf=lambda x: hasattr(x, "axes"))[0]}
+    assert {k: s.shape for k, s in block_specs(tcfg, "cross").items()} \
+        == want
     with pytest.raises(NotImplementedError):
-        block_specs(tcfg, "cross")
+        block_specs(tcfg, "mamba")
     x = torch.zeros(1, 4, tcfg.d_model)
-    # train/prefill are ported (tests/test_torch_forward.py); encoder
-    # sources are not, and a mode the reference lacks is refused
-    with pytest.raises(NotImplementedError):
-        model.prefill(torch.ones(1, 4, dtype=torch.long), source=x)
+    # a source on a stack with no cross layer is ignored, as in the
+    # reference; a mode the reference lacks is refused
+    toks = torch.ones(1, 4, dtype=torch.long)
+    torch.testing.assert_close(model.prefill(toks, source=x)[0],
+                               model.prefill(toks)[0], rtol=0, atol=0)
     with pytest.raises(ValueError):
         self_attention(tcfg, model.layers[0]["attn"], x, kind="full",
                        mode="extend", positions=torch.arange(4),
