@@ -39,7 +39,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    model's clamp ends and mixed, B = H = 1 at T = 4096 (32 segments), the
    in-place decode form with half the rows frozen (their state compared
    bitwise), two calls bitwise equal, a capture into a CUDA graph and two
-   streams at once; timed with the wrapper's host time per call), then
+   streams at once; timed with the wrapper's host time per call), the
+   WKV6 backward (rwkv6-3b's training shape B 4, T 512, H 40, hd 64 with
+   bf16 r/k/v, a ragged T 509 at decays at both clamp ends and mixed,
+   B = H = 1 at T 4096 with decays near 1, a toy hd 32 in fp32; each with
+   a non-zero state and final-state cotangent, at ``SCAN_BWD_TOL``, twice
+   bitwise; timed at the training shape beside its bound and the plain
+   version; no PyTorch call computes it), then
    the Gemma shapes at head_dim 256 (gemma3's 4 query heads over 1 kv
    head, recurrentgemma's 16 over 1): flash attention in bf16 (the
    256-wide TMA/wgmma kernel, its log-sum-exp asked for gives the same
@@ -47,7 +53,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    sequence it binds; paged and int8 paged attention under bf16 and fp32
    queries; the gather at both vocabularies (262,144 and 256,000, tied
    bf16 embeddings, bf16 and fp32 h) held to float64 log-probs; each
-   timed, beside SDPA at head_dim 256 for flash; then flash attention
+   timed, beside SDPA at head_dim 256 for flash; flash attention's
+   backward at head_dim 256 (gemma3's heads at B 2, S 1024, causal and
+   with window 512; recurrentgemma's at B 1, S 4096 with window 2048 and
+   at B 2, S 1024; a window of 8 over a ragged S 300; fp32 at S 200 for
+   both), its route printed, twice bitwise, the bf16 training shapes
+   timed beside SDPA's backward; then flash attention
    with ``causal=False`` at the cross-attention families' shapes
    (llama-3.2-vision-11b's cross layers, Sq 512 over Sk 6,404 keys, H
    32/8, hd 128; seamless-m4t-medium's encoder, S 1,024, H 16/16, hd 64,
@@ -56,7 +67,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    padding let in fails it), elementwise within 2^-5 of each value plus
    2e-2 of the output's deviation, its log-sum-exp asked for giving the
    same bits, timed beside SDPA (``is_causal=False``), and its backward at
-   the two seamless shapes on both inputs (within 2^-5 of each value plus
+   all three shapes on both inputs (within 2^-5 of each value plus
    5e-3 of the largest gradient), twice bitwise, timed beside SDPA's
    backward.  Each
    kernel's time
@@ -161,7 +172,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    (printing the counted bf16 run's own gap as a control, then in fp32
    activations over the same weights).
    Then, once those weights are freed, the Gemma families at full width,
-   ``GEMMA_LAYERS`` deep (13 of gemma3's 26, 19 of recurrentgemma's 38;
+   ``GEMMA_LAYERS`` deep (7 of gemma3's 26, 10 of recurrentgemma's 38;
    a ``reduced:`` line), each one model's shape as draft, target and PRM
    (seeded random bf16 weights, every RG-LRU ``lam`` overwritten so the state
    carries; 4 requests on 4 slots, at most 2 steps of 16 tokens, each run
@@ -176,7 +187,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    each, the gather twice) and holds them against the decode path in fp32
    activations (the bf16 gap printed and required above the tolerance as
    a control, as score-rwkv does); then, once those weights are freed,
-   the recurrentgemma-9b triple (about 29.2 GiB at 19 layers, the memory
+   the recurrentgemma-9b triple (about 17 GiB at 10 layers, the memory
    printed before and after): run gsi-rgemma (paged local layers beside
    dense RG-LRU state, prefix sharing off, checked; paged launches = its 6
    attention layers x paged decode_step calls) and run score-rgemma (flash
@@ -244,7 +255,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    within tolerance; (t4) the serving CLI's ``--train-steps`` path:
    ``train_triple`` on the card, then GSI serving of synthetic problems,
    with falling losses, accuracy and an accept rate strictly between 0
-   and 1 (run t5 runs in phase 4, with the cross-attention weights).
+   and 1 (run t5 runs in phase 4, with the cross-attention weights);
+   then t3-rwkv and t3-gemma3, a reduced rwkv6-3b at hd 64 (decays
+   overwritten) and a reduced gemma3-1b at hd 256 trained for 3 fp32
+   steps on the card and on the CPU, held as t3; and runs t6-t10, 3 steps
+   each at full width through the scan's and flash's forward and backward
+   kernels (launches = their layers x steps, nothing else): rwkv6-3b at
+   full depth (decays overwritten), gemma3-1b at full depth,
+   recurrentgemma-9b at 12 layers (``lam`` overwritten), qwen2-moe-a2.7b
+   at 4 and llama-3.2-vision-11b at 10 with a seeded source of 6,404
+   patches (each cut said on a ``reduced:`` line).
 
 The line before the last is ``{"kernels": [...]}``: every ported kernel
 with its largest error in phase 3, its timings and its launch count from the
@@ -340,8 +360,10 @@ QWEN_INT8_THRESHOLD = -9.5
 # depth of runs gsi, gsi-async and gsi-forced-fallback (widths never cut;
 # `--layers` overrides it): at the published 28 they took 149 s of a
 # 1173.8 s chip run (H100 80GB HBM3, 700 W), and the Gemma phase
-# had pushed the script near its 1200 s limit
-QWEN_LAYERS = 14
+# had pushed the script near its 1200 s limit; at 14 they took 99.4 s of
+# a 1071.3 s run on a slower machine once the other families' training
+# was added (same card and limit), so 7
+QWEN_LAYERS = 7
 # the SLO runs of phase 4 (gsi-slo, gsi-slo-async, gsi-slo-oneshot): the
 # chunked runs' per-step prefill budget; the deadlines of the priority-1
 # requests (r2's cannot be met, r4's is); the seed of the five prompts; r0's
@@ -409,6 +431,12 @@ MOE_TOL = 3e-2
 # P), and both round dq, dk, dv to bf16 (half an ulp, 2^-9): 2e-2 of the
 # gradient's scale (0.5% seen at S = 512)
 BWD_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}
+# the WKV6 backward kernel against its plain version: dw, du and the
+# initial state's gradient are fp32 on both sides, from the same inputs in
+# other summation orders (1e-4 of each one's scale, as the forward's
+# check); dr, dk and dv come back in r's dtype, and bf16 rounds them (half
+# an ulp, 2^-9 of the value): 4e-3 of their scale
+SCAN_BWD_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 4e-3}
 
 
 T0 = time.perf_counter()
@@ -1219,48 +1247,59 @@ def flash_bwd_case(torch, *, B, S, H, KV, hd, dtype, window, seed,
                                            causal=causal), dout), {}
 
 
-def time_flash_bwd(torch, tag, S, H, KV, hd=128, causal=True, Sk=None):
+def time_flash_bwd(torch, tag, S, H, KV, hd=128, causal=True, Sk=None,
+                   B=4, window=0):
     """Device ms per call of the backward kernel, its plain version and
-    SDPA's backward at (B 4, S queries, Sk keys (default S), H, KV, hd,
-    bf16, ``causal``), and the bound; two input sets cycled (about 50 MB
-    each at the target's heads)."""
+    SDPA's backward at (B, S queries, Sk keys (default S), H, KV, hd,
+    bf16, ``causal``, ``window``), and the bound; two input sets cycled
+    (about 50 MB each at the target's heads).  SDPA takes a window as a
+    boolean mask; its time is None where no backend takes the shape."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_cuda, flash_attention_bwd_plain)
-    cases = [flash_bwd_case(torch, B=4, S=S, H=H, KV=KV, hd=hd,
-                            dtype=torch.bfloat16, window=0, seed=400 + i,
-                            causal=causal, Sk=Sk)
+        _live, flash_attention_bwd_cuda, flash_attention_bwd_plain)
+    cases = [flash_bwd_case(torch, B=B, S=S, H=H, KV=KV, hd=hd,
+                            dtype=torch.bfloat16, window=window,
+                            seed=400 + i, causal=causal, Sk=Sk)
              for i in range(2)]
     sets = [(*args, i) for i, (args, _) in enumerate(cases)]
+    kw = {"causal": causal, "window": window}
     ms, ms_host = time_ms(torch, lambda q, k, v, o, d, i:
-                          flash_attention_bwd_cuda(q, k, v, o, d,
-                                                   causal=causal,
+                          flash_attention_bwd_cuda(q, k, v, o, d, **kw,
                                                    **cases[i][1]),
-                          sets, iters=10)
+                          sets, iters=10 if hd < 256 else 4)
     plain_ms, _ = time_ms(torch, lambda *a: flash_attention_bwd_plain(
-        *a, causal=causal), [args for args, _ in cases], iters=2)
-    lib_sets = []
-    for (q, k, v, _, dout), _ in cases:
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                      for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                             enable_gqa=True)
-        lib_sets.append((out, qt, kt, vt, dout.transpose(1, 2).contiguous()))
-    library_ms, library_host = time_ms(
-        torch, lambda o, a, b, c, d: torch.autograd.grad(
-            o, (a, b, c), d, retain_graph=True), lib_sets, iters=10)
-    bound_ms, bound_by = bound_flash_bwd(cases[0][0][0], cases[0][0][1], 0,
-                                         causal)
+        *a, **kw), [args for args, _ in cases], iters=2 if hd < 256 else 1)
     Sk = S if Sk is None else Sk
-    print(f"flash_attention_bwd timing, {tag} (B=4 S={S} Sk={Sk} H={H} "
-          f"KV={KV} hd={hd} bf16 causal={causal}), device-only ms per "
-          f"call: kernel {ms:.4f}, "
+    mask = _live(S, Sk, causal, window, "cuda") if window else None
+    what = "a boolean window mask" if window else f"is_causal={causal}"
+    try:
+        lib_sets = []
+        for (q, k, v, _, dout), _ in cases:
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                          for t in (q, k, v))
+            out = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=causal and not window,
+                enable_gqa=True)
+            lib_sets.append((out, qt, kt, vt,
+                             dout.transpose(1, 2).contiguous()))
+        library_ms, library_host = time_ms(
+            torch, lambda o, a, b, c, d: torch.autograd.grad(
+                o, (a, b, c), d, retain_graph=True), lib_sets,
+            iters=10 if hd < 256 else 4)
+        library, library_host = f"{library_ms:.4f}", f"{library_host:.4f}"
+    except RuntimeError as e:        # no SDPA backend takes the shape
+        library_ms, library_host = None, "none"
+        library = f"none ({str(e).splitlines()[0]})"
+    bound_ms, bound_by = bound_flash_bwd(cases[0][0][0], cases[0][0][1],
+                                         window, causal)
+    print(f"flash_attention_bwd timing, {tag} (B={B} S={S} Sk={Sk} H={H} "
+          f"KV={KV} hd={hd} bf16 causal={causal} window={window}), "
+          f"device-only ms per call: kernel {ms:.4f}, "
           f"bound {bound_ms:.4f} ({bound_by}), plain {plain_ms:.4f}, "
           f"library (the backward of scaled_dot_product_attention "
-          f"is_causal={causal} enable_gqa, (B,H,S,hd), alone) "
-          f"{library_ms:.4f}; "
+          f"{what} enable_gqa, (B,H,S,hd), alone) {library}; "
           f"back to back from the host: kernel {ms_host:.4f}, library "
-          f"{library_host:.4f}", flush=True)
+          f"{library_host}", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
 
@@ -1539,6 +1578,124 @@ def phase_kernels_rwkv(torch):
     return row
 
 
+def bound_rwkv_bwd(r):
+    """Least time for one backward call: r, k, v, w and dO read and dr,
+    dk, dv, dw written once, u and du, the state, its cotangent and the
+    initial state's gradient moved once, over the HBM rate, against the
+    flops at the fp32 rate.  Per (row, step, head): the state recompute
+    S <- w S + k v^T and the update dS <- r dO^T + w dS take 3 hd^2 each,
+    dr = S dO, dk = dS v, dv = dS^T k and dw = rowsum(dS * S) 2 hd^2 each;
+    the u terms (v . dO, sum_k r u k, the three bonus terms and du) about
+    16 hd: 14 hd^2 + 16 hd in all."""
+    B, T, H, hd = r.shape
+    nbytes = B * T * H * hd * (6 * r.element_size() + 4 * 4) \
+        + 2 * H * hd * 4 + 3 * B * H * hd * hd * 4
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = B * T * H * (14 * hd * hd + 16 * hd) / PEAK_OPS["torch.float32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def wall_ms(torch, fn, args, reps=1):
+    """ms per call of ``fn(*args)`` with CUDA events around ``reps`` calls
+    enqueued back to back after a warm-up: for a plain version whose
+    thousands of small launches keep the host busier than the card."""
+    fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_kernels_rwkv_bwd(torch):
+    """Phase 3 for the WKV6 backward kernel: rwkv6-3b's training shape
+    (B 4, T 512, H 40, hd 64, bf16 r/k/v, spread decays), a ragged T 509
+    with decays at both clamp ends and mixed, B = H = 1 at T 4096 with
+    decays near 1 and a toy hd 32 in fp32, each with a non-zero initial
+    state and a non-zero cotangent on the final state, against
+    ``rwkv6_scan_bwd_plain`` at ``SCAN_BWD_TOL`` and twice bitwise; then
+    timed at the training shape beside its bound and the plain version.
+    Returns its kernel row."""
+    print("== phase 3: rwkv6_scan_bwd vs its plain version", flush=True)
+    from repro_torch.kernels.rwkv6_scan import (BWD_CHUNK,
+                                                rwkv6_scan_bwd_cuda,
+                                                rwkv6_scan_bwd_plain)
+    cases = [("training shape", 4, 512, 40, 64, torch.bfloat16, "spread"),
+             ("ragged, fast decays", 4, 509, 40, 64, torch.bfloat16, "fast"),
+             ("ragged, slow decays", 4, 509, 40, 64, torch.bfloat16, "slow"),
+             ("ragged, mixed decays", 4, 509, 40, 64, torch.bfloat16,
+              "mixed"),
+             ("one head, decays near 1", 1, 4096, 1, 64, torch.bfloat16,
+              "slow"),
+             ("toy", 4, 300, 4, 32, torch.float32, "spread")]
+    names = ("dr", "dk", "dv", "dw", "du", "dstate")
+    max_err = 0.0
+
+    def inputs(B, T, H, hd, dtype, decays, seed):
+        args = rwkv_case(torch, B=B, T=T, H=H, hd=hd, dtype=dtype,
+                         seed=seed, decays=decays)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        dout = torch.randn((B, T, H, hd), generator=gen, device="cuda")
+        dstate = torch.randn((B, H, hd, hd), generator=gen, device="cuda")
+        return (*args, dout, dstate)
+
+    for i, (tag, B, T, H, hd, dtype, decays) in enumerate(cases):
+        args = inputs(B, T, H, hd, dtype, decays, 800 + i)
+        got = rwkv6_scan_bwd_cuda(*args)
+        again = rwkv6_scan_bwd_cuda(*args)
+        want = rwkv6_scan_bwd_plain(*args)
+        torch.cuda.synchronize()
+        errs = []
+        for j, (name, g, w) in enumerate(zip(names, got, want)):
+            check(g.dtype == w.dtype and g.shape == w.shape
+                  and bool(torch.isfinite(g).all()),
+                  f"rwkv6_scan_bwd {tag}: bad {name}")
+            tol = SCAN_BWD_TOL[str(dtype)] if j < 3 else 1e-4
+            err = (g.float() - w.float()).abs().max().item()
+            scale = max(w.float().abs().max().item(), 1.0)
+            check(err <= tol * scale, f"rwkv6_scan_bwd {tag} {name}: error "
+                  f"{err} > {tol} x {scale}")
+            errs.append(f"{name} {err:.3e} (tol {tol:.0e} x {scale:.2f})")
+            max_err = max(max_err, err)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"rwkv6_scan_bwd {tag} B={B} T={T} H={H} hd={hd} "
+              f"{str(dtype)[6:]} {decays} decays, non-zero state and "
+              f"final-state cotangent: max_abs_err {', '.join(errs)}; two "
+              f"calls bitwise equal: {same}", flush=True)
+        check(same, f"rwkv6_scan_bwd {tag}: two calls differ")
+        del args, got, again, want
+    # timing at the training shape, two input sets cycled (83 MB each)
+    B, T, H, hd = 4, 512, 40, 64
+    sets = [inputs(B, T, H, hd, torch.bfloat16, "spread", 820 + i)
+            for i in range(2)]
+    ms, ms_host = time_ms(torch, lambda *a: rwkv6_scan_bwd_cuda(*a), sets,
+                          iters=5)
+    plain_ms = wall_ms(torch, rwkv6_scan_bwd_plain, sets[0])
+    bound_ms, bound_by = bound_rwkv_bwd(sets[0][0])
+    scratch = (-(-T // BWD_CHUNK) - 1) * B * H * hd * hd * 4
+    print(f"rwkv6_scan_bwd timing, training shape B={B} T={T} H={H} hd={hd}"
+          f" bf16, device-only ms per call: kernel {ms:.4f}, bound "
+          f"{bound_ms:.4f} ({bound_by}), plain {plain_ms:.4f} (back to back"
+          f" from the host: about 20 launches a step), library: no single "
+          f"PyTorch call computes the WKV6 backward; back to back from the "
+          f"host: kernel {ms_host:.4f}; checkpoint scratch "
+          f"{scratch / 1e6:.1f} MB", flush=True)
+    del sets
+    return {"name": "rwkv6_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/rwkv6_scan_bwd.cu",
+            "replaces": "src/repro/models/rwkv.py:92 (no Pallas kernel: "
+                        "the reference's training differentiates this "
+                        "plain scan through XLA)",
+            "launches": 0, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 # the Gemma families' attention shapes at head_dim 256: query heads, kv
 # heads and each family's sliding window
 GEMMA_SHAPES = {"gemma3": (4, 1, 512), "rgemma": (16, 1, 2048)}
@@ -1724,23 +1881,90 @@ def phase_kernels_gemma(torch, rows):
         del sets, lib_sets
 
 
+def phase_kernels_gemma_bwd(torch, rows):
+    """Phase 3 for flash attention's backward at head_dim 256 (the Gemma
+    families' training heads), through ``flash_attention_bwd.cu``'s kernels
+    with the output's head dims split over two blocks: gemma3's 4 query
+    heads over 1 at B 2, S 1024, causal and with its window of 512;
+    recurrentgemma's 16 over 1 at B 1, S 4096 with its window of 2048 and
+    at B 2, S 1024 (where 2048 does not bind); a window of 8, shorter
+    than every tile, over a ragged S 300; fp32 at S 200 for both
+    families.  Each against ``flash_attention_bwd_plain`` at ``BWD_TOL``,
+    twice bitwise, its route printed; the four bf16 training shapes timed
+    beside the bound, the plain version and SDPA's backward.  The timings
+    go into the backward's row of ``rows`` under each shape's tag."""
+    print("== phase 3: flash_attention_bwd at head_dim 256 vs its plain "
+          "version", flush=True)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        uses_hopper_bwd_kernel)
+    row = {r["name"]: r for r in rows}["flash_attention_bwd"]
+    bf16 = torch.bfloat16
+    cases = [("gemma3", 2, 1024, 4, 1, bf16, 0, True),
+             ("gemma3-window", 2, 1024, 4, 1, bf16, 512, True),
+             ("rgemma-window", 1, 4096, 16, 1, bf16, 2048, True),
+             ("rgemma", 2, 1024, 16, 1, bf16, 0, True),
+             ("gemma3 window=8", 2, 300, 4, 1, bf16, 8, False),
+             ("gemma3 fp32", 2, 200, 4, 1, torch.float32, 0, False),
+             ("rgemma fp32 window=8", 1, 200, 16, 1, torch.float32, 8,
+              False)]
+    for tag, B, S, H, KV, dtype, window, timed in cases:
+        check(not uses_hopper_bwd_kernel(dtype, 256),
+              f"flash_attention_bwd {tag}: unexpected kernel choice")
+        route = ("mma.sync" if dtype == bf16 else "CUDA cores, 16-query and "
+                 "32-key tiles") + (" (flash_attention_bwd.cu), the output's"
+                                    " 256 head dims split over 2 blocks in "
+                                    "the dK/dV and dQ kernels, the query "
+                                    f"heads over {H // KV} dK/dV blocks")
+        args, kw = flash_bwd_case(torch, B=B, S=S, H=H, KV=KV, hd=256,
+                                  dtype=dtype, window=window,
+                                  seed=900 + S + H + window)
+        got = flash_attention_bwd_cuda(*args, window=window, **kw)
+        again = flash_attention_bwd_cuda(*args, window=window, **kw)
+        want = flash_attention_bwd_plain(*args, window=window)
+        torch.cuda.synchronize()
+        tol = BWD_TOL[str(dtype)]
+        errs = []
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            check(g.dtype == dtype and g.shape == w.shape
+                  and bool(torch.isfinite(g).all()),
+                  f"flash_attention_bwd {tag}: bad {name}")
+            err = (g.float() - w.float()).abs().max().item()
+            scale = max(w.float().abs().max().item(), 1.0)
+            check(err <= tol * scale, f"flash_attention_bwd {tag} {name}: "
+                  f"error {err} > {tol} x {scale}")
+            errs.append(f"{name} {err:.3e} (scale {scale:.2f})")
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"flash_attention_bwd {tag} B={B} S={S} H={H} KV={KV} hd=256 "
+              f"{str(dtype)[6:]} causal window={window}: route {route}; "
+              f"max_abs_err {', '.join(errs)} (tol {tol:.0e} x scale); two "
+              f"calls bitwise equal: {same}", flush=True)
+        check(same, f"flash_attention_bwd {tag}: two calls differ")
+        del args, kw, got, again, want
+        if timed:
+            row.update({f"{tag}_{k}": v for k, v in time_flash_bwd(
+                torch, tag, S, H, KV, hd=256, B=B, window=window).items()})
+
+
 # non-causal flash attention at the cross-attention and encoder families'
 # shapes: tag -> (B, Sq, Sk, H, KV, hd); the backward is checked and timed
-# at the two seamless shapes (run t5 trains them; llama-vision trains on
-# the CPU only).  Their limit, elementwise: CROSS_RTOL of the value (four
-# bf16 ulps at most: each side rounds its own fp32 result to bf16, and the
-# plain forward rounds P first) plus a floor for values near zero,
-# CROSS_STD of the forward's standard deviation or CROSS_BWD_MAX of the
-# largest gradient (the backward rounds P and dS, terms of that size, to
-# bf16 before they cancel).  A run of this script (H100 80GB HBM3, 700 W)
-# used 0.490-0.655 of it in the forward and 0.178-0.467 in the backward,
-# on N(0, 1) inputs and the tail case alike; a dropped tail or padding let
-# in uses more than ten times it on the tail case (held on the CPU by
+# at all three (runs t5 and t10 train them).  Their limit, elementwise:
+# CROSS_RTOL of the value (four bf16 ulps at most: each side rounds its
+# own fp32 result to bf16, and the plain forward rounds P first) plus a
+# floor for values near zero, CROSS_STD of the forward's standard
+# deviation or CROSS_BWD_MAX of the largest gradient (the backward rounds
+# P and dS, terms of that size, to bf16 before they cancel).  A run of
+# this script (H100 80GB HBM3, 700 W) used 0.490-0.655 of it in the
+# forward and 0.178-0.467 in the backward (0.202-0.313 at llama-vision's
+# shape), on N(0, 1) inputs and the tail case alike; a dropped tail or
+# padding let in uses more than ten times it on the tail case (held on
+# the CPU by
 # tests/test_torch_cuda.py::test_cross_tail_case_fails_a_faulty_tail)
 CROSS_SHAPES = {"llama-cross": (4, 512, 6404, 32, 8, 128),
                 "seamless-enc": (4, 1024, 1024, 16, 16, 64),
                 "seamless-cross": (4, 512, 1024, 16, 16, 64)}
-CROSS_BWD = ("seamless-enc", "seamless-cross")
+CROSS_BWD = ("llama-cross", "seamless-enc", "seamless-cross")
 CROSS_RTOL, CROSS_STD, CROSS_BWD_MAX = 2 ** -5, 2e-2, 5e-3
 
 
@@ -1928,13 +2152,15 @@ def counters(torch):
     from repro_torch.kernels.logprob_gather import logprob_gather_cuda
     from repro_torch.kernels.paged_attention import (
         paged_attention_cuda, paged_attention_quant_cuda)
-    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
+    from repro_torch.kernels.rwkv6_scan import (rwkv6_scan_bwd_cuda,
+                                                rwkv6_scan_cuda)
     return {"paged_attention": paged_attention_cuda,
             "paged_attention_quant": paged_attention_quant_cuda,
             "logprob_gather": logprob_gather_cuda,
             "flash_attention": flash_attention_cuda,
             "flash_attention_bwd": flash_attention_bwd_cuda,
-            "rwkv6_scan": rwkv6_scan_cuda}
+            "rwkv6_scan": rwkv6_scan_cuda,
+            "rwkv6_scan_bwd": rwkv6_scan_bwd_cuda}
 
 
 def only(launches, **want):
@@ -3361,13 +3587,15 @@ def phase_rwkv(torch):
 GEMMA_SEED = 6
 GEMMA_REQUESTS = 4
 GEMMA_LONG = (520, 560)
-# the Gemma runs' depth, about half the published 26 and 38 (widths never
-# cut): at full depth the five runs took 268 s of a 1062.8 s chip run
-# (H100 80GB HBM3, 700 W, a slower machine) once the cross-attention
-# phase was added; 13 layers keep gemma3's 5 local : 1 global pattern
-# twice and a local remainder layer, 19 keep recurrentgemma's 6
-# (recurrent, recurrent, local) blocks and a recurrent remainder
-GEMMA_LAYERS = {"gemma3": 13, "recurrentgemma": 19}
+# the Gemma runs' depth, about a quarter of the published 26 and 38
+# (widths never cut): at full depth the five runs took 268 s of a 1062.8 s
+# chip run (H100 80GB HBM3, 700 W, a slower machine) once the
+# cross-attention phase was added, at 13 and 19 layers 142.3 s of a
+# 1071.3 s run (same card and limit) once the other families' training
+# was added; 7 layers keep gemma3's 5 local : 1 global pattern once and a
+# local remainder layer, 10 keep recurrentgemma's 3 (recurrent,
+# recurrent, local) blocks and a recurrent remainder
+GEMMA_LAYERS = {"gemma3": 7, "recurrentgemma": 10}
 
 
 def carry_lru(torch, params, seed):
@@ -4373,14 +4601,16 @@ TOY_SERVE_THRESHOLD = 0.5
 
 
 def train_run(torch, tag, cfg, batch, *, lr, prm=False, seed=0,
-              steps=TRAIN_STEPS):
+              steps=TRAIN_STEPS, prepare=None):
     """``steps`` steps of a fresh :class:`Trainer` (seeded random bf16
-    weights, fp32 AdamW state, peak rate ``lr``, warmup 1) on one fixed
-    batch (with a ``source`` for a cross stack), with every launch counter
-    zeroed just before and read just after; prints the losses, the step
-    time and the memory, checks the losses are finite and fall and that
-    flash's forward and backward each launched once per attention call of
-    a step (:func:`kernel_layers`) times ``steps``, and returns the
+    weights, ``prepare(params)`` applied to them under no_grad when given,
+    fp32 AdamW state, peak rate ``lr``, warmup 1) on one fixed batch (with
+    a ``source`` for a cross stack), with every launch counter zeroed just
+    before and read just after; prints the losses, the step time and the
+    memory, checks the losses are finite and fall and that flash's forward
+    and backward each launched once per attention call of a step and the
+    WKV6 scan's forward and backward once per RWKV layer of a step
+    (:func:`kernel_layers`) times ``steps``, nothing else, and returns the
     launches."""
     from repro_torch.config import TrainConfig
     from repro_torch.train import Trainer
@@ -4389,6 +4619,9 @@ def train_run(torch, tag, cfg, batch, *, lr, prm=False, seed=0,
     tr = Trainer(cfg, TrainConfig(learning_rate=lr, warmup_steps=1,
                                   total_steps=steps, seed=seed),
                  prm=prm, device="cuda")
+    if prepare is not None:
+        with torch.no_grad():
+            prepare(tr.params)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in tr.params.values())
     print(f"run {tag}: {cfg.name} layers={cfg.num_layers} d={cfg.d_model} "
@@ -4420,10 +4653,13 @@ def train_run(torch, tag, cfg, batch, *, lr, prm=False, seed=0,
           f"launches {launches}", flush=True)
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
           f"{tag}: losses {losses} not finite and falling")
-    want = kernel_layers(tr.model, "flash_attention") * steps
-    check(only(launches, flash_attention=want, flash_attention_bwd=want),
+    flash = kernel_layers(tr.model, "flash_attention") * steps
+    scan = kernel_layers(tr.model, "rwkv6_scan") * steps
+    check(only(launches, flash_attention=flash, flash_attention_bwd=flash,
+               rwkv6_scan=scan, rwkv6_scan_bwd=scan),
           f"{tag}: launches {launches}; want flash_attention = "
-          f"flash_attention_bwd = attention calls x steps = {want}, no "
+          f"flash_attention_bwd = attention calls x steps = {flash}, "
+          f"rwkv6_scan = rwkv6_scan_bwd = RWKV layers x steps = {scan}, no "
           f"other kernel")
     del tr, m
     torch.cuda.empty_cache()
@@ -4530,9 +4766,140 @@ def toy_train_serve(torch):
           f"branches")
 
 
+# runs t6-t10: the other families at full width, 3 steps each on one fixed
+# batch at t1's rate; each at the depth that fits one card beside its
+# fp32 AdamW state (12 bytes a parameter: bf16 weight and gradient, fp32 m
+# and v) and the optimizer's fp32 temporaries of the largest weight (six
+# of recurrentgemma's 1.05e9-entry embedding are about 23.5 GiB: at 12
+# layers t8 ran out of the card's memory in AdamW's update, 71.42 GiB
+# allocated, H100 80GB HBM3, 700 W): (config name, layers (0: the
+# published depth), batch, sequence)
+FAMILY_TRAIN_STEPS = 3
+FAMILY_RUNS = {"t6": ("rwkv6-3b", 0, 4, 512),
+               "t7": ("gemma3-1b", 0, 2, 1024),
+               "t8": ("recurrentgemma-9b", 9, 2, 1024),
+               "t9": ("qwen2-moe-a2.7b", 4, 4, 512),
+               "t10": ("llama-3.2-vision-11b", 10, 2, 512)}
+FAMILY_SEED = 12
+
+
+def family_train(torch):
+    """Runs t6-t10 (``FAMILY_RUNS``) through :func:`train_run`: rwkv6-3b
+    with every decay overwritten (:func:`carry_decays`) so that the WKV
+    state carries, the Gemma families' head_dim 256 (gemma3's window of
+    512 binds at S 1024 in its 22 local layers; recurrentgemma's ``lam``
+    overwritten by :func:`carry_lru`), the MoE target and llama-vision
+    with a seeded N(0, 1) source of 6,404 patch embeddings.  Returns the
+    launches summed over the runs."""
+    import numpy as np
+    from repro_torch.config import get_config
+    from repro_torch.data.lm import lm_batches
+    total = {}
+    for tag, (name, layers, B, S) in FAMILY_RUNS.items():
+        full = get_config(name)
+        cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
+        if layers:
+            print(f"reduced: run {tag} cuts {name} to {layers} layers "
+                  f"(published {full.num_layers}): at full depth its "
+                  f"{full.param_count() / 1e9:.2f}B parameters x 12 B of "
+                  f"bf16 weight and gradient and fp32 AdamW state are "
+                  f"{full.param_count() * 12 / 2 ** 30:.1f} GiB, more than "
+                  f"the card's 80 GB beside the activations and AdamW's "
+                  f"fp32 temporaries; at {layers} "
+                  f"{cfg.param_count() * 12 / 2 ** 30:.1f} GiB; widths "
+                  f"unchanged", flush=True)
+        print(f"run {tag}: {name} at {cfg.num_layers} layers, pattern "
+              f"{'/'.join(cfg.layer_pattern)}, "
+              f"{cfg.param_count() / 1e9:.3f}B parameters by param_count, "
+              f"about {cfg.param_count() * 12 / 2 ** 30:.1f} GiB of weights, "
+              f"gradients and AdamW state; B {B} x S {S}", flush=True)
+        batch = next(lm_batches(cfg.vocab_size, B, S, seed=FAMILY_SEED))
+        prepare = None
+        if name == "rwkv6-3b":
+            def prepare(params):
+                lo, hi = carry_decays(torch, params, FAMILY_SEED)
+                print(f"run t6: decay_base overwritten, base decays in "
+                      f"[{lo:.4f}, {hi:.4f}]", flush=True)
+        if name == "recurrentgemma-9b":
+            def prepare(params):
+                lo, hi = carry_lru(torch, params, FAMILY_SEED)
+                print(f"run t8: lam overwritten, a at r = 0.5 in "
+                      f"[{lo:.4f}, {hi:.4f}]", flush=True)
+        if cfg.cross_source_seq:
+            rng = np.random.default_rng(FAMILY_SEED)
+            batch["source"] = rng.standard_normal(
+                (B, cfg.cross_source_seq, cfg.d_model)).astype(np.float32)
+        got = train_run(torch, tag, cfg, batch, lr=T1_LR,
+                        steps=FAMILY_TRAIN_STEPS, prepare=prepare)
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+        release(torch)
+        elapsed(f"run {tag}")
+    return total
+
+
+def family_train_agreement(torch):
+    """Runs t3-rwkv and t3-gemma3: a reduced rwkv6-3b at head_dim 64
+    (decays overwritten) and a reduced gemma3-1b at head_dim 256 (windows
+    of 8 that S 64 crosses), fp32, trained for 3 steps on the card and on
+    the CPU from the same weights and batches, held as run t3 holds the
+    toy triple: losses within TOY_RTOL of their scale, parameters too plus
+    5% of the summed learning rates; the family's backward kernel launched
+    once per layer and step."""
+    from repro_torch.config import TrainConfig, get_config, reduced_config
+    from repro_torch.data.lm import lm_batches
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_bwd_cuda
+    from repro_torch.models import random_params
+    from repro_torch.train import Trainer
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=20, total_steps=600)
+    rwkv = dataclasses.replace(reduced_config(get_config("rwkv6-3b")),
+                               num_heads=2, rwkv_head_dim=64)
+    gemma = dataclasses.replace(
+        reduced_config(get_config("gemma3-1b")), num_layers=3,
+        layer_pattern=("local", "local", "full"), window_size=8, d_model=64,
+        num_heads=4, num_kv_heads=1, head_dim=256, d_ff=96)
+    for tag, cfg, kernel in (("t3-rwkv", rwkv, rwkv6_scan_bwd_cuda),
+                             ("t3-gemma3", gemma, flash_attention_bwd_cuda)):
+        batches = [next(lm_batches(cfg.vocab_size, 8, 64, seed=60 + i))
+                   for i in range(3)]
+        params = random_params(cfg, 61, "cpu")
+        if tag == "t3-rwkv":
+            carry_decays(torch, params, 62)
+        before = kernel.launches
+        runs = []
+        for dev in ("cuda", "cpu"):
+            tr = Trainer(cfg, tcfg, params=params, device=dev)
+            hist = tr.fit(iter(batches), 3, log_every=1)
+            runs.append(([h["loss"] for h in hist], tr.params))
+        (card_l, card_p), (cpu_l, cpu_p) = runs
+        check(kernel.launches - before == 3 * cfg.num_layers,
+              f"{tag}: the backward kernel did not run once per layer and "
+              f"step")
+        loss_err = max(abs(a - b) for a, b in zip(card_l, cpu_l))
+        loss_scale = max(max(abs(x) for x in cpu_l), 1.0)
+        slack = 0.05 * sum(float(tr.opt.lr_fn(n)) for n in (1, 2, 3))
+        worst = 0.0
+        for k, p in cpu_p.items():
+            err = (card_p[k].detach().cpu() - p.detach()).abs().max().item()
+            scale = max(p.detach().abs().max().item(), 1.0)
+            worst = max(worst, err / (TOY_RTOL * scale + slack))
+        hd = cfg.rwkv_head_dim if tag == "t3-rwkv" else cfg.head_dim
+        print(f"run {tag} {cfg.name} (d {cfg.d_model}, {cfg.num_layers} "
+              f"layers, hd {hd}, fp32), card vs CPU over 3 steps: losses "
+              f"{', '.join(f'{x:.6f}' for x in card_l)} vs "
+              f"{', '.join(f'{x:.6f}' for x in cpu_l)}, max error "
+              f"{loss_err:.3e} (tol {TOY_RTOL:.0e} x {loss_scale:.2f}); "
+              f"parameters at {worst:.3f} of their tolerance", flush=True)
+        check(loss_err <= TOY_RTOL * loss_scale,
+              f"{tag}: card and CPU losses differ")
+        check(worst <= 1.0, f"{tag}: card and CPU parameters differ")
+
+
 def phase_train(torch):
-    """Phase 6: training at full width, the toy triple card against CPU,
-    and the serving CLI's train-then-serve path."""
+    """Phase 6: training at full width, the toy triple and the reduced
+    rwkv6 and gemma3 card against CPU, the serving CLI's train-then-serve
+    path, and the other families' runs t6-t10."""
     print("== phase 6: training (the flash backward kernel in every "
           "attention layer)", flush=True)
     import numpy as np
@@ -4561,10 +4928,13 @@ def phase_train(torch):
     elapsed("run t2")
     toy_train_agreement(torch)
     elapsed("run t3")
+    family_train_agreement(torch)
+    elapsed("runs t3-rwkv and t3-gemma3")
     toy_train_serve(torch)
     elapsed("run t4")
+    families = family_train(torch)
     print(f"phase 6 seconds: {time.perf_counter() - t0:.1f}", flush=True)
-    return {k: t1[k] + t2[k] for k in t1}
+    return {k: t1[k] + t2[k] + families.get(k, 0) for k in t1}
 
 
 def main() -> int:
@@ -4589,8 +4959,10 @@ def main() -> int:
         phase_build()
         rows = [phase_kernels(torch), phase_kernels_quant(torch),
                 phase_kernels_logprob(torch), phase_kernels_flash(torch),
-                phase_kernels_flash_bwd(torch), phase_kernels_rwkv(torch)]
+                phase_kernels_flash_bwd(torch), phase_kernels_rwkv(torch),
+                phase_kernels_rwkv_bwd(torch)]
         phase_kernels_gemma(torch, rows)
+        phase_kernels_gemma_bwd(torch, rows)
         phase_kernels_cross(torch, rows)
         elapsed("phases 1-3")
         launches = phase_main(torch, args.layers)
@@ -4626,6 +4998,8 @@ def main() -> int:
         train = phase_train(torch)
         launches["flash_attention"] += train["flash_attention"]
         launches["flash_attention_bwd"] = train["flash_attention_bwd"]
+        launches["rwkv6_scan"] += train["rwkv6_scan"]
+        launches["rwkv6_scan_bwd"] = train["rwkv6_scan_bwd"]
         print(f"flash_attention launches over its paths: score-prm and the "
               f"Gemma scoring runs "
               f"{launches['flash_attention'] - train['flash_attention']} + "

@@ -55,7 +55,23 @@
 // bf16 at head_dim 64 and 128 (every Qwen2.5-Math layer) no longer comes
 // here: flash_attention_bwd_hopper.cu (wgmma and TMA, the log-sum-exp the
 // forward saved, a key tile's heads spread over several blocks) takes it.
-// These kernels keep fp32 and the toy models' bf16 head dims 16 and 40.
+// These kernels keep fp32, the toy models' bf16 head dims 16 and 40, and
+// head_dim 256 in bf16 and fp32 (the Gemma families).
+//
+// Head dims above 128: dK, dV and dQ are register tiles of at most
+// kDimTile = 128 columns (a thread's 16 x 128 slice of dK and dV is already
+// 128 fp32 registers), so the output's head dims are split over blocks:
+// blocks (b) and (c) run once per 128-wide half of the head dim (grid y =
+// kv heads or heads x halves), each recomputing S, P, dP and dS over the
+// whole head dim from shared memory and producing its half of the output.
+// Only the transposed operands of the half's products are staged for the
+// half.  And the G query heads of a kv head are spread over G blocks of
+// (b) (one head each; the Gemma families have one kv head, so key tiles
+// alone give too few blocks to fill the card): each writes its fp32 dK
+// and dV to `part`, and a fourth kernel (d) sums the G partials in head
+// order, scales dK and rounds both to the output dtype.  fp32 at
+// head_dim 256 takes smaller tiles to fit shared memory: 16-query tiles in
+// (b), 32-key tiles in (c).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,9 +82,12 @@ namespace {
 
 constexpr int kThreads = 128;        // 4 warps of 16 rows
 constexpr int kRows = 64;            // rows of a block: queries (a, c), keys (b)
-constexpr int kKeys = 64;            // key tile of (a) and (c)
-constexpr int kQueries = 32;         // query tile of (b)
-constexpr int kMaxHeadDim = 128;
+constexpr int kKeys = 64;            // key tile of (a), and of (c) but fp32
+                                     // above kDimTile
+constexpr int kQueries = 32;         // query tile of (b), but fp32 above
+                                     // kDimTile
+constexpr int kDimTile = 128;        // output head dims of one block
+constexpr int kMaxHeadDim = 256;
 constexpr float kNeg = -1e30f;       // the reference's mask value
 
 struct Args {
@@ -82,9 +101,20 @@ struct Args {
   void* dv;
   float* lse;                        // (B, H, Sq)
   float* delta;                      // (B, H, Sq)
+  float* part;                       // (gsplit, 2, B, Sk, KV, hd), or null
   int Sq, Sk, H, KV, hd, hdp, G, causal, window;
+  int halves;                        // ceil(hd / kDimTile)
+  int gsplit;                        // blocks a kv group's heads spread over
   float scale;
 };
+
+// The head dims c0 .. c0 + cn - 1 that block index y's output covers (y's
+// last factor is the half of the head dim).
+__device__ __forceinline__ void dim_half(const Args& a, int y, int& c0,
+                                         int& cn) {
+  c0 = (y % a.halves) * kDimTile;
+  cn = min(kDimTile, a.hd - c0);
+}
 
 __device__ __forceinline__ bool live(const Args& a, int pos, int key) {
   return pos < a.Sq && key < a.Sk && (!a.causal || key <= pos) &&
@@ -185,17 +215,18 @@ __device__ __forceinline__ void stage(T* dst, int ld, int rows, int hd,
   }
 }
 
-// the same rows transposed: dst[dim][row] (row stride ldt) for dim < hd
+// the same rows' dims d0 .. d0 + dn - 1 transposed: dst[dim - d0][row]
+// (row stride ldt)
 template <typename T, typename Off>
-__device__ __forceinline__ void stage_t(T* dst, int ldt, int rows, int hd,
-                                        const T* src, Off off) {
+__device__ __forceinline__ void stage_t(T* dst, int ldt, int rows, int d0,
+                                        int dn, const T* src, Off off) {
   constexpr int V = 16 / sizeof(T);
-  const int chunks = hd / V;
+  const int chunks = dn / V;
   for (int c = threadIdx.x; c < rows * chunks; c += kThreads) {
     const int r = c % rows, j = (c / rows) * V;
     const long o = off(r);
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (o >= 0) val = *reinterpret_cast<const uint4*>(src + o + j);
+    if (o >= 0) val = *reinterpret_cast<const uint4*>(src + o + d0 + j);
     const T* e = reinterpret_cast<const T*>(&val);
 #pragma unroll
     for (int t = 0; t < V; ++t) dst[(j + t) * ldt + r] = e[t];
@@ -299,25 +330,28 @@ __global__ void __launch_bounds__(kThreads) bwd_stats_kernel(Args a) {
 // (b) dK and dV for a key tile, summed over the group's heads
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, int QT>
 __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Args a) {
   extern __shared__ __align__(16) char smem[];
   const int ld = a.hdp + Pad<T>::n;
-  const int ldq = kQueries + Pad<T>::n;
+  const int ldq = QT + Pad<T>::n;
+  int c0, cn;
+  dim_half(a, blockIdx.y, c0, cn);
   T* k_s = reinterpret_cast<T*>(smem);            // [kRows][ld]
   T* v_s = k_s + kRows * ld;                      // [kRows][ld]
-  T* q_s = v_s + kRows * ld;                      // [kQueries][ld]
-  T* do_s = q_s + kQueries * ld;                  // [kQueries][ld]
-  T* qt_s = do_s + kQueries * ld;                 // [hd][ldq]
-  T* dot_s = qt_s + a.hd * ldq;                   // [hd][ldq]
-  T* p_s = dot_s + a.hd * ldq;                    // [4 warps][16][ldq]
+  T* q_s = v_s + kRows * ld;                      // [QT][ld]
+  T* do_s = q_s + QT * ld;                        // [QT][ld]
+  T* qt_s = do_s + QT * ld;                       // [cn][ldq]
+  T* dot_s = qt_s + cn * ldq;                     // [cn][ldq]
+  T* p_s = dot_s + cn * ldq;                      // [4 warps][16][ldq]
   float* lse_s = reinterpret_cast<float*>(p_s + 4 * 16 * ldq);
-  float* d_s = lse_s + kQueries;
+  float* d_s = lse_s + QT;
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
-  const int b = blockIdx.z, kvh = blockIdx.y;
+  const int b = blockIdx.z, kvh = blockIdx.y / a.halves / a.gsplit;
+  const int split = blockIdx.y / a.halves % a.gsplit;
   const int k0 = blockIdx.x * kRows;
   const int klast = min(k0 + kRows, a.Sk) - 1;
   auto key_row = [=](int r) { return kv_off(a, b, kvh, k0 + r); };
@@ -330,10 +364,10 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Args a) {
   const T* kw = k_s + warp * 16 * ld;
   const T* vw = v_s + warp * 16 * ld;
   T* pw = p_s + warp * 16 * ldq;
-  const int ndt = a.hd / 8;
-  float dk[kMaxHeadDim / 8][4], dv[kMaxHeadDim / 8][4];
+  const int ndt = cn / 8;
+  float dk[kDimTile / 8][4], dv[kDimTile / 8][4];
 #pragma unroll
-  for (int t = 0; t < kMaxHeadDim / 8; ++t)
+  for (int t = 0; t < kDimTile / 8; ++t)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[t][e] = dv[t][e] = 0.f;
 
@@ -341,36 +375,37 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Args a) {
   const int qlo = a.causal ? k0 : 0;
   const int qhi = a.window > 0 ? min(a.Sq - 1, klast + a.window - 1)
                                : a.Sq - 1;
-  for (int g = 0; g < a.G && qlo <= qhi; ++g) {
+  const int g1 = (split + 1) * a.G / a.gsplit;
+  for (int g = split * a.G / a.gsplit; g < g1 && qlo <= qhi; ++g) {
     const int h = kvh * a.G + g;
     const long stat = ((long)b * a.H + h) * a.Sq;
-    for (int qt = qlo / kQueries; qt <= qhi / kQueries; ++qt) {
-      const int p0 = qt * kQueries;
+    for (int qt = qlo / QT; qt <= qhi / QT; ++qt) {
+      const int p0 = qt * QT;
       auto q_row = [=](int r) { return q_off(a, b, h, p0 + r); };
       __syncthreads();                           // previous tile fully read
-      stage(q_s, ld, kQueries, a.hd, a.hdp, q, q_row);
-      stage(do_s, ld, kQueries, a.hd, a.hdp, dout, q_row);
-      stage_t(qt_s, ldq, kQueries, a.hd, q, q_row);
-      stage_t(dot_s, ldq, kQueries, a.hd, dout, q_row);
-      if (threadIdx.x < kQueries) {
+      stage(q_s, ld, QT, a.hd, a.hdp, q, q_row);
+      stage(do_s, ld, QT, a.hd, a.hdp, dout, q_row);
+      stage_t(qt_s, ldq, QT, c0, cn, q, q_row);
+      stage_t(dot_s, ldq, QT, c0, cn, dout, q_row);
+      if (threadIdx.x < QT) {
         const int pos = p0 + threadIdx.x;
         lse_s[threadIdx.x] = pos < a.Sq ? a.lse[stat + pos] : 0.f;
         d_s[threadIdx.x] = pos < a.Sq ? a.delta[stat + pos] : 0.f;
       }
       __syncthreads();
 
-      // S^T = K Q^T (16 keys x 32 queries a warp), then P^T
-      float p[kQueries / 8][4];
+      // S^T = K Q^T (16 keys x QT queries a warp), then P^T
+      float p[QT / 8][4];
 #pragma unroll
-      for (int nt = 0; nt < kQueries / 8; ++nt)
+      for (int nt = 0; nt < QT / 8; ++nt)
         p[nt][0] = p[nt][1] = p[nt][2] = p[nt][3] = 0.f;
       for (int ks = 0; ks < a.hdp; ks += 16) {
 #pragma unroll
-        for (int nt = 0; nt < kQueries / 8; ++nt)
+        for (int nt = 0; nt < QT / 8; ++nt)
           mma_tile(p[nt], kw + ks, ld, q_s + nt * 8 * ld + ks, ld, gq, tg);
       }
 #pragma unroll
-      for (int nt = 0; nt < kQueries / 8; ++nt) {
+      for (int nt = 0; nt < QT / 8; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = nt * 8 + tg * 2 + (e & 1);
@@ -383,26 +418,26 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Args a) {
       __syncwarp();
       // dV += P^T dO
 #pragma unroll
-      for (int kc = 0; kc < kQueries / 16; ++kc) {
+      for (int kc = 0; kc < QT / 16; ++kc) {
 #pragma unroll
-        for (int t = 0; t < kMaxHeadDim / 8; ++t)
+        for (int t = 0; t < kDimTile / 8; ++t)
           if (t < ndt)
             mma_tile(dv[t], pw + kc * 16, ldq, dot_s + t * 8 * ldq + kc * 16,
                      ldq, gq, tg);
       }
       // dP^T = V dO^T, dS^T = P^T (dP^T - D)
-      float dp[kQueries / 8][4];
+      float dp[QT / 8][4];
 #pragma unroll
-      for (int nt = 0; nt < kQueries / 8; ++nt)
+      for (int nt = 0; nt < QT / 8; ++nt)
         dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
       for (int ks = 0; ks < a.hdp; ks += 16) {
 #pragma unroll
-        for (int nt = 0; nt < kQueries / 8; ++nt)
+        for (int nt = 0; nt < QT / 8; ++nt)
           mma_tile(dp[nt], vw + ks, ld, do_s + nt * 8 * ld + ks, ld, gq, tg);
       }
       __syncwarp();                              // P^T fully read
 #pragma unroll
-      for (int nt = 0; nt < kQueries / 8; ++nt) {
+      for (int nt = 0; nt < QT / 8; ++nt) {
         const int col = nt * 8 + tg * 2;
         store2(pw + gq * ldq + col, p[nt][0] * (dp[nt][0] - d_s[col]),
                p[nt][1] * (dp[nt][1] - d_s[col + 1]));
@@ -412,9 +447,9 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Args a) {
       __syncwarp();
       // dK += dS^T Q
 #pragma unroll
-      for (int kc = 0; kc < kQueries / 16; ++kc) {
+      for (int kc = 0; kc < QT / 16; ++kc) {
 #pragma unroll
-        for (int t = 0; t < kMaxHeadDim / 8; ++t)
+        for (int t = 0; t < kDimTile / 8; ++t)
           if (t < ndt)
             mma_tile(dk[t], pw + kc * 16, ldq, qt_s + t * 8 * ldq + kc * 16,
                      ldq, gq, tg);
@@ -425,10 +460,30 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Args a) {
   T* dkg = static_cast<T*>(a.dk);
   T* dvg = static_cast<T*>(a.dv);
   const long o0 = kv_off(a, b, kvh, key0), o1 = kv_off(a, b, kvh, key1);
+  if (a.gsplit > 1) {                // fp32 partials, summed by (d)
+    const long n = (long)gridDim.z * a.Sk * a.KV * a.hd;
+    float* pk = a.part + 2 * split * n;
+    float* pv = pk + n;
 #pragma unroll
-  for (int t = 0; t < kMaxHeadDim / 8; ++t) {
+    for (int t = 0; t < kDimTile / 8; ++t) {
+      if (t < ndt) {
+        const int d = c0 + t * 8 + tg * 2;
+        if (o0 >= 0) {
+          store2(pk + o0 + d, dk[t][0], dk[t][1]);
+          store2(pv + o0 + d, dv[t][0], dv[t][1]);
+        }
+        if (o1 >= 0) {
+          store2(pk + o1 + d, dk[t][2], dk[t][3]);
+          store2(pv + o1 + d, dv[t][2], dv[t][3]);
+        }
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int t = 0; t < kDimTile / 8; ++t) {
     if (t < ndt) {
-      const int d = t * 8 + tg * 2;
+      const int d = c0 + t * 8 + tg * 2;
       if (o0 >= 0) {
         store2(dkg + o0 + d, dk[t][0] * a.scale, dk[t][1] * a.scale);
         store2(dvg + o0 + d, dv[t][0], dv[t][1]);
@@ -445,22 +500,24 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(Args a) {
 // (c) dQ for 64 query positions of one head
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, int KT>
 __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Args a) {
   extern __shared__ __align__(16) char smem[];
   const int ld = a.hdp + Pad<T>::n;
-  const int ldk = kKeys + Pad<T>::n;
+  const int ldk = KT + Pad<T>::n;
+  int c0, cn;
+  dim_half(a, blockIdx.y, c0, cn);
   T* q_s = reinterpret_cast<T*>(smem);            // [kRows][ld]
   T* do_s = q_s + kRows * ld;                     // [kRows][ld]
-  T* k_s = do_s + kRows * ld;                     // [kKeys][ld]
-  T* v_s = k_s + kKeys * ld;                      // [kKeys][ld]
-  T* kt_s = v_s + kKeys * ld;                     // [hd][ldk]
-  T* p_s = kt_s + a.hd * ldk;                     // [4 warps][16][ldk]
+  T* k_s = do_s + kRows * ld;                     // [KT][ld]
+  T* v_s = k_s + KT * ld;                         // [KT][ld]
+  T* kt_s = v_s + KT * ld;                        // [cn][ldk]
+  T* p_s = kt_s + cn * ldk;                       // [4 warps][16][ldk]
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
-  const int b = blockIdx.z, h = blockIdx.y, kvh = h / a.G;
+  const int b = blockIdx.z, h = blockIdx.y / a.halves, kvh = h / a.G;
   const int q0 = blockIdx.x * kRows;
   const int qlast = min(q0 + kRows, a.Sq) - 1;
   auto q_row = [=](int r) { return q_off(a, b, h, q0 + r); };
@@ -478,34 +535,34 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Args a) {
   const T* qw = q_s + warp * 16 * ld;
   const T* dow = do_s + warp * 16 * ld;
   T* pw = p_s + warp * 16 * ldk;
-  const int ndt = a.hd / 8;
-  float dq[kMaxHeadDim / 8][4];
+  const int ndt = cn / 8;
+  float dq[kDimTile / 8][4];
 #pragma unroll
-  for (int t = 0; t < kMaxHeadDim / 8; ++t)
+  for (int t = 0; t < kDimTile / 8; ++t)
     dq[t][0] = dq[t][1] = dq[t][2] = dq[t][3] = 0.f;
 
-  const int first = key_lo(a, q0) / kKeys, last = key_hi(a, qlast) / kKeys;
+  const int first = key_lo(a, q0) / KT, last = key_hi(a, qlast) / KT;
   for (int tile = first; tile <= last; ++tile) {
-    const int kb = tile * kKeys;
+    const int kb = tile * KT;
     auto key_row = [=](int r) { return kv_off(a, b, kvh, kb + r); };
     __syncthreads();
-    stage(k_s, ld, kKeys, a.hd, a.hdp, k, key_row);
-    stage(v_s, ld, kKeys, a.hd, a.hdp, v, key_row);
-    stage_t(kt_s, ldk, kKeys, a.hd, k, key_row);
+    stage(k_s, ld, KT, a.hd, a.hdp, k, key_row);
+    stage(v_s, ld, KT, a.hd, a.hdp, v, key_row);
+    stage_t(kt_s, ldk, KT, c0, cn, k, key_row);
     __syncthreads();
 
     // S = Q K^T, P
-    float p[kKeys / 8][4];
+    float p[KT / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < kKeys / 8; ++nt)
+    for (int nt = 0; nt < KT / 8; ++nt)
       p[nt][0] = p[nt][1] = p[nt][2] = p[nt][3] = 0.f;
     for (int ks = 0; ks < a.hdp; ks += 16) {
 #pragma unroll
-      for (int nt = 0; nt < kKeys / 8; ++nt)
+      for (int nt = 0; nt < KT / 8; ++nt)
         mma_tile(p[nt], qw + ks, ld, k_s + nt * 8 * ld + ks, ld, gq, tg);
     }
 #pragma unroll
-    for (int nt = 0; nt < kKeys / 8; ++nt) {
+    for (int nt = 0; nt < KT / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = kb + nt * 8 + tg * 2 + (e & 1);
@@ -516,17 +573,17 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Args a) {
       }
     }
     // dP = dO V^T, dS = P (dP - D)
-    float dp[kKeys / 8][4];
+    float dp[KT / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < kKeys / 8; ++nt)
+    for (int nt = 0; nt < KT / 8; ++nt)
       dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
     for (int ks = 0; ks < a.hdp; ks += 16) {
 #pragma unroll
-      for (int nt = 0; nt < kKeys / 8; ++nt)
+      for (int nt = 0; nt < KT / 8; ++nt)
         mma_tile(dp[nt], dow + ks, ld, v_s + nt * 8 * ld + ks, ld, gq, tg);
     }
 #pragma unroll
-    for (int nt = 0; nt < kKeys / 8; ++nt) {
+    for (int nt = 0; nt < KT / 8; ++nt) {
       const int col = nt * 8 + tg * 2;
       store2(pw + gq * ldk + col, p[nt][0] * (dp[nt][0] - d0),
              p[nt][1] * (dp[nt][1] - d0));
@@ -536,9 +593,9 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Args a) {
     __syncwarp();
     // dQ += dS K
 #pragma unroll
-    for (int kc = 0; kc < kKeys / 16; ++kc) {
+    for (int kc = 0; kc < KT / 16; ++kc) {
 #pragma unroll
-      for (int t = 0; t < kMaxHeadDim / 8; ++t)
+      for (int t = 0; t < kDimTile / 8; ++t)
         if (t < ndt)
           mma_tile(dq[t], pw + kc * 16, ldk, kt_s + t * 8 * ldk + kc * 16,
                    ldk, gq, tg);
@@ -549,14 +606,41 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Args a) {
   T* dqg = static_cast<T*>(a.dq);
   const long o0 = q_off(a, b, h, pos0), o1 = q_off(a, b, h, pos1);
 #pragma unroll
-  for (int t = 0; t < kMaxHeadDim / 8; ++t) {
+  for (int t = 0; t < kDimTile / 8; ++t) {
     if (t < ndt) {
-      const int d = t * 8 + tg * 2;
+      const int d = c0 + t * 8 + tg * 2;
       if (o0 >= 0)
         store2(dqg + o0 + d, dq[t][0] * a.scale, dq[t][1] * a.scale);
       if (o1 >= 0)
         store2(dqg + o1 + d, dq[t][2] * a.scale, dq[t][3] * a.scale);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// (d) dK and dV from the split heads' partials, summed in head order
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) bwd_dkdv_sum_kernel(Args a,
+                                                                long n) {
+  T* dk = static_cast<T*>(a.dk);
+  T* dv = static_cast<T*>(a.dv);
+  for (long i = 2 * ((long)blockIdx.x * kThreads + threadIdx.x); i < n;
+       i += 2L * gridDim.x * kThreads) {
+    float k0 = 0.f, k1 = 0.f, v0 = 0.f, v1 = 0.f;
+    for (int s = 0; s < a.gsplit; ++s) {
+      const float2 pk =
+          *reinterpret_cast<const float2*>(a.part + 2 * s * n + i);
+      const float2 pv =
+          *reinterpret_cast<const float2*>(a.part + (2 * s + 1) * n + i);
+      k0 += pk.x;
+      k1 += pk.y;
+      v0 += pv.x;
+      v1 += pv.y;
+    }
+    store2(dk + i, k0 * a.scale, k1 * a.scale);
+    store2(dv + i, v0, v1);
   }
 }
 
@@ -572,25 +656,35 @@ cudaError_t launch(Kernel kernel, const Args& a, dim3 grid, size_t smem,
   return cudaGetLastError();
 }
 
-template <typename T>
+// (b) and (c) with query tiles of QT and key tiles of KT
+template <typename T, int QT, int KT>
 cudaError_t launch_all(const Args& a, int B, cudaStream_t s) {
   const size_t ld = a.hdp + Pad<T>::n;
-  const size_t ldq = kQueries + Pad<T>::n, ldk = kKeys + Pad<T>::n;
-  const dim3 qgrid((a.Sq + kRows - 1) / kRows, a.H, B);
-  const dim3 kgrid((a.Sk + kRows - 1) / kRows, a.KV, B);
-  cudaError_t e = launch(bwd_stats_kernel<T>, a, qgrid,
+  const size_t ldq = QT + Pad<T>::n, ldk = KT + Pad<T>::n;
+  const size_t dn = a.hd < kDimTile ? a.hd : kDimTile;
+  const dim3 sgrid((a.Sq + kRows - 1) / kRows, a.H, B);
+  const dim3 qgrid((a.Sq + kRows - 1) / kRows, a.H * a.halves, B);
+  const dim3 kgrid((a.Sk + kRows - 1) / kRows, a.KV * a.halves * a.gsplit,
+                   B);
+  cudaError_t e = launch(bwd_stats_kernel<T>, a, sgrid,
                          sizeof(T) * (kRows + kKeys) * ld, s);
   if (e != cudaSuccess) return e;
-  e = launch(bwd_dkdv_kernel<T>, a, kgrid,
-             sizeof(T) * ((2 * kRows + 2 * kQueries) * ld +
-                          2 * (size_t)a.hd * ldq + 4 * 16 * ldq) +
-                 sizeof(float) * 2 * kQueries,
+  e = launch(bwd_dkdv_kernel<T, QT>, a, kgrid,
+             sizeof(T) * ((2 * kRows + 2 * QT) * ld + 2 * dn * ldq +
+                          4 * 16 * ldq) +
+                 sizeof(float) * 2 * QT,
              s);
   if (e != cudaSuccess) return e;
-  return launch(bwd_dq_kernel<T>, a, qgrid,
-                sizeof(T) * ((2 * kRows + 2 * kKeys) * ld +
-                             (size_t)a.hd * ldk + 4 * 16 * ldk),
-                s);
+  e = launch(bwd_dq_kernel<T, KT>, a, qgrid,
+             sizeof(T) * ((2 * kRows + 2 * KT) * ld + dn * ldk +
+                          4 * 16 * ldk),
+             s);
+  if (e != cudaSuccess || a.gsplit == 1) return e;
+  const long n = (long)B * a.Sk * a.KV * a.hd;
+  const long blocks = (n / 2 + kThreads - 1) / kThreads;
+  bwd_dkdv_sum_kernel<T><<<(unsigned)(blocks < 4096 ? blocks : 4096),
+                           kThreads, 0, s>>>(a, n);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -598,20 +692,25 @@ cudaError_t launch_all(const Args& a, int B, cudaStream_t s) {
 // dtype: 0 = float32, 1 = bfloat16, for all of q, k, v, out, dout, dq, dk
 // and dv.  q, out, dout, dq: (B, Sq, H, hd); k, v, dk, dv: (B, Sk, KV, hd);
 // all contiguous and 16-byte aligned; lse and delta: (B, H, Sq) float32
-// scratch.  H / KV <= 64; head_dim a multiple of 8, at most 128.  Every
-// query row must hold at least one live key (the wrapper checks).  Launches
-// the three kernels in order on `stream`; returns the first cudaError_t
-// (0 = success).
+// scratch; part: float32 scratch of 2 H B Sk hd elements (the split heads'
+// dK and dV) when head_dim > 128, else unused (may be null).  H / KV <= 64;
+// head_dim a multiple of 8, at most 256.  Every query row must hold at
+// least one live key (the wrapper checks).  Launches the three kernels
+// (four above head_dim 128) in order on `stream`; returns the first
+// cudaError_t (0 = success).
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* out,
                                    const void* dout, void* dq, void* dk,
-                                   void* dv, void* lse, void* delta, int B,
+                                   void* dv, void* lse, void* delta,
+                                   void* part, int B,
                                    int Sq, int Sk, int H, int KV, int hd,
                                    int causal, int window, float scale,
                                    int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 ||
       H / KV > 64 || hd <= 0 || hd > kMaxHeadDim || hd % 8 != 0 ||
-      window < 0 || B > 65535 || H > 65535)
+      window < 0 || B > 65535 ||
+      H * ((hd + kDimTile - 1) / kDimTile) > 65535 ||
+      (hd > kDimTile && part == nullptr))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
@@ -624,6 +723,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   a.dv = dv;
   a.lse = static_cast<float*>(lse);
   a.delta = static_cast<float*>(delta);
+  a.part = static_cast<float*>(part);
   a.Sq = Sq;
   a.Sk = Sk;
   a.H = H;
@@ -633,9 +733,14 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   a.G = H / KV;
   a.causal = causal;
   a.window = window;
+  a.halves = (hd + kDimTile - 1) / kDimTile;
+  a.gsplit = hd > kDimTile ? H / KV : 1;
   a.scale = scale;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return (int)launch_all<__nv_bfloat16>(a, B, s);
-  if (dtype == 0) return (int)launch_all<float>(a, B, s);
+  if (dtype == 1)
+    return (int)launch_all<__nv_bfloat16, kQueries, kKeys>(a, B, s);
+  if (dtype == 0 && hd > kDimTile)
+    return (int)launch_all<float, kQueries / 2, kKeys / 2>(a, B, s);
+  if (dtype == 0) return (int)launch_all<float, kQueries, kKeys>(a, B, s);
   return (int)cudaErrorInvalidValue;
 }

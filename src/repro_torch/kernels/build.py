@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("paged_attention", "paged_attention_quant", "logprob_gather",
            "flash_attention", "flash_attention_bwd",
-           "flash_attention_bwd_hopper", "rwkv6_scan")
+           "flash_attention_bwd_hopper", "rwkv6_scan", "rwkv6_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

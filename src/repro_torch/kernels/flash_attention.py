@@ -33,7 +33,10 @@ it.
   the plan of :func:`bwd_split_plan`, then the split tiles' partials
   summed in order) from the forward's
   log-sum-exp, and otherwise ``csrc/flash_attention_bwd.cu`` (three
-  mma.sync / CUDA-core kernels that rebuild it); no atomics either way.
+  mma.sync / CUDA-core kernels that rebuild it; fp32, the toy head dims
+  and head_dim 256, where they split the output's head dims over two
+  blocks and a kv group's query heads over G, summing the heads' fp32
+  partials in order); no atomics either way.
   It counts its calls in ``flash_attention_bwd_cuda.launches``.
 * :class:`FlashAttention` binds the two as a ``torch.autograd.Function``:
   the forward kernel on detached inputs, saving the log-sum-exp where the
@@ -53,10 +56,11 @@ from repro_torch.kernels import build, streams
 
 NEG = -1e30
 MAX_GROUP = 64        # query heads per kv head (the kernel's 64 query rows)
-MAX_HEAD_DIM = 256
-# the backward kernels' register tiles hold head_dim 128 at most; training
-# at head_dim 256 (the Gemma families) has no kernel yet, and raises
-BWD_MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256    # forward and backward
+# the widest dK/dV/dQ register tile of flash_attention_bwd.cu: above it
+# the output's head dims are split over blocks, and so are a kv group's
+# query heads, whose fp32 partials the kernels sum
+BWD_DIM_TILE = 128
 LOG2E = 1.4426950408889634
 # the Hopper backward's dK/dV blocks: 128 keys, swept in 64-query items;
 # the plan packs them into waves of one block per SM of the card, and sums
@@ -328,10 +332,9 @@ flash_attention_cuda.launches = 0
 def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal=True,
                              window: int = 0, scale=None, lse=None):
     """Launch the backward kernels on the current stream; same contract as
-    :func:`flash_attention_bwd_plain`, and the forward's limits with
-    head_dim up to :data:`BWD_MAX_HEAD_DIM` (above it, NotImplementedError:
-    no backward kernel takes head_dim 256 yet).  All five
-    tensors are float32 or bfloat16 of one dtype (made contiguous).
+    :func:`flash_attention_bwd_plain`, and the forward's limits (head_dim
+    a multiple of 8 up to 256).  All five tensors are float32 or bfloat16
+    of one dtype (made contiguous).
 
     Where :func:`uses_hopper_bwd_kernel` holds, ``lse`` is required: the
     base-2 log-sum-exp that ``flash_attention_cuda(..., return_lse=True)``
@@ -347,11 +350,6 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal=True,
                              f"{tuple(q.shape)} on {q.device}), got "
                              f"{t.dtype}, {tuple(t.shape)} on {t.device}")
     _check_limits(who, B, Sq, Sk, H, KV, hd, window, q.device)
-    if hd > BWD_MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"{who}: no backward kernel for head_dim {hd} (the kernels take "
-            f"up to {BWD_MAX_HEAD_DIM}); training at head_dim 256 is not "
-            f"ported yet")
     hopper = uses_hopper_bwd_kernel(q.dtype, hd)
     if hopper and (lse is None or lse.shape != (B, H, Sq)
                    or lse.dtype != torch.float32 or lse.device != q.device):
@@ -395,11 +393,16 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal=True,
     else:
         stats = torch.empty((2, B, H, Sq), dtype=torch.float32,
                             device=q.device)
+        # above BWD_DIM_TILE each query head's fp32 dK and dV, summed in
+        # head order by the kernels
+        part = torch.empty((2 * H * B * Sk * hd,), dtype=torch.float32,
+                           device=q.device) if hd > BWD_DIM_TILE else None
         err = _library_bwd().flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats[0].data_ptr(), stats[1].data_ptr(), B, Sq, Sk, H, KV, hd,
-            int(bool(causal)), int(window), scale, _DTYPE_CODE[q.dtype],
+            stats[0].data_ptr(), stats[1].data_ptr(),
+            None if part is None else part.data_ptr(), B, Sq, Sk, H, KV,
+            hd, int(bool(causal)), int(window), scale, _DTYPE_CODE[q.dtype],
             stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
@@ -415,7 +418,7 @@ def _library_bwd():
     lib = build.load("flash_attention_bwd")
     fn = lib.flash_attention_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 \
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib

@@ -2,9 +2,9 @@
 
 A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor goes
 to the hand-written CUDA kernel, which launches or raises.  There is no
-switch that sends a CUDA tensor to the plain version.  Flash attention on
-inputs that require a gradient goes through its autograd Function, whose
-backward is the backward kernel on a CUDA tensor.
+switch that sends a CUDA tensor to the plain version.  Flash attention and
+the WKV6 scan on inputs that require a gradient go through their autograd
+Functions, whose backward is the backward kernel on a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain,
                                                  paged_attention_quant_cuda,
                                                  paged_attention_quant_plain)
-from repro_torch.kernels.rwkv6_scan import (rwkv6_scan_cuda,
+from repro_torch.kernels.rwkv6_scan import (WKV6Scan, rwkv6_scan_cuda,
                                             rwkv6_scan_cuda_,
                                             rwkv6_scan_plain,
                                             rwkv6_scan_plain_)
@@ -70,7 +70,11 @@ def logprob_gather(h, w, labels, vocab_size: int):
 
 def rwkv6_scan(r, k, v, w, u, state):
     """WKV6 recurrence: r/k/v/w (B,T,H,hd), u (H,hd), state (B,H,hd,hd)
-    -> (out (B,T,H,hd) fp32, final state fp32)."""
+    -> (out (B,T,H,hd) fp32, final state fp32); differentiable when an
+    input requires a gradient."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u, state)):
+        return WKV6Scan.apply(r, k, v, w, u, state)
     if r.is_cuda:
         return rwkv6_scan_cuda(r, k, v, w, u, state)
     return rwkv6_scan_plain(r, k, v, w, u, state)

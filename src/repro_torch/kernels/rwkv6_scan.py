@@ -12,9 +12,18 @@ step t::
 * :func:`rwkv6_scan_cuda` launches ``csrc/rwkv6_scan.cu`` (the Hopper
   kernel that replaces ``rwkv6_scan_pallas``) and counts its calls in
   ``rwkv6_scan_cuda.launches``: one per call, whether the C entry point
-  ran its scan kernel alone or with the fix-up kernel.  It is
-  forward-only: an input that requires a gradient raises, since no
-  backward kernel exists.
+  ran its scan kernel alone or with the fix-up kernel.  Called directly
+  it is forward-only: an input that requires a gradient raises.
+* :func:`rwkv6_scan_bwd_plain` is the recurrence's gradient, in reverse
+  step by step in fp32 (the yardstick on the card, the backward on the
+  CPU); :func:`rwkv6_scan_bwd_cuda` launches ``csrc/rwkv6_scan_bwd.cu``
+  (fp32 state checkpoints every :data:`BWD_CHUNK` steps, each chunk's
+  states recomputed from its checkpoint and walked backwards; no atomics)
+  and counts its calls in ``rwkv6_scan_bwd_cuda.launches``.
+* :class:`WKV6Scan` binds the two directions as a
+  ``torch.autograd.Function`` returning ``(out, final state)``;
+  ``ops.rwkv6_scan`` goes through it whenever an input requires a
+  gradient.
 * :func:`rwkv6_scan_plain_` and :func:`rwkv6_scan_cuda_` are the in-place
   forms a decode step uses: the new state is written over ``state`` in the
   rows where ``live`` is True, and the other rows keep theirs bit for bit.
@@ -44,6 +53,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 WANT_BLOCKS = 4 * 132
 MIN_SEGMENT = 32
 MAX_SEGMENTS = 32
+# the backward kernel's steps per fp32 state checkpoint (its scratch holds
+# ceil(T / BWD_CHUNK) - 1 states of every (row, head)); csrc's kChunk
+BWD_CHUNK = 4
 
 
 def rwkv6_scan_plain(r, k, v, w, u, state):
@@ -62,6 +74,46 @@ def rwkv6_scan_plain(r, k, v, w, u, state):
     if not outs:
         return rf.new_zeros(rf.shape), S.clone()
     return torch.stack(outs, dim=1), S
+
+
+def rwkv6_scan_bwd_plain(r, k, v, w, u, state, dout, dstate=None):
+    """Gradients of :func:`rwkv6_scan_plain` with respect to all six
+    inputs, ``(dr, dk, dv, dw, du, dstate)`` in their dtypes, computed in
+    fp32 in reverse step by step.  ``dout`` (B,T,H,hd) is the output's
+    cotangent, ``dstate`` (B,H,hd,hd) the final state's (zero when None).
+    Per (row, head), with S_{t-1} the state before step t and dS the
+    cotangent of the state after it::
+
+        dr_t = (S_{t-1} + diag(u) k_t v_t^T) dO_t
+        dk_t = dS v_t + u * r_t (v_t . dO_t)
+        dv_t = dS^T k_t + (sum_k r_t u k_t) dO_t
+        dw_t = rowsum(dS * S_{t-1});  du += r_t * k_t (v_t . dO_t)
+        dS  <- r_t dO_t^T + diag(w_t) dS
+    """
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    uf = u.float()
+    S = state.float()
+    prev = []
+    for t in range(r.shape[1]):
+        prev.append(S)
+        S = wf[:, t, :, :, None] * S \
+            + kf[:, t, :, :, None] * vf[:, t, :, None, :]
+    do = dout.float()
+    dS = torch.zeros_like(S) if dstate is None else dstate.float()
+    dr, dk, dv, dw = (torch.zeros_like(rf) for _ in range(4))
+    du = torch.zeros_like(uf)
+    for t in reversed(range(r.shape[1])):
+        rt, kt, vt, wt, ot = (a[:, t] for a in (rf, kf, vf, wf, do))
+        vd = (vt * ot).sum(-1, keepdim=True)                 # (B,H,1)
+        dr[:, t] = torch.einsum("bhkn,bhn->bhk", prev[t], ot) + uf * kt * vd
+        dk[:, t] = torch.einsum("bhkn,bhn->bhk", dS, vt) + uf * rt * vd
+        dv[:, t] = torch.einsum("bhkn,bhk->bhn", dS, kt) \
+            + (rt * uf * kt).sum(-1, keepdim=True) * ot
+        dw[:, t] = (dS * prev[t]).sum(-1)
+        du += (rt * kt * vd).sum(0)
+        dS = rt[..., None] * ot[..., None, :] + wt[..., None] * dS
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du.to(u.dtype), dS.to(state.dtype))
 
 
 def rwkv6_scan_plain_(r, k, v, w, u, state, live=None):
@@ -121,9 +173,10 @@ def _check(who, r, k, v, w, u, state, live):
         raise ValueError(f"{who}: {name} must be on {r.device} (CUDA), "
                          f"got {t.device}")
     if any(t.requires_grad for _, t in named):
-        raise RuntimeError(f"{who} is forward-only (no backward kernel): "
-                           f"call it under torch.no_grad() on tensors that "
-                           f"do not require a gradient")
+        raise RuntimeError(f"{who} is forward-only: call it under "
+                           f"torch.no_grad() on tensors that do not require "
+                           f"a gradient, or train through ops.rwkv6_scan "
+                           f"(the WKV6Scan autograd Function)")
     if r.dtype not in _DTYPE_CODE or k.dtype != r.dtype \
             or v.dtype != r.dtype:
         raise TypeError(f"{who} takes float32 or bfloat16 r/k/v of one "
@@ -215,3 +268,91 @@ def rwkv6_scan_cuda_(r, k, v, w, u, state, live=None):
 
 
 rwkv6_scan_cuda.launches = 0
+
+
+def _library_bwd():
+    lib = build.load("rwkv6_scan_bwd")
+    fn = lib.rwkv6_scan_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def rwkv6_scan_bwd_cuda(r, k, v, w, u, state, dout, dstate=None):
+    """Launch the backward kernel on the current stream; same contract as
+    :func:`rwkv6_scan_bwd_plain`, the forward's limits (r, k and v float32
+    or bfloat16 of one dtype, w, u and state float32, hd 32 or 64), and
+    ``dout`` and ``dstate`` (or None) float32.  ``du`` is the sum over the
+    batch rows of the kernel's per-(row, head) partials, taken in a fixed
+    order.  Scratch: ``ceil(T / BWD_CHUNK) - 1`` fp32 states of every
+    (row, head).  Raises on anything the kernel does not take and on a
+    failed launch."""
+    who = "rwkv6_scan_bwd_cuda"
+    dev = _check(who, r, k, v, w, u, state, None)
+    B, T, H, hd = r.shape
+    for name, t, shape in (("dout", dout, r.shape),
+                           ("dstate", dstate, state.shape)):
+        if t is not None and (t.device != r.device or t.dtype != torch.float32
+                              or t.shape != shape):
+            raise ValueError(f"{who}: {name} must be float32 "
+                             f"{tuple(shape)} on {r.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    dr, dk, dv = (torch.empty(r.shape, dtype=r.dtype, device=r.device)
+                  for _ in range(3))
+    dw = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    if B == 0 or H == 0 or T == 0:
+        ds0 = torch.zeros_like(state) if dstate is None else dstate.clone()
+        return (dr.zero_(), dk.zero_(), dv.zero_(), dw.zero_(),
+                torch.zeros_like(u), ds0)
+    r, k, v, w, dout, state = (_ready(t) for t in (r, k, v, w, dout, state))
+    if dstate is not None:
+        dstate = _ready(dstate)
+    u = _ready(u)
+    du = torch.empty((B, H, hd), dtype=torch.float32, device=r.device)
+    ds0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    chunks = -(-T // BWD_CHUNK)
+    cp = torch.empty(((chunks - 1) * B * H * hd * hd,), dtype=torch.float32,
+                     device=r.device) if chunks > 1 else None
+    err = _library_bwd()(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        state.data_ptr(), dout.data_ptr(),
+        None if dstate is None else dstate.data_ptr(), dr.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+        ds0.data_ptr(), None if cp is None else cp.data_ptr(), B, T, H, hd,
+        _DTYPE_CODE[r.dtype], streams.current(dev))
+    if err:
+        raise RuntimeError(f"rwkv6_scan_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    streams.launched(rwkv6_scan_bwd_cuda)
+    return dr, dk, dv, dw, du.sum(0), ds0
+
+
+rwkv6_scan_bwd_cuda.launches = 0
+
+
+class WKV6Scan(torch.autograd.Function):
+    """Differentiable WKV6 recurrence returning ``(out, final state)``: the
+    forward kernel on detached inputs and the backward kernel on CUDA
+    tensors, :func:`rwkv6_scan_plain` and :func:`rwkv6_scan_bwd_plain` on
+    CPU tensors.  Saves the six inputs; the backward recomputes the states
+    from them.  A cotangent that autograd does not supply (an unused
+    output) is zero: a missing final-state one is passed on as None."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        ctx.set_materialize_grads(False)
+        args = tuple(t.detach() for t in (r, k, v, w, u, state))
+        fwd = rwkv6_scan_cuda if r.is_cuda else rwkv6_scan_plain
+        out, final = fwd(*args)
+        ctx.save_for_backward(*args)
+        return out, final
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        r, k, v, w, u, state = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        bwd = rwkv6_scan_bwd_cuda if r.is_cuda else rwkv6_scan_bwd_plain
+        return bwd(r, k, v, w, u, state, dout, dstate)

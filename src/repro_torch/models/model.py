@@ -41,10 +41,10 @@ layer with ``causal=False``), and every RWKV layer of every pass (decode
 steps included) through the WKV6 scan kernel.  A model built with
 ``trainable=True`` holds parameters that require a gradient, and its
 ``forward``, ``hidden`` and ``reward`` then build an autograd graph when
-grad mode is on (flash attention through its backward kernel on the card;
-the scan has no backward kernel yet, so an RWKV model trains on the CPU
-only).  The serving entry points (``prefill``, ``score``, ``decode_step``,
-``reward_from_hidden``) always run under ``torch.no_grad()``.
+grad mode is on (flash attention and the WKV6 scan through their backward
+kernels on the card).  The serving entry points (``prefill``, ``score``,
+``decode_step``, ``reward_from_hidden``) always run under
+``torch.no_grad()``.
 
 Parameters keep the reference's per-weight layouts (``wq (d,H,hd)``,
 ``wo (H,hd,d)``, ...) under flat names such as ``layers.3.attn.wq``,

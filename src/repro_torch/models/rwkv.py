@@ -17,7 +17,9 @@ holds that leaf: a decode step moves the 10.5 MB state of rwkv6-3b's 16
 rows once a layer instead of through a fresh buffer, a ``where`` and a
 copy.
 
-**The scan runs through ``ops.rwkv6_scan`` for every T, T = 1 included.**
+**The scan runs through ``ops.rwkv6_scan`` for every T, T = 1 included,**
+and in training through its autograd Function (``WKV6Scan``), whose
+backward on the card is the WKV6 backward kernel.
 The reference calls its Pallas kernel only when T > 1 and leaves a decode
 step to XLA's fused update: one Pallas launch per step costs a TPU more
 than the fusion.  Here the alternative is about six eager ops per layer on

@@ -17,8 +17,8 @@ ragged Sq and Sk, Sk > Sq non-causal; the cross and encoder families'
 non-causal shapes up to Sk 6404, on N(0, 1) inputs and on a case whose
 softmax the last 4 keys decide), which refuses inputs that require
 a gradient when called directly, and its backward kernel (fp32 and bf16;
-the same groups, head dims up to 128, windows and ragged shapes; head_dim
-256 refused; bitwise deterministic;
+the same groups, head dims up to 256, G 4 and 16 at 256 with windows that
+bind, one of 8 and ragged shapes; bitwise deterministic;
 through the autograd Function of ``ops.flash_attention``; one toy train
 step on the card against the CPU), and the WKV6 scan
 (head dims 32 and 64; T = 1, 17 and 1000; bf16 and fp32 r/k/v; spread
@@ -26,8 +26,15 @@ decays and a non-zero initial state; decays at the model's clamp ends and
 mixed; B = H = 1 at T = 4096, many segments; forced plans down to
 one-step segments; the in-place decode form with half the rows frozen,
 their state bitwise unchanged; bitwise deterministic, on two streams at
-once, and captured in a CUDA graph), which refuses other head dims and
-inputs that require a gradient.  A toy model's ``score`` on the card
+once, and captured in a CUDA graph), which refuses other head dims and,
+called directly, inputs that require a gradient, and its backward kernel
+(head dims 32 and 64, bf16 and fp32, T 1 to 600, spread and mixed
+clamp-end decays, with and without a final-state cotangent, bitwise
+deterministic, through the ``WKV6Scan`` autograd Function of
+``ops.rwkv6_scan``).  One train step of a reduced rwkv6-3b and of a
+reduced gemma3-1b at head_dim 256 on the card matches the CPU's, and
+``launch.train --reduced`` trains both on the card.  A toy model's
+``score`` on the card
 launches the flash kernel once per layer and the gather once; a toy RWKV
 model's ``score`` and ``decode_step`` launch the scan once per layer.
 
@@ -498,15 +505,47 @@ def test_flash_head_dim_256_matches_plain(cuda_device, dtype, tol, H, KV,
 
 
 @pytest.mark.cuda
-def test_flash_backward_refuses_head_dim_256(cuda_device):
-    """No backward kernel takes head_dim 256: the autograd Function's
-    backward raises on the card, with no plain fallback."""
-    q, k, v = flash_case(1, B=1, Sq=64, Sk=64, H=4, KV=1, hd=256,
-                         dtype=torch.bfloat16, device=cuda_device)
-    q.requires_grad_()
-    out = ops.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="head_dim 256"):
-        out.float().sum().backward()
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("window,S", [(0, 300), (8, 300), (200, 511),
+                                      (0, 77)])
+@pytest.mark.parametrize("H,KV", [(4, 1), (16, 1)])     # G = 4 and 16
+def test_flash_backward_head_dim_256(cuda_device, dtype, tol, window, S, H,
+                                     KV):
+    """The Gemma families' training heads: the backward at head_dim 256
+    (the kernels that rebuild the log-sum-exp, each 128-wide half of the
+    output's head dims a block of its own) against the plain version, to
+    ``tol`` of each gradient's scale, twice bitwise; then through the
+    autograd Function (one forward and one backward launch).  Window 200
+    binds at S 511 (ragged against every tile), 8 is shorter than a tile,
+    S 77 is shorter than a 128-key tile."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        uses_hopper_bwd_kernel)
+    assert not uses_hopper_bwd_kernel(dtype, 256)
+    q, k, v = flash_case(H + window + S, B=2, Sq=S, Sk=S, H=H, KV=KV,
+                         hd=256, dtype=dtype, device=cuda_device)
+    out = flash_attention_cuda(q, k, v, window=window)
+    dout = torch.randn(q.shape, device=cuda_device).to(dtype)
+    got = flash_attention_bwd_cuda(q, k, v, out, dout, window=window)
+    again = flash_attention_bwd_cuda(q, k, v, out, dout, window=window)
+    want = flash_attention_bwd_plain(q, k, v, out, dout, window=window)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g, a)
+        scale = max(w.float().abs().max().item(), 1.0)
+        assert (g.float() - w.float()).abs().max().item() <= tol * scale
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (flash_attention_cuda.launches,
+              flash_attention_bwd_cuda.launches)
+    grads = torch.autograd.grad(ops.flash_attention(*leaves, window=window),
+                                leaves, dout)
+    torch.cuda.synchronize()
+    assert (flash_attention_cuda.launches,
+            flash_attention_bwd_cuda.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    assert all(torch.equal(g, w) for g, w in zip(grads, got))
 
 
 @pytest.mark.cuda
@@ -1066,13 +1105,181 @@ def test_rwkv6_scan_kernel_refuses_other_head_dims_and_gradients(
         ops.rwkv6_scan(*args)
     r, k, v, w, u, s0 = scan_case(1, B=1, T=4, H=2, hd=32,
                                   dtype=torch.float32, device=cuda_device)
+    # called directly the kernel takes no input that requires a gradient
+    # (ops.rwkv6_scan sends those through the WKV6Scan Function)
     with pytest.raises(RuntimeError, match="forward-only"):
-        ops.rwkv6_scan(r.requires_grad_(), k, v, w, u, s0)
+        rwkv6_scan_cuda(r.requires_grad_(), k, v, w, u, s0)
     with pytest.raises(RuntimeError, match="forward-only"):
-        ops.rwkv6_scan(r.detach(), k, v, w, u, s0.requires_grad_())
+        rwkv6_scan_cuda(r.detach(), k, v, w, u, s0.requires_grad_())
     with pytest.raises(TypeError):
         ops.rwkv6_scan(r.detach(), k, v, w.double(), u, s0.detach())
     assert rwkv6_scan_cuda.launches == before
+
+
+def scan_cotangents(seed, r, device):
+    """N(0, 1) cotangents on a scan's output (B,T,H,hd) and final state."""
+    rng = np.random.default_rng(seed)
+    B, T, H, hd = r.shape
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(device) for shape in ((B, T, H, hd), (B, H, hd, hd))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_dstate", [False, True])
+@pytest.mark.parametrize("decays", ["spread", "mixed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 5, 300])
+@pytest.mark.parametrize("hd", [32, 64])
+def test_rwkv6_scan_bwd_kernel_matches_plain(cuda_device, hd, T, dtype,
+                                             decays, with_dstate):
+    """The WKV6 backward kernel against rwkv6_scan_bwd_plain: dw, du and
+    dstate fp32 on both sides (summation orders differ: 1e-4 of scale);
+    dr, dk and dv in r's dtype, which in bf16 rounds them (half an ulp,
+    2^-9 of the value: 4e-3 of scale).  Two calls bitwise equal; T 1 and
+    5 are shorter than and ragged against the 4-step checkpoint chunks."""
+    from repro_torch.kernels.rwkv6_scan import (rwkv6_scan_bwd_cuda,
+                                                rwkv6_scan_bwd_plain)
+    args = scan_case(hd + T, B=3, T=T, H=5, hd=hd, dtype=dtype,
+                     device=cuda_device, decays=decays)
+    dout, dstate = scan_cotangents(T, args[0], cuda_device)
+    ds = dstate if with_dstate else None
+    before = rwkv6_scan_bwd_cuda.launches
+    got = rwkv6_scan_bwd_cuda(*args, dout, ds)
+    again = rwkv6_scan_bwd_cuda(*args, dout, ds)
+    want = rwkv6_scan_bwd_plain(*args, dout, ds)
+    torch.cuda.synchronize()
+    assert rwkv6_scan_bwd_cuda.launches == before + 2
+    for i, (g, a, w) in enumerate(zip(got, again, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, a)
+        tol = 4e-3 if i < 3 and dtype == torch.bfloat16 else 1e-4
+        scale = max(w.float().abs().max().item(), 1.0)
+        assert (g.float() - w.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+def test_rwkv6_scan_function_on_card(cuda_device):
+    """ops.rwkv6_scan on CUDA inputs that require a gradient: one forward
+    and one backward kernel launch, gradients bitwise the backward
+    kernel's, and the output the forward kernel's."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_bwd_cuda
+    args = scan_case(5, B=2, T=600, H=4, hd=64, dtype=torch.bfloat16,
+                     device=cuda_device, decays="mixed")
+    dout, dstate = scan_cotangents(6, args[0], cuda_device)
+    leaves = [t.clone().requires_grad_() for t in args]
+    before = (rwkv6_scan_cuda.launches, rwkv6_scan_bwd_cuda.launches)
+    out, final = ops.rwkv6_scan(*leaves)
+    grads = torch.autograd.grad((out, final), leaves, (dout, dstate))
+    torch.cuda.synchronize()
+    assert (rwkv6_scan_cuda.launches, rwkv6_scan_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_out, want_final = rwkv6_scan_cuda(*args)
+    want = rwkv6_scan_bwd_cuda(*args, dout, dstate)
+    assert torch.equal(out, want_out) and torch.equal(final, want_final)
+    assert all(torch.equal(g, w) for g, w in zip(grads, want))
+
+
+def carry_params(params, seed):
+    """Every RWKV ``decay_base`` overwritten with a seeded U[-6, -0.5] and
+    every RG-LRU ``lam`` with U[-9, -4], in place, so the states carry."""
+    gen = torch.Generator().manual_seed(seed)
+    for name, t in params.items():
+        if name.endswith(".tm.decay_base"):
+            t.copy_(torch.empty(t.shape).uniform_(-6.0, -0.5, generator=gen))
+        if name.endswith(".rec.lam"):
+            t.copy_(torch.empty(t.shape).uniform_(-9.0, -4.0, generator=gen))
+    return params
+
+
+def reduced_family(name):
+    """A reduced fp32 config of ``name``; gemma3-1b keeps head_dim 256 and
+    gets windows of 8 that a 64-token batch crosses."""
+    from repro_torch.config import get_config, reduced_config
+    cfg = reduced_config(get_config(name))
+    if name == "gemma3-1b":
+        cfg = dataclasses.replace(
+            cfg, num_layers=3, layer_pattern=("local", "local", "full"),
+            window_size=8, d_model=64, num_heads=4, num_kv_heads=1,
+            head_dim=256, d_ff=96)
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rwkv6-3b", "gemma3-1b"])
+def test_family_trainer_step_on_card_matches_cpu(cuda_device, name):
+    """A reduced rwkv6-3b (the scan's forward and backward kernels in
+    every layer) and a reduced gemma3-1b at head_dim 256 (flash's) in
+    fp32 on the card against the CPU from the same weights: ``lm_loss``
+    and every gradient to 1e-4 of its scale (summation orders differ),
+    then one Trainer step: the loss to 1e-4, parameters to 1e-4 of their
+    scale plus 5% of the step's rate (Adam's first step moves the weight
+    of a near-zero gradient by up to the rate whatever its rounding, so
+    the rate is kept small by a 20-step warmup, as run t3 keeps it)."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.data.lm import lm_batches
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_bwd_cuda
+    from repro_torch.models import Model, random_params
+    from repro_torch.train import Trainer, lm_loss
+    cfg = reduced_family(name)
+    params = carry_params(random_params(cfg, 3, "cpu"), 4)
+    batch = next(lm_batches(cfg.vocab_size, 4, 64, seed=2))
+    kernel = rwkv6_scan_bwd_cuda if name == "rwkv6-3b" \
+        else flash_attention_bwd_cuda
+    before = kernel.launches
+    got = []
+    for dev in (cuda_device, "cpu"):
+        model = Model(cfg, params, device=dev, trainable=True)
+        tb = {"tokens": torch.from_numpy(batch["tokens"]).long().to(dev),
+              "loss_mask": torch.from_numpy(batch["loss_mask"]).to(dev)}
+        loss, _ = lm_loss(model, tb)
+        named = dict(model.named_parameters())
+        grads = torch.autograd.grad(loss, list(named.values()),
+                                    allow_unused=True)
+        got.append((float(loss), {k: g for k, g in zip(named, grads)}))
+    assert kernel.launches == before + cfg.num_layers
+    (lc, gc), (lp, gp) = got
+    assert abs(lc - lp) <= 1e-4 * max(abs(lp), 1.0)
+    for key, g in gp.items():
+        if g is None:
+            assert gc[key] is None, key
+            continue
+        scale = max(g.abs().max().item(), 1.0)
+        assert (gc[key].cpu() - g).abs().max().item() <= 1e-4 * scale, key
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=20, total_steps=40)
+    card = Trainer(cfg, tcfg, params=params, device=cuda_device)
+    cpu = Trainer(cfg, tcfg, params=params, device="cpu")
+    lc, lp = (float(tr.step(batch)["loss"]) for tr in (card, cpu))
+    assert kernel.launches == before + 2 * cfg.num_layers
+    assert abs(lc - lp) <= 1e-4 * max(abs(lp), 1.0)
+    slack = 0.05 * float(cpu.opt.lr_fn(1))
+    for key, p in cpu.params.items():
+        got_p = card.params[key].detach().cpu()
+        scale = max(p.detach().abs().max().item(), 1.0)
+        assert (got_p - p.detach()).abs().max().item() <= 1e-4 * scale \
+            + slack, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kernel", [("rwkv6-3b", "rwkv6_scan_bwd"),
+                                         ("gemma3-1b", "flash_attention_bwd")])
+def test_train_cli_on_card(cuda_device, capsys, arch, kernel):
+    """``python -m repro_torch.launch.train --arch ARCH --reduced --steps
+    2`` on the card (its default device): two logged steps, the family's
+    backward kernel launched once per layer (attention layer) and step."""
+    from repro_torch.config import get_config, reduced_config
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_bwd_cuda
+    from repro_torch.launch import train
+    fn = {"rwkv6_scan_bwd": rwkv6_scan_bwd_cuda,
+          "flash_attention_bwd": flash_attention_bwd_cuda}[kernel]
+    before = fn.launches
+    train.main(["--arch", arch, "--reduced", "--steps", "2", "--batch", "2",
+                "--seq", "64"])
+    out = capsys.readouterr().out
+    assert "step     0" in out and "step     1" in out
+    assert fn.launches == before + 2 * reduced_config(
+        get_config(arch)).num_layers
 
 
 @pytest.mark.cuda

@@ -7,10 +7,15 @@ value's scale (the port's parity rule) unless a case says otherwise:
   ``FlashAttention`` autograd Function's CPU backward (through
   ``ops.flash_attention``) and torch autograd of ``flash_attention_plain``
   against ``jax.vjp`` of the reference's ``gqa_attention`` over
-  ``causal_mask`` (G 1, 2 and 7, with and without a window);
+  ``causal_mask`` (G 1, 2 and 7 at head_dim 16, G 4 and 16 at the Gemma
+  families' 256; no window, one that binds and one of 8);
 * ``lm_loss`` and ``prm_loss`` values and gradients on the toy dense
-  triple's models and a reduced ``rwkv6-3b`` (the plain WKV6 scan, decays
-  overwritten so the state carries) against ``jax.value_and_grad``;
+  triple's models, a reduced ``rwkv6-3b`` (the WKV6 scan's autograd
+  Function, decays overwritten so the state carries), a reduced
+  ``gemma3-1b`` at head_dim 256 (windows that bind), a reduced
+  ``recurrentgemma-9b`` (``lam`` overwritten so the RG-LRU state carries)
+  and a reduced ``qwen2-moe-a2.7b`` at a capacity factor that drops
+  routed slots, against ``jax.value_and_grad``;
 * ``AdamW`` over 3 updates (clipping engaged, warmup then the cosine
   phase), fp32 and bf16 moment state;
 * ``Trainer`` for 3 steps against the reference's, from the same weights;
@@ -44,7 +49,7 @@ from repro_torch.config import TrainConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (flash_attention_bwd_plain,
                                                  flash_attention_plain)
-from repro_torch.models import Model
+from repro_torch.models import Model, moe
 from repro_torch.models.bridge import params_from_numpy
 from repro_torch.optim import AdamW
 from repro_torch.train import Trainer, lm_loss, prm_loss
@@ -70,11 +75,15 @@ def _close(got, want, rtol=RTOL):
 # flash attention's backward
 # ----------------------------------------------------------------------
 
-@pytest.mark.parametrize("window", [0, 5])
-@pytest.mark.parametrize("H,KV", [(4, 4), (4, 2), (14, 2)])   # G 1, 2, 7
-def test_flash_backward_matches_jax_vjp(H, KV, window):
-    rng = np.random.default_rng(H + KV + window)
-    B, S, hd = 2, 23, 16
+@pytest.mark.parametrize("window", [0, 5, 8])      # 5 and 8 bind at S 23
+@pytest.mark.parametrize("H,KV,hd", [
+    pytest.param(4, 4, 16, id="4-4"), pytest.param(4, 2, 16, id="4-2"),
+    pytest.param(14, 2, 16, id="14-2"),                  # G 1, 2, 7
+    pytest.param(4, 1, 256, id="4-1-hd256"),             # gemma3's G 4
+    pytest.param(16, 1, 256, id="16-1-hd256")])          # recurrentgemma's
+def test_flash_backward_matches_jax_vjp(H, KV, hd, window):
+    rng = np.random.default_rng(H + KV + window + hd)
+    B, S = 2, 23
     q, k, v = (rng.standard_normal(shape).astype(np.float32)
                for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
     do = rng.standard_normal((B, S, H, hd)).astype(np.float32)
@@ -111,20 +120,65 @@ def _carry_decays(params, seed):
     rng = np.random.default_rng(seed)
     for group in ("blocks", "rem"):
         for blk in (params.get(group) or {}).values():
+            if "tm" not in blk:
+                continue
             base = blk["tm"]["decay_base"]
             blk["tm"]["decay_base"] = rng.uniform(
                 -6.0, -0.5, base.shape).astype(base.dtype)
     return params
 
 
+def _carry_lru(params, seed):
+    """Every RG-LRU ``lam`` overwritten by a seeded U[-9, -4], so the
+    recurrent state carries (at the seeded init it forgets every step)."""
+    rng = np.random.default_rng(seed)
+    for group in ("blocks", "rem"):
+        for blk in (params.get(group) or {}).values():
+            if "rec" in blk:
+                lam = blk["rec"]["lam"]
+                blk["rec"]["lam"] = rng.uniform(-9.0, -4.0, lam.shape).astype(
+                    lam.dtype)
+    return params
+
+
+def family_config(name):
+    """The reduced reference config a family's loss and trainer cases
+    train: rwkv6-3b (hd 32), gemma3-1b at its head_dim 256 with windows of
+    8 that the 15-token inputs cross, recurrentgemma-9b (recurrent,
+    recurrent, local; window 64), qwen2-moe-a2.7b at a capacity factor of
+    1e-9 (8 slots an expert, fewer than the 30 tokens x top-2 over 4
+    experts route to it on average, so slots drop)."""
+    cfg = jreduced_config(jget_config(name))
+    if name == "gemma3-1b":
+        cfg = dataclasses.replace(
+            cfg, num_layers=3, layer_pattern=("local", "local", "full"),
+            window_size=8, d_model=64, num_heads=4, num_kv_heads=1,
+            head_dim=256, d_ff=96, lru_width=64)
+    if name == "recurrentgemma-9b":
+        cfg = dataclasses.replace(cfg, num_layers=3)
+    if name == "qwen2-moe-a2.7b":
+        cfg = dataclasses.replace(cfg, capacity_factor=1e-9)
+    return cfg
+
+
+def family_params(cfg, seed):
+    """Seeded reference parameters as numpy, with every RWKV decay and
+    RG-LRU ``lam`` overwritten so that the recurrent states carry."""
+    params = jax.tree.map(np.asarray,
+                          build_model(cfg).init(jax.random.PRNGKey(seed)))
+    return _carry_lru(_carry_decays(params, seed + 3), seed + 4)
+
+
+FAMILIES = ("rwkv6-3b", "gemma3-1b", "recurrentgemma-9b", "qwen2-moe-a2.7b")
+
+
 def _loss_case(name):
     """(reference cfg, numpy params, numpy batch, loss kind)."""
     draft, _, prm = jtoy_triple()
     task = SyntheticReasoningTask(seed=3)
-    if name == "rwkv6-3b":
-        cfg = jreduced_config(jget_config("rwkv6-3b"))
-        params = _carry_decays(jax.tree.map(
-            np.asarray, build_model(cfg).init(jax.random.PRNGKey(2))), 5)
+    if name in FAMILIES:
+        cfg = family_config(name)
+        params = family_params(cfg, 2)
         toks = np.random.default_rng(4).integers(
             3, cfg.vocab_size, (2, 16)).astype(np.int32)
         batch = {"tokens": toks,
@@ -143,9 +197,13 @@ def _torch_batch(batch):
             else torch.from_numpy(v) for k, v in batch.items()}
 
 
-@pytest.mark.parametrize("name", ["toy-draft", "toy-prm", "rwkv6-3b"])
+@pytest.mark.parametrize("name", ["toy-draft", "toy-prm", *FAMILIES])
 def test_loss_and_gradients_match_reference(name):
     cfg, params, batch, kind = _loss_case(name)
+    if cfg.num_experts:     # more routed slots than the experts hold
+        tokens = batch["tokens"][:, :-1].size
+        assert tokens * cfg.experts_per_token > cfg.num_experts * \
+            moe._capacity(cfg, tokens, cfg.num_experts)
     jloss = jlm_loss if kind == "lm" else jprm_loss
     model = build_model(cfg)
     (want, _), grads = jax.jit(jax.value_and_grad(
