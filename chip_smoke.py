@@ -45,7 +45,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    B = H = 1 at T 4096 with decays near 1, a toy hd 32 in fp32; each with
    a non-zero state and final-state cotangent, at ``SCAN_BWD_TOL``, twice
    bitwise; timed at the training shape beside its bound and the plain
-   version; no PyTorch call computes it), then
+   version, its checkpoint scratch printed; no PyTorch call computes it),
+   then
    the Gemma shapes at head_dim 256 (gemma3's 4 query heads over 1 kv
    head, recurrentgemma's 16 over 1): flash attention in bf16 (the
    256-wide TMA/wgmma kernel, its log-sum-exp asked for gives the same
@@ -56,9 +57,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    timed, beside SDPA at head_dim 256 for flash; flash attention's
    backward at head_dim 256 (gemma3's heads at B 2, S 1024, causal and
    with window 512; recurrentgemma's at B 1, S 4096 with window 2048 and
-   at B 2, S 1024; a window of 8 over a ragged S 300; fp32 at S 200 for
-   both), its route printed, twice bitwise, the bf16 training shapes
-   timed beside SDPA's backward; then flash attention
+   at B 2, S 1024; a window of 8 over a ragged S 300: bf16 through the
+   TMA/wgmma kernels from the forward's log-sum-exp, which is held to the
+   plain one; fp32 at S 200 for both, through the older kernels), its
+   route and plan printed, twice bitwise, the bf16 training shapes timed
+   beside SDPA's backward; then flash attention
    with ``causal=False`` at the cross-attention families' shapes
    (llama-3.2-vision-11b's cross layers, Sq 512 over Sk 6,404 keys, H
    32/8, hd 128; seamless-m4t-medium's encoder, S 1,024, H 16/16, hd 64,
@@ -1622,7 +1625,7 @@ def phase_kernels_rwkv_bwd(torch):
     timed at the training shape beside its bound and the plain version.
     Returns its kernel row."""
     print("== phase 3: rwkv6_scan_bwd vs its plain version", flush=True)
-    from repro_torch.kernels.rwkv6_scan import (BWD_CHUNK,
+    from repro_torch.kernels.rwkv6_scan import (BWD_SEGMENT,
                                                 rwkv6_scan_bwd_cuda,
                                                 rwkv6_scan_bwd_plain)
     cases = [("training shape", 4, 512, 40, 64, torch.bfloat16, "spread"),
@@ -1675,16 +1678,17 @@ def phase_kernels_rwkv_bwd(torch):
             for i in range(2)]
     ms, ms_host = time_ms(torch, lambda *a: rwkv6_scan_bwd_cuda(*a), sets,
                           iters=5)
+    scratch = rwkv6_scan_bwd_cuda.scratch_bytes     # what the call allocated
     plain_ms = wall_ms(torch, rwkv6_scan_bwd_plain, sets[0])
     bound_ms, bound_by = bound_rwkv_bwd(sets[0][0])
-    scratch = (-(-T // BWD_CHUNK) - 1) * B * H * hd * hd * 4
     print(f"rwkv6_scan_bwd timing, training shape B={B} T={T} H={H} hd={hd}"
           f" bf16, device-only ms per call: kernel {ms:.4f}, bound "
           f"{bound_ms:.4f} ({bound_by}), plain {plain_ms:.4f} (back to back"
           f" from the host: about 20 launches a step), library: no single "
           f"PyTorch call computes the WKV6 backward; back to back from the "
           f"host: kernel {ms_host:.4f}; checkpoint scratch "
-          f"{scratch / 1e6:.1f} MB", flush=True)
+          f"{scratch / 1e6:.1f} MB (fp32 states every {BWD_SEGMENT} steps)",
+          flush=True)
     del sets
     return {"name": "rwkv6_scan_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/rwkv6_scan_bwd.cu",
@@ -1693,7 +1697,8 @@ def phase_kernels_rwkv_bwd(torch):
                         "plain scan through XLA)",
             "launches": 0, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None,
+            "scratch_bytes": scratch}
 
 
 # the Gemma families' attention shapes at head_dim 256: query heads, kv
@@ -1883,20 +1888,26 @@ def phase_kernels_gemma(torch, rows):
 
 def phase_kernels_gemma_bwd(torch, rows):
     """Phase 3 for flash attention's backward at head_dim 256 (the Gemma
-    families' training heads), through ``flash_attention_bwd.cu``'s kernels
-    with the output's head dims split over two blocks: gemma3's 4 query
-    heads over 1 at B 2, S 1024, causal and with its window of 512;
-    recurrentgemma's 16 over 1 at B 1, S 4096 with its window of 2048 and
-    at B 2, S 1024 (where 2048 does not bind); a window of 8, shorter
-    than every tile, over a ragged S 300; fp32 at S 200 for both
-    families.  Each against ``flash_attention_bwd_plain`` at ``BWD_TOL``,
-    twice bitwise, its route printed; the four bf16 training shapes timed
+    families' training heads): bf16 through ``flash_attention_bwd_hopper.
+    cu``'s head_dim-256 kernels (the forward's log-sum-exp, dQ over 32-key
+    tiles, dK/dV blocks of 64 keys under the plan at that tile, a block's
+    two warpgroups splitting each item), fp32 through
+    ``flash_attention_bwd.cu``'s (the output's head dims split over two
+    blocks): gemma3's 4 query heads over 1 at B 2, S 1024, causal and with
+    its window of 512; recurrentgemma's 16 over 1 at B 1, S 4096 with its
+    window of 2048 and at B 2, S 1024 (where 2048 does not bind); a window
+    of 8, shorter than every tile, over a ragged S 300; fp32 at S 200 for
+    both families.  Each against ``flash_attention_bwd_plain`` at
+    ``BWD_TOL``, twice bitwise, its route printed; at each bf16 shape the
+    forward's base-2 log-sum-exp over ``LOG2E`` against the plain natural
+    one (within 1e-3); the four bf16 training shapes timed
     beside the bound, the plain version and SDPA's backward.  The timings
     go into the backward's row of ``rows`` under each shape's tag."""
     print("== phase 3: flash_attention_bwd at head_dim 256 vs its plain "
           "version", flush=True)
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        LOG2E, bwd_keys, bwd_split_plan, flash_attention_bwd_cuda,
+        flash_attention_bwd_plain, flash_attention_plain,
         uses_hopper_bwd_kernel)
     row = {r["name"]: r for r in rows}["flash_attention_bwd"]
     bf16 = torch.bfloat16
@@ -1908,17 +1919,36 @@ def phase_kernels_gemma_bwd(torch, rows):
              ("gemma3 fp32", 2, 200, 4, 1, torch.float32, 0, False),
              ("rgemma fp32 window=8", 1, 200, 16, 1, torch.float32, 8,
               False)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for tag, B, S, H, KV, dtype, window, timed in cases:
-        check(not uses_hopper_bwd_kernel(dtype, 256),
+        hopper = uses_hopper_bwd_kernel(dtype, 256)
+        check(hopper == (dtype == bf16),
               f"flash_attention_bwd {tag}: unexpected kernel choice")
-        route = ("mma.sync" if dtype == bf16 else "CUDA cores, 16-query and "
-                 "32-key tiles") + (" (flash_attention_bwd.cu), the output's"
-                                    " 256 head dims split over 2 blocks in "
-                                    "the dK/dV and dQ kernels, the query "
-                                    f"heads over {H // KV} dK/dV blocks")
+        plan = bwd_split_plan(B, S, S, H, KV, window=window, sms=sms,
+                              keys=bwd_keys(256))
+        route = ("TMA/wgmma (flash_attention_bwd_hopper.cu, head_dim 256: "
+                 "dQ over 32-key tiles, dK/dV blocks of 64 keys, P^T and "
+                 "dS^T exchanged between a block's warpgroups), plan "
+                 f"(chunk, runs) on {sms} SMs {plan}"
+                 if hopper else "CUDA cores, 16-query and 32-key tiles "
+                 "(flash_attention_bwd.cu), the output's 256 head dims split"
+                 " over 2 blocks in the dK/dV and dQ kernels, the query "
+                 f"heads over {H // KV} dK/dV blocks")
         args, kw = flash_bwd_case(torch, B=B, S=S, H=H, KV=KV, hd=256,
                                   dtype=dtype, window=window,
                                   seed=900 + S + H + window)
+        lse_note = ""
+        if hopper:
+            _, lse = flash_attention_plain(*args[:3], window=window,
+                                           return_lse=True)
+            # natural units, as phase 3's forward checks (fp32 sums of
+            # exp2 in another order)
+            lse_err = (kw["lse"] / LOG2E - lse).abs().max().item()
+            check(lse_err <= 1e-3, f"flash_attention {tag}: the forward's "
+                  f"log-sum-exp differs from the plain one by {lse_err}")
+            lse_note = (f"; the forward's base-2 log-sum-exp / LOG2E within "
+                        f"{lse_err:.2e} of the plain one (tol 1e-3)")
+            del lse
         got = flash_attention_bwd_cuda(*args, window=window, **kw)
         again = flash_attention_bwd_cuda(*args, window=window, **kw)
         want = flash_attention_bwd_plain(*args, window=window)
@@ -1939,7 +1969,7 @@ def phase_kernels_gemma_bwd(torch, rows):
         print(f"flash_attention_bwd {tag} B={B} S={S} H={H} KV={KV} hd=256 "
               f"{str(dtype)[6:]} causal window={window}: route {route}; "
               f"max_abs_err {', '.join(errs)} (tol {tol:.0e} x scale); two "
-              f"calls bitwise equal: {same}", flush=True)
+              f"calls bitwise equal: {same}{lse_note}", flush=True)
         check(same, f"flash_attention_bwd {tag}: two calls differ")
         del args, kw, got, again, want
         if timed:

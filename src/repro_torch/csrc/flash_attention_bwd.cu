@@ -52,24 +52,25 @@
 //   dQ, Q and dO for dK and dV) are staged a second time transposed.
 //   Rows past Sq or Sk are staged as zeros and never written; head_dim is
 //   zero-padded to a multiple of 16 in shared memory.
-// bf16 at head_dim 64 and 128 (every Qwen2.5-Math layer) no longer comes
-// here: flash_attention_bwd_hopper.cu (wgmma and TMA, the log-sum-exp the
-// forward saved, a key tile's heads spread over several blocks) takes it.
-// These kernels keep fp32, the toy models' bf16 head dims 16 and 40, and
-// head_dim 256 in bf16 and fp32 (the Gemma families).
+// bf16 at head_dim 64, 128 and 256 (every Qwen2.5-Math and Gemma layer) no
+// longer comes here: flash_attention_bwd_hopper.cu (wgmma and TMA, the
+// log-sum-exp the forward saved, a key tile's heads spread over several
+// blocks) takes it.  These kernels keep fp32 (head dims up to 256) and the
+// toy models' bf16 head dims 16 and 40; the entry point refuses bf16 above
+// head_dim 128.
 //
-// Head dims above 128: dK, dV and dQ are register tiles of at most
-// kDimTile = 128 columns (a thread's 16 x 128 slice of dK and dV is already
-// 128 fp32 registers), so the output's head dims are split over blocks:
-// blocks (b) and (c) run once per 128-wide half of the head dim (grid y =
-// kv heads or heads x halves), each recomputing S, P, dP and dS over the
-// whole head dim from shared memory and producing its half of the output.
-// Only the transposed operands of the half's products are staged for the
-// half.  And the G query heads of a kv head are spread over G blocks of
-// (b) (one head each; the Gemma families have one kv head, so key tiles
-// alone give too few blocks to fill the card): each writes its fp32 dK
-// and dV to `part`, and a fourth kernel (d) sums the G partials in head
-// order, scales dK and rounds both to the output dtype.  fp32 at
+// Head dims above 128 (fp32 at 256): dK, dV and dQ are register tiles of
+// at most kDimTile = 128 columns (a thread's 16 x 128 slice of dK and dV
+// is already 128 fp32 registers), so the output's head dims are split over
+// blocks: blocks (b) and (c) run once per 128-wide half of the head dim
+// (grid y = kv heads or heads x halves), each recomputing S, P, dP and dS
+// over the whole head dim from shared memory and producing its half of
+// the output.  Only the transposed operands of the half's products are
+// staged for the half.  And the G query heads of a kv head are spread over
+// G blocks of (b) (one head each; the Gemma families have one kv head, so
+// key tiles alone give too few blocks to fill the card): each writes its
+// fp32 dK and dV to `part`, and a fourth kernel (d) sums the G partials in
+// head order, scales dK and rounds both to the output dtype.  fp32 at
 // head_dim 256 takes smaller tiles to fit shared memory: 16-query tiles in
 // (b), 32-key tiles in (c).
 
@@ -689,11 +690,12 @@ cudaError_t launch_all(const Args& a, int B, cudaStream_t s) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, for all of q, k, v, out, dout, dq, dk
-// and dv.  q, out, dout, dq: (B, Sq, H, hd); k, v, dk, dv: (B, Sk, KV, hd);
-// all contiguous and 16-byte aligned; lse and delta: (B, H, Sq) float32
-// scratch; part: float32 scratch of 2 H B Sk hd elements (the split heads'
-// dK and dV) when head_dim > 128, else unused (may be null).  H / KV <= 64;
+// dtype: 0 = float32, 1 = bfloat16 (head_dim 128 at most), for all of q,
+// k, v, out, dout, dq, dk and dv.  q, out, dout, dq: (B, Sq, H, hd);
+// k, v, dk, dv: (B, Sk, KV, hd); all contiguous and 16-byte aligned; lse
+// and delta: (B, H, Sq) float32 scratch; part: float32 scratch of
+// 2 H B Sk hd elements (the split heads' dK and dV) when head_dim > 128,
+// else unused (may be null).  H / KV <= 64;
 // head_dim a multiple of 8, at most 256.  Every query row must hold at
 // least one live key (the wrapper checks).  Launches the three kernels
 // (four above head_dim 128) in order on `stream`; returns the first
@@ -710,7 +712,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
       H / KV > 64 || hd <= 0 || hd > kMaxHeadDim || hd % 8 != 0 ||
       window < 0 || B > 65535 ||
       H * ((hd + kDimTile - 1) / kDimTile) > 65535 ||
-      (hd > kDimTile && part == nullptr))
+      (hd > kDimTile && part == nullptr) || (dtype == 1 && hd > kDimTile))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;

@@ -27,16 +27,17 @@ it.
   recomputed), ``D = rowsum(dO * O)``, ``dS = P * (dP - D)``, dK and dV
   summed over the query heads of a kv group, P kept in fp32 (the forward's
   bf16 cast of P gets no gradient path of its own).
-  :func:`flash_attention_bwd_cuda` launches, for bf16 at head_dim 64 or
-  128 (:func:`uses_hopper_bwd_kernel`), ``csrc/
+  :func:`flash_attention_bwd_cuda` launches, for bf16 at head_dim 64,
+  128 or 256 (:func:`uses_hopper_bwd_kernel`), ``csrc/
   flash_attention_bwd_hopper.cu`` (TMA/wgmma: dQ and D, then dK/dV over
   the plan of :func:`bwd_split_plan`, then the split tiles' partials
-  summed in order) from the forward's
-  log-sum-exp, and otherwise ``csrc/flash_attention_bwd.cu`` (three
-  mma.sync / CUDA-core kernels that rebuild it; fp32, the toy head dims
-  and head_dim 256, where they split the output's head dims over two
-  blocks and a kv group's query heads over G, summing the heads' fp32
-  partials in order); no atomics either way.
+  summed in order; at 256 a dK/dV block's two warpgroups split each item's
+  products and exchange P^T and dS^T through shared memory) from the
+  forward's log-sum-exp, and otherwise ``csrc/flash_attention_bwd.cu``
+  (three mma.sync / CUDA-core kernels that rebuild it; fp32 and the toy
+  head dims 16 and 40, and fp32 at head_dim 256, where they split the
+  output's head dims over two blocks and a kv group's query heads over G,
+  summing the heads' fp32 partials in order); no atomics either way.
   It counts its calls in ``flash_attention_bwd_cuda.launches``.
 * :class:`FlashAttention` binds the two as a ``torch.autograd.Function``:
   the forward kernel on detached inputs, saving the log-sum-exp where the
@@ -58,14 +59,16 @@ NEG = -1e30
 MAX_GROUP = 64        # query heads per kv head (the kernel's 64 query rows)
 MAX_HEAD_DIM = 256    # forward and backward
 # the widest dK/dV/dQ register tile of flash_attention_bwd.cu: above it
-# the output's head dims are split over blocks, and so are a kv group's
-# query heads, whose fp32 partials the kernels sum
+# (fp32 at head_dim 256) the output's head dims are split over blocks, and
+# so are a kv group's query heads, whose fp32 partials the kernels sum
 BWD_DIM_TILE = 128
 LOG2E = 1.4426950408889634
-# the Hopper backward's dK/dV blocks: 128 keys, swept in 64-query items;
-# the plan packs them into waves of one block per SM of the card, and sums
-# the runs of a split key tile from fp32 partials
-BWD_KEYS, BWD_QUERIES = 128, 64
+# the Hopper backward's dK/dV blocks: 128 keys (64 at head_dim 256, where
+# a block's two warpgroups split each item's products), swept in 64-query
+# items; the plan packs them into waves of one block per SM of the card,
+# and sums the runs of a split key tile from fp32 partials.  csrc's kBKeys
+# and kWBKeys: the C entry refuses a plan or partials sized for others
+BWD_KEYS, BWD_KEYS_256, BWD_QUERIES = 128, 64, 64
 # a dK/dV block's own cost (its K/V load, start and epilogue) in items,
 # fitted to `tools/compare_flash_bwd.py --plans` on an H100: runs of one
 # item a block took twice as long as runs of nine
@@ -144,7 +147,7 @@ def flash_attention_bwd_plain(q, k, v, out, dout, *, causal=True,
 
 
 HOPPER_HEAD_DIMS = (64, 128, 256)  # bf16 head dims of the TMA/wgmma kernels
-HOPPER_BWD_HEAD_DIMS = (64, 128)   # and of the TMA/wgmma backward
+HOPPER_BWD_HEAD_DIMS = (64, 128, 256)   # and of the TMA/wgmma backward
 
 
 def _library():
@@ -174,11 +177,19 @@ def uses_hopper_bwd_kernel(dtype, head_dim: int) -> bool:
     return dtype == torch.bfloat16 and head_dim in HOPPER_BWD_HEAD_DIMS
 
 
+def bwd_keys(head_dim: int) -> int:
+    """Keys of one dK/dV block (one key tile of the plan) of the Hopper
+    backward at ``head_dim``."""
+    return BWD_KEYS_256 if head_dim == 256 else BWD_KEYS
+
+
 def bwd_split_plan(B: int, Sq: int, Sk: int, H: int, KV: int, *,
-                   causal=True, window: int = 0, sms: int):
+                   causal=True, window: int = 0, sms: int,
+                   keys: int = BWD_KEYS):
     """The Hopper backward's dK/dV plan on a card of ``sms`` SMs, a pure
     function of its arguments: ``(chunk, tiles)``, ``tiles[t] = (jlo, n,
-    splits)`` for each key tile of :data:`BWD_KEYS` keys.
+    splits)`` for each key tile of ``keys`` keys (:func:`bwd_keys`:
+    :data:`BWD_KEYS`, or :data:`BWD_KEYS_256` at head_dim 256).
 
     Query tiles ``jlo .. jlo + n - 1`` of :data:`BWD_QUERIES` positions hold
     a live pair for some key of tile t; its ``N = G * n`` items (query head,
@@ -192,15 +203,15 @@ def bwd_split_plan(B: int, Sq: int, Sk: int, H: int, KV: int, *,
     (:func:`_plan_table`); they do not recompute it.
     """
     return _bwd_split_plan(B, Sq, Sk, H, KV, bool(causal), int(window),
-                           int(sms))
+                           int(sms), int(keys))
 
 
 @functools.lru_cache(maxsize=256)
-def _bwd_split_plan(B, Sq, Sk, H, KV, causal, window, sms):
+def _bwd_split_plan(B, Sq, Sk, H, KV, causal, window, sms, keys):
     G = H // KV
     tiles = []
-    for t in range(-(-Sk // BWD_KEYS)):
-        k0, klast = t * BWD_KEYS, min((t + 1) * BWD_KEYS, Sk) - 1
+    for t in range(-(-Sk // keys)):
+        k0, klast = t * keys, min((t + 1) * keys, Sk) - 1
         qlo = k0 if causal else 0
         qhi = min(Sq - 1, klast + window - 1) if window else Sq - 1
         jlo = qlo // BWD_QUERIES
@@ -374,14 +385,16 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal=True,
     scale = float(hd ** -0.5 if scale is None else scale)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if hopper:
+        keys = bwd_keys(hd)
         _, tiles = bwd_split_plan(B, Sq, Sk, H, KV, causal=causal,
-                                  window=window, sms=_sm_count(q.device))
+                                  window=window, sms=_sm_count(q.device),
+                                  keys=keys)
         nslots = sum(splits for _, _, splits in tiles)
         lse = lse.contiguous()
         delta = torch.empty((B, H, Sq), dtype=torch.float32,
                             device=q.device)
         part = torch.empty(
-            (B * KV * nslots * 2 * BWD_KEYS * hd
+            (B * KV * nslots * 2 * keys * hd
              if nslots > len(tiles) else 0,),
             dtype=torch.float32, device=q.device)
         err = _library_bwd_hopper().flash_attention_hopper_bwd(
@@ -389,7 +402,8 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal=True,
             dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), part.data_ptr(),
             _plan_table(tiles, q.device).data_ptr(), B, Sq, Sk, H, KV, hd,
-            int(bool(causal)), int(window), scale, nslots, stream)
+            int(bool(causal)), int(window), scale, nslots, len(tiles),
+            part.numel(), stream)
     else:
         stats = torch.empty((2, B, H, Sq), dtype=torch.float32,
                             device=q.device)
@@ -429,7 +443,8 @@ def _library_bwd_hopper():
     fn = lib.flash_attention_hopper_bwd
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 \
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+               ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 

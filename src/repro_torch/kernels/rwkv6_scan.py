@@ -17,9 +17,11 @@ step t::
 * :func:`rwkv6_scan_bwd_plain` is the recurrence's gradient, in reverse
   step by step in fp32 (the yardstick on the card, the backward on the
   CPU); :func:`rwkv6_scan_bwd_cuda` launches ``csrc/rwkv6_scan_bwd.cu``
-  (fp32 state checkpoints every :data:`BWD_CHUNK` steps, each chunk's
-  states recomputed from its checkpoint and walked backwards; no atomics)
-  and counts its calls in ``rwkv6_scan_bwd_cuda.launches``.
+  (a 4 x 4 tile of S and dS a thread; fp32 state checkpoints every
+  :data:`BWD_SEGMENT` steps, each segment's states recomputed from its
+  checkpoint, a 4-step sub-chunk at a time, and walked backwards; rows
+  and columns reduced in a fixed order; no atomics) and
+  counts its calls in ``rwkv6_scan_bwd_cuda.launches``.
 * :class:`WKV6Scan` binds the two directions as a
   ``torch.autograd.Function`` returning ``(out, final state)``;
   ``ops.rwkv6_scan`` goes through it whenever an input requires a
@@ -53,9 +55,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 WANT_BLOCKS = 4 * 132
 MIN_SEGMENT = 32
 MAX_SEGMENTS = 32
-# the backward kernel's steps per fp32 state checkpoint (its scratch holds
-# ceil(T / BWD_CHUNK) - 1 states of every (row, head)); csrc's kChunk
-BWD_CHUNK = 4
+# the backward kernel's steps per fp32 state checkpoint: its scratch holds
+# ceil(T / BWD_SEGMENT) - 1 states of every (row, head).  csrc's kSeg; the
+# C entry refuses a scratch of any other size
+BWD_SEGMENT = 16
 
 
 def rwkv6_scan_plain(r, k, v, w, u, state):
@@ -274,8 +277,8 @@ def _library_bwd():
     lib = build.load("rwkv6_scan_bwd")
     fn = lib.rwkv6_scan_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_longlong] \
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -286,9 +289,11 @@ def rwkv6_scan_bwd_cuda(r, k, v, w, u, state, dout, dstate=None):
     or bfloat16 of one dtype, w, u and state float32, hd 32 or 64), and
     ``dout`` and ``dstate`` (or None) float32.  ``du`` is the sum over the
     batch rows of the kernel's per-(row, head) partials, taken in a fixed
-    order.  Scratch: ``ceil(T / BWD_CHUNK) - 1`` fp32 states of every
-    (row, head).  Raises on anything the kernel does not take and on a
-    failed launch."""
+    order.  Scratch: ``ceil(T / BWD_SEGMENT) - 1`` fp32 states of every
+    (row, head), :func:`bwd_scratch_bytes`: 81.3 MB at rwkv6-3b's training
+    shape (B 4, T 512, H 40, hd 64); ``rwkv6_scan_bwd_cuda.scratch_bytes``
+    holds the last launch's.  Raises on anything the kernel does not take
+    and on a failed launch."""
     who = "rwkv6_scan_bwd_cuda"
     dev = _check(who, r, k, v, w, u, state, None)
     B, T, H, hd = r.shape
@@ -312,24 +317,33 @@ def rwkv6_scan_bwd_cuda(r, k, v, w, u, state, dout, dstate=None):
     u = _ready(u)
     du = torch.empty((B, H, hd), dtype=torch.float32, device=r.device)
     ds0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
-    chunks = -(-T // BWD_CHUNK)
-    cp = torch.empty(((chunks - 1) * B * H * hd * hd,), dtype=torch.float32,
-                     device=r.device) if chunks > 1 else None
+    nbytes = bwd_scratch_bytes(B, T, H, hd)
+    cp = torch.empty((nbytes // 4,), dtype=torch.float32,
+                     device=r.device) if nbytes else None
     err = _library_bwd()(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         state.data_ptr(), dout.data_ptr(),
         None if dstate is None else dstate.data_ptr(), dr.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
-        ds0.data_ptr(), None if cp is None else cp.data_ptr(), B, T, H, hd,
-        _DTYPE_CODE[r.dtype], streams.current(dev))
+        ds0.data_ptr(), None if cp is None else cp.data_ptr(), nbytes // 4,
+        B, T, H, hd, _DTYPE_CODE[r.dtype], streams.current(dev))
     if err:
         raise RuntimeError(f"rwkv6_scan_bwd kernel launch failed: CUDA "
                            f"error {err}")
     streams.launched(rwkv6_scan_bwd_cuda)
+    rwkv6_scan_bwd_cuda.scratch_bytes = nbytes
     return dr, dk, dv, dw, du.sum(0), ds0
 
 
 rwkv6_scan_bwd_cuda.launches = 0
+rwkv6_scan_bwd_cuda.scratch_bytes = 0   # the last launch's checkpoints
+
+
+def bwd_scratch_bytes(B: int, T: int, H: int, hd: int) -> int:
+    """Bytes of :func:`rwkv6_scan_bwd_cuda`'s checkpoint scratch: the fp32
+    state before every :data:`BWD_SEGMENT`-th step but the first, of every
+    (row, head)."""
+    return max(0, -(-T // BWD_SEGMENT) - 1) * B * H * hd * hd * 4
 
 
 class WKV6Scan(torch.autograd.Function):

@@ -18,7 +18,9 @@ non-causal shapes up to Sk 6404, on N(0, 1) inputs and on a case whose
 softmax the last 4 keys decide), which refuses inputs that require
 a gradient when called directly, and its backward kernel (fp32 and bf16;
 the same groups, head dims up to 256, G 4 and 16 at 256 with windows that
-bind, one of 8 and ragged shapes; bitwise deterministic;
+bind, one of 8 and ragged shapes, bf16 at 256 through the TMA/wgmma
+kernels from the forward's log-sum-exp and raising without it; bitwise
+deterministic;
 through the autograd Function of ``ops.flash_attention``; one toy train
 step on the card against the CPU), and the WKV6 scan
 (head dims 32 and 64; T = 1, 17 and 1000; bf16 and fp32 r/k/v; spread
@@ -29,14 +31,14 @@ their state bitwise unchanged; bitwise deterministic, on two streams at
 once, and captured in a CUDA graph), which refuses other head dims and,
 called directly, inputs that require a gradient, and its backward kernel
 (head dims 32 and 64, bf16 and fp32, T 1 to 600, spread and mixed
-clamp-end decays, with and without a final-state cotangent, bitwise
-deterministic, through the ``WKV6Scan`` autograd Function of
-``ops.rwkv6_scan``).  One train step of a reduced rwkv6-3b and of a
-reduced gemma3-1b at head_dim 256 on the card matches the CPU's, and
-``launch.train --reduced`` trains both on the card.  A toy model's
-``score`` on the card
-launches the flash kernel once per layer and the gather once; a toy RWKV
-model's ``score`` and ``decode_step`` launch the scan once per layer.
+clamp-end decays, with and without a final-state cotangent, and T 4096
+with decays near 1, bitwise deterministic, through the ``WKV6Scan``
+autograd Function of ``ops.rwkv6_scan``).  One train step of a reduced
+rwkv6-3b and of a reduced gemma3-1b at head_dim 256 on the card matches
+the CPU's, and ``launch.train --reduced`` trains both on the card.  A toy
+model's ``score`` on the card launches the flash kernel once per layer
+and the gather once; a toy RWKV model's ``score`` and ``decode_step``
+launch the scan once per layer.
 
 These tests need an NVIDIA GPU and nvcc: a CUDA kernel has no CPU mode, so
 elsewhere they skip.  Two cases run on the CPU too: they show that the
@@ -507,29 +509,41 @@ def test_flash_head_dim_256_matches_plain(cuda_device, dtype, tol, H, KV,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("window,S", [(0, 300), (8, 300), (200, 511),
-                                      (0, 77)])
+@pytest.mark.parametrize("causal,window,Sq,Sk", [
+    (True, 0, 300, 300), (True, 8, 300, 300), (True, 200, 511, 511),
+    (True, 0, 77, 77), (False, 0, 150, 333), (False, 33, 300, 300),
+    (False, 40, 233, 200)])
 @pytest.mark.parametrize("H,KV", [(4, 1), (16, 1)])     # G = 4 and 16
-def test_flash_backward_head_dim_256(cuda_device, dtype, tol, window, S, H,
-                                     KV):
+def test_flash_backward_head_dim_256(cuda_device, dtype, tol, causal, window,
+                                     Sq, Sk, H, KV):
     """The Gemma families' training heads: the backward at head_dim 256
-    (the kernels that rebuild the log-sum-exp, each 128-wide half of the
-    output's head dims a block of its own) against the plain version, to
-    ``tol`` of each gradient's scale, twice bitwise; then through the
-    autograd Function (one forward and one backward launch).  Window 200
-    binds at S 511 (ragged against every tile), 8 is shorter than a tile,
-    S 77 is shorter than a 128-key tile."""
+    against the plain version, to ``tol`` of each gradient's scale, twice
+    bitwise; then through the autograd Function (one forward and one
+    backward launch).  bf16 goes to the TMA/wgmma kernels, from the
+    forward kernel's base-2 log-sum-exp; fp32 to the kernels that rebuild
+    it (each 128-wide half of the output's head dims a block of its own).
+    Window 200 binds at S 511 (ragged against every tile), 8 is shorter
+    than a tile, S 77 is shorter than a 128-key tile; the non-causal cases
+    (an encoder's or cross layer's masks) take the kernels' other bounds:
+    ragged with Sq < Sk, a window alone at Sq = Sk, and a window alone
+    with Sq > Sk."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_bwd_plain,
         uses_hopper_bwd_kernel)
-    assert not uses_hopper_bwd_kernel(dtype, 256)
-    q, k, v = flash_case(H + window + S, B=2, Sq=S, Sk=S, H=H, KV=KV,
+    hopper = uses_hopper_bwd_kernel(dtype, 256)
+    assert hopper == (dtype == torch.bfloat16)
+    q, k, v = flash_case(H + window + Sq, B=2, Sq=Sq, Sk=Sk, H=H, KV=KV,
                          hd=256, dtype=dtype, device=cuda_device)
-    out = flash_attention_cuda(q, k, v, window=window)
+    opts = {"causal": causal, "window": window}
+    if hopper:
+        out, lse = flash_attention_cuda(q, k, v, return_lse=True, **opts)
+        kw = {"lse": lse, **opts}
+    else:
+        out, kw = flash_attention_cuda(q, k, v, **opts), opts
     dout = torch.randn(q.shape, device=cuda_device).to(dtype)
-    got = flash_attention_bwd_cuda(q, k, v, out, dout, window=window)
-    again = flash_attention_bwd_cuda(q, k, v, out, dout, window=window)
-    want = flash_attention_bwd_plain(q, k, v, out, dout, window=window)
+    got = flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
+    again = flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
+    want = flash_attention_bwd_plain(q, k, v, out, dout, **opts)
     torch.cuda.synchronize()
     for g, a, w in zip(got, again, want):
         assert g.dtype == dtype and g.shape == w.shape
@@ -539,13 +553,30 @@ def test_flash_backward_head_dim_256(cuda_device, dtype, tol, window, S, H,
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     before = (flash_attention_cuda.launches,
               flash_attention_bwd_cuda.launches)
-    grads = torch.autograd.grad(ops.flash_attention(*leaves, window=window),
+    grads = torch.autograd.grad(ops.flash_attention(*leaves, **opts),
                                 leaves, dout)
     torch.cuda.synchronize()
     assert (flash_attention_cuda.launches,
             flash_attention_bwd_cuda.launches) == (before[0] + 1,
                                                    before[1] + 1)
     assert all(torch.equal(g, w) for g, w in zip(grads, got))
+
+
+@pytest.mark.cuda
+def test_flash_backward_head_dim_256_needs_the_forwards_lse(cuda_device):
+    """bf16 at head_dim 256 goes to the TMA/wgmma backward, which takes the
+    forward's log-sum-exp: called without it, or with the natural-log
+    shape wrong, the wrapper raises before any launch."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    q, k, v = flash_case(3, B=1, Sq=100, Sk=100, H=4, KV=1, hd=256,
+                         dtype=torch.bfloat16, device=cuda_device)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    before = flash_attention_bwd_cuda.launches
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        flash_attention_bwd_cuda(q, k, v, out, out)
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        flash_attention_bwd_cuda(q, k, v, out, out, lse=lse[:, :, :50])
+    assert flash_attention_bwd_cuda.launches == before
 
 
 @pytest.mark.cuda
@@ -1136,7 +1167,8 @@ def test_rwkv6_scan_bwd_kernel_matches_plain(cuda_device, hd, T, dtype,
     dstate fp32 on both sides (summation orders differ: 1e-4 of scale);
     dr, dk and dv in r's dtype, which in bf16 rounds them (half an ulp,
     2^-9 of the value: 4e-3 of scale).  Two calls bitwise equal; T 1 and
-    5 are shorter than and ragged against the 4-step checkpoint chunks."""
+    5 are shorter than a 16-step checkpoint segment (5 ragged against its
+    4-step sub-chunks), 300 ragged against the segments."""
     from repro_torch.kernels.rwkv6_scan import (rwkv6_scan_bwd_cuda,
                                                 rwkv6_scan_bwd_plain)
     args = scan_case(hd + T, B=3, T=T, H=5, hd=hd, dtype=dtype,
@@ -1155,6 +1187,54 @@ def test_rwkv6_scan_bwd_kernel_matches_plain(cuda_device, hd, T, dtype,
         tol = 4e-3 if i < 3 and dtype == torch.bfloat16 else 1e-4
         scale = max(w.float().abs().max().item(), 1.0)
         assert (g.float() - w.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+def test_rwkv6_scan_bwd_kernel_long_slow_decays(cuda_device):
+    """B = H = 1 at T 4096 with decays near 1 (the clamp's slow end), so
+    the state carries across all 256 checkpoint segments: against
+    rwkv6_scan_bwd_plain at the same tolerances, twice bitwise."""
+    from repro_torch.kernels.rwkv6_scan import (rwkv6_scan_bwd_cuda,
+                                                rwkv6_scan_bwd_plain)
+    args = scan_case(41, B=1, T=4096, H=1, hd=64, dtype=torch.bfloat16,
+                     device=cuda_device, decays="slow")
+    dout, dstate = scan_cotangents(42, args[0], cuda_device)
+    got = rwkv6_scan_bwd_cuda(*args, dout, dstate)
+    again = rwkv6_scan_bwd_cuda(*args, dout, dstate)
+    want = rwkv6_scan_bwd_plain(*args, dout, dstate)
+    torch.cuda.synchronize()
+    for i, (g, a, w) in enumerate(zip(got, again, want)):
+        assert torch.equal(g, a)
+        tol = 4e-3 if i < 3 else 1e-4
+        scale = max(w.float().abs().max().item(), 1.0)
+        assert (g.float() - w.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+def test_bwd_kernels_refuse_mis_sized_scratch(cuda_device, monkeypatch):
+    """The backward kernels' C entries check the sizes the wrappers give
+    them: a checkpoint scratch sized for another interval than the scan
+    kernel's, or a dK/dV plan for another key tile than the hd-256
+    kernel's, is refused before any launch, and the wrapper raises."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan as rs
+    args = scan_case(43, B=1, T=40, H=2, hd=64, dtype=torch.bfloat16,
+                     device=cuda_device, decays="spread")
+    dout, _ = scan_cotangents(44, args[0], cuda_device)
+    monkeypatch.setattr(rs, "bwd_scratch_bytes", lambda B, T, H, hd:
+                        (-(-T // 8) - 1) * B * H * hd * hd * 4)
+    before = rs.rwkv6_scan_bwd_cuda.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        rs.rwkv6_scan_bwd_cuda(*args, dout)
+    assert rs.rwkv6_scan_bwd_cuda.launches == before
+    q, k, v = flash_case(45, B=1, Sq=300, Sk=300, H=4, KV=1, hd=256,
+                         dtype=torch.bfloat16, device=cuda_device)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    monkeypatch.setattr(fa, "bwd_keys", lambda head_dim: 128)
+    before = fa.flash_attention_bwd_cuda.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa.flash_attention_bwd_cuda(q, k, v, out, out, lse=lse)
+    assert fa.flash_attention_bwd_cuda.launches == before
 
 
 @pytest.mark.cuda

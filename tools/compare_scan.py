@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the WKV6 scan wrapper and one RWKV decode layer of two checkouts on
-one card, in turns.
+"""Time the WKV6 scan wrapper, its backward and one RWKV decode layer of
+two checkouts on one card, in turns.
 
     python3 tools/compare_scan.py OTHER_SRC [--rounds N] [--plans]
 
@@ -11,7 +11,10 @@ each side runs in its own process, in the order OTHER, this, this, OTHER
 (calls queued behind a device sleep; input sets cycled past the L2 cache),
 ``rwkv6_scan_cuda`` at ``chip_smoke.py``'s phase-3 shapes of rwkv6-3b's
 heads (H 40, hd 64, bf16 r/k/v): decode (B 16, T 1), shared scoring
-(B 16, T 17) and full sequence (B 4, T 1024); and one full-width rwkv6-3b
+(B 16, T 17) and full sequence (B 4, T 1024); ``rwkv6_scan_bwd_cuda`` at
+rwkv6-3b's training shape (``bwd training``: B 4, T 512, H 40, hd 64,
+bf16 r/k/v, N(0, 1) cotangents on the output and the final state, two
+input sets cycled); and one full-width rwkv6-3b
 layer's ``block_apply`` in decode mode at B 16 with half the rows live
 (the scan, the state write and everything around them: its device time
 per call summed from ``torch.profiler``'s kernel and copy rows, its host
@@ -100,6 +103,22 @@ def child(args) -> None:
                            sets)
                 rs.scan_plan = chosen
             del sets
+        sets = []
+        for i in range(2):
+            args = cs.rwkv_case(torch, B=4, T=512, H=40, hd=64,
+                                dtype=torch.bfloat16, seed=720 + i)
+            gen = torch.Generator(device="cuda").manual_seed(730 + i)
+            sets.append((*args,
+                         torch.randn((4, 512, 40, 64), generator=gen,
+                                     device="cuda"),
+                         torch.randn((4, 40, 64, 64), generator=gen,
+                                     device="cuda")))
+        runs = [cs.time_ms(torch, rs.rwkv6_scan_bwd_cuda, sets, iters=5,
+                           enqueue=True) for _ in range(5)]
+        print(json.dumps({"src": src, "name": "bwd training",
+                          "device_ms": [r[0] for r in runs],
+                          "host_ms": [r[2] for r in runs]}), flush=True)
+        del sets
         call = decode_layer(torch)
         report_layer(torch, src, call)
 
